@@ -1,0 +1,84 @@
+"""Builds the port's CUDA sources and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
+interface, compiled by ``nvcc`` for Hopper (``sm_90a``) at first use into
+``build/nbasr_torch/`` beside the package (listed in ``.gitignore``).  The
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  :func:`build` starts one
+``nvcc`` per source, all at once.
+
+A missing ``nvcc`` or a failed build raises; nothing falls back.
+"""
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+__all__ = ['build', 'load', 'BUILD_DIR', 'NVCC_FLAGS']
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG.parent / 'build' / 'nbasr_torch'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_LIBS = {}
+
+
+def _nvcc():
+    path = shutil.which('nvcc')
+    if path is None and os.path.exists('/usr/local/cuda/bin/nvcc'):
+        path = '/usr/local/cuda/bin/nvcc'
+    if path is None:
+        raise RuntimeError('nvcc not found: the CUDA toolkit is needed to '
+                           'build the kernels in nbasr_torch/csrc')
+    return path
+
+
+def _target(name):
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob('*.cu*')):     # the source and shared headers
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
+
+
+def build(names=('fused_cell',)):
+    """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
+
+    Returns ``{name: (path, compiler log)}``; the log holds ptxas's register
+    and shared-memory report, empty for a library found already built.
+    """
+    out, procs = {}, {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            out[name] = (target, '')
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f'{target.name}.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / f'{name}.cu')]
+        procs[name] = (target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (target, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f'{name}: nvcc exited {proc.returncode}\n{log}')
+            continue
+        os.replace(tmp, target)
+        out[name] = (target, log)
+    if failed:
+        raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
+    return out
+
+
+def load(name):
+    """The ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
+    if name not in _LIBS:
+        path, _ = build((name,))[name]
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return _LIBS[name]
