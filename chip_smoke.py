@@ -10,21 +10,41 @@ prints no result):
 
 1. card: its name and power limit, as nvidia-smi reports them;
 2. build: nvcc compiles every kernel in nbasr_torch/csrc into build/;
-3. kernels: the fused cell kernel against its plain PyTorch version on the
-   card, at the four flagship widths (block 0-3 of a serving window), on
-   every node kind, in f32 and bf16; then its time per cell beside its bound;
+3. kernels: the fused cell forward kernel against its plain PyTorch version
+   on the card, at the four flagship widths (block 0-3 of a serving
+   window), on every node kind, in f32 and bf16; then its time per cell
+   beside its bound;
 4. serving: the flagship model (26,339,349 parameters, random weights from a
    seed) streams four 8 s streams of seeded audio, one ending 2 s early,
    through StreamingASR at chunk_frames=240 and StreamingGreedyDecoder;
    every SearchCell must go through the kernel (18 launches per device
    step, no call of the plain version);
 5. check: the card's f32 logits against the same port run on the CPU, and
-   the same stream in bf16 against f32.
+   the same stream in bf16 against f32;
+6. train kernels: the training forward (dropout 0 and 0.2, same seed) and
+   the backward kernel against their plain versions at the four widths of
+   the train-step batch (B=4), on every node kind, in f32 and bf16: output,
+   saved multipliers (the dropout masks must agree exactly), dx, every dW
+   and db, dscale and dbias; the same for the flagship cell at the train
+   step's own shapes (B=32, dropout 0.2); the kept share of one large
+   dropout draw; the forward and backward times per flagship cell at the
+   train step's shapes beside their bounds;
+7. train step: the flagship at full width in bf16, B=32, dropout 0.2, on
+   synthetic ≤3 s utterances: 2 warm-up and 5 timed Trainer steps (ms per
+   step, audio-s/s), 18 forward and 18 backward kernel launches per step
+   and no plain call, finite loss, and a torch.profiler split of one step;
+8. train check: one f32 step's gradients before clipping (full width, B=2,
+   cell dropout 0.2 with the same masks on both sides) on the card against
+   the same port on the CPU, beside witnesses that split the difference:
+   the card's kernels against the plain cells run on the card, and each
+   side against itself with the input audio nudged by one ulp.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import functools
 import json
 import subprocess
 import time
@@ -32,11 +52,15 @@ import time
 import numpy as np
 import torch
 
-from nbasr_torch.models.asr import count_params, get_model
+from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
+    make_synthetic_split
+from nbasr_torch.models.asr import algorithmic_flops, count_params, get_model
 from nbasr_torch.models.cell import SearchCell
 from nbasr_torch.ops import _build, fused_cell
+from nbasr_torch.ops.fused_cell import FusedCellSpec
 from nbasr_torch.search_space import arch_vec_to_names
 from nbasr_torch.serving import StreamingASR, StreamingGreedyDecoder
+from nbasr_torch.training import Trainer, ratios
 
 SEED = 0
 FLAGSHIP = [[1, 0], [1, 0, 0], [1, 0, 0, 0]]
@@ -80,6 +104,47 @@ PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 AUDIO_SECONDS = 8.0
 SHORT_BY_SECONDS = 2.0
 SAMPLE_RATE = 16000
+# The train step: synthetic:64 utterances of 0.25-3 s, all in the first
+# bucket, padded to 300 frames, so the cells see T = 300/300/150/75
+# (strides 1, 1, 2, 2) at B=32; the kernel checks run B=4 at those T.
+TRAIN_B = 32
+CHECK_B = 4
+TRAIN_WIDTHS = ((600, 300), (800, 300), (1000, 150), (1200, 75))
+TRAIN_DATA = 'synthetic:64'
+DROPOUT = 0.2
+TRAIN_SEED = (1234567, 7654321)
+TRAIN_CHECKED_AT = ('B=4 at T=300/300/150/75 on the four SPECS, dropout 0 '
+                    'and 0.2; the flagship cell at B=32, dropout 0.2 (the '
+                    'train step\'s shapes); f32 and bf16')
+# Backward kernel against its plain version on the same saved inputs, as a
+# share of each gradient's max|plain|.  f32: both sum in f32 in other
+# orders, dW and db over B*T = 300-1200 rows, so they differ by ~1e-6 of
+# the scale; 1e-4 leaves two decades.  bf16: dz is rounded to bf16 before
+# the dW and dx products and dW, dx are rounded at the end; where the two
+# f32 sums straddle a rounding boundary a value moves by one bf16 ulp
+# (2^-8 of itself) and carries into the nodes before it; 2e-2 is about
+# five ulps of the scale.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Saved multipliers where the clip-ReLU gate flips because the two f32
+# pre-activation sums straddle 0 or 20 (the dropout decision itself must
+# agree everywhere): at most this share of the elements.
+GATE_FLIP_SHARE = 1e-5
+# f32 gradients of one train step before clipping, as a share of each
+# tensor's max.  KERNEL_GRAD_TOL holds the card's kernels against the plain
+# cells run on the card: everything outside the cells is the same
+# arithmetic on both sides, so they differ only by the cells' f32 summation
+# order carried through the backward (3.3e-5 measured on an H100); a wrong
+# kernel moves a gradient by its own size.  TRAIN_GRAD_TOL holds the card
+# against the CPU, where cuDNN, cuBLAS and the frontend sum in other orders
+# too.  The random-init flagship is badly conditioned there: its backward
+# grows gradients ~13 orders of magnitude over the 18 cells, and one f32
+# ulp of noise on the input audio moves the card's own gradients by 4.8e-2
+# of a tensor's max (the CPU's by 1.2e-2), on the very tensor where card
+# and CPU differ most, by as much.  The phase prints those witnesses beside
+# the check.
+TRAIN_GRAD_TOL = 0.1
+KERNEL_GRAD_TOL = 1e-3
+TRAIN_NORM_TOL = 1e-3
 
 
 def card_line():
@@ -104,20 +169,28 @@ def make_cell(C, spec, device):
     return cell.to(device)
 
 
-def cell_bound(cell, B, T, C, dtype):
-    """(ms, 'bytes' | 'operations'): the least time for one cell — x read
-    and y written once with the weights, against its conv and matmul
-    operations at the dtype's peak."""
-    size = torch.finfo(dtype).bits // 8
-    weights, _ = cell.operands(dtype)
-    nbytes = 2 * B * T * C * size + sum(w.numel() * w.element_size()
-                                        for w in weights) + 2 * C * 4
+def cell_ops(cell, B, T, C):
+    """Conv and matmul operations of one cell forward."""
     ops = 0
     for node in cell.spec.nodes:
         if node.kind == 'conv':
             ops += 2 * B * T * C * node.K * node.cin_pg
         elif node.kind == 'linear':
             ops += 2 * B * T * C * C
+    return ops
+
+
+def cell_bound(cell, B, T, C, dtype, passes=2, weight_passes=1, op_factor=1):
+    """(ms, 'bytes' | 'operations'): the least time for one cell call —
+    ``passes`` passes over [B, T, C] in ``dtype`` (x read and y written: 2)
+    with the weights moved ``weight_passes`` times, against ``op_factor`` ×
+    the forward's conv and matmul operations at the dtype's peak."""
+    size = torch.finfo(dtype).bits // 8
+    weights, _ = cell.operands(dtype)
+    nbytes = (passes * B * T * C * size
+              + weight_passes * sum(w.numel() * w.element_size() for w in weights)
+              + 2 * C * 4)
+    ops = op_factor * cell_ops(cell, B, T, C)
     t_bytes, t_ops = nbytes / MEM_BYTES_S, ops / PEAK_OPS_S[dtype]
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
@@ -307,6 +380,356 @@ def check_serving(device):
     return launches['kernel'], dict(steps=steps, wall=wall, step_ms=step_ms)
 
 
+def train_spec(cell, rate):
+    """The cell's spec in training mode at dropout ``rate``."""
+    s = cell.spec
+    return FusedCellSpec(s.nodes, dropout_rate=rate, train=True,
+                         ln_eps=s.ln_eps, use_norm=s.use_norm)
+
+
+def check_masks(spec, got, want, seed, B, T, C):
+    """The saved multipliers of kernel and plain version: where the hash
+    drops an element both are exactly 0, and they differ nowhere else but
+    at clip-ReLU gate flips.  Returns (flips, multipliers compared)."""
+    flips = count = counter = 0
+    thr = fused_cell.keep_threshold(spec.dropout_rate)
+    for i, node in enumerate(spec.nodes):
+        if node.kind == 'zero':
+            continue
+        if spec.dropping:
+            counter += 1
+            dropped = fused_cell.dropout_bits(seed, counter, B, T, C) >= thr
+            assert not bool(got[i][dropped].any()), ('kept a dropped element', i)
+            assert not bool(want[i][dropped].any()), ('kept a dropped element', i)
+        flips += int((got[i] != want[i]).sum())
+        count += got[i].numel()
+    assert flips <= GATE_FLIP_SHARE * count, (flips, count)
+    return flips, count
+
+
+def grad_errors(got, want):
+    """(max abs error, max error as a share of each tensor's max|plain|)
+    over the backward's outputs (dx, every dW and db, dscale, dbias)."""
+    dx, dws, dln = got
+    rdx, rdws, rdln = want
+    pairs = [(dx, rdx)] + list(zip(dws, rdws)) + list(zip(dln or (), rdln or ()))
+    abs_err = rel_err = 0.0
+    for a, b in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+        assert bool(torch.isfinite(a.float()).all())
+        err = float((a.float() - b.float()).abs().max())
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(float(b.float().abs().max()), 1e-30))
+    return abs_err, rel_err
+
+
+class TrainKernelCheck:
+    """The training forward and the backward kernel against their plain
+    versions on the same inputs; keeps the worst errors per dtype and the
+    gate flips over every call of :meth:`check`."""
+
+    def __init__(self, seed):
+        self.seed = seed
+        new = lambda: {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+                       for k in ('forward', 'backward')}
+        # (max abs error, max share of the scale): over every call, and over
+        # the calls at the train step's own batch
+        self.errors, self.step_errors = new(), new()
+        self.flips = self.compared = 0
+
+    def check(self, label, spec, x, dy, weights, ln):
+        """Asserts both kernels within tolerance and the masks equal;
+        returns the kernel's (outs, mults) for reuse."""
+        B, T, C = x.shape
+        dtype = x.dtype
+        y, outs, mults = fused_cell.fused_cell_train_forward(
+            spec, x, weights, ln, self.seed)
+        want = fused_cell.fused_cell_reference(spec, x, weights, ln, self.seed,
+                                               save=True)
+        torch.cuda.synchronize()
+        err = float((y.float() - want[0].float()).abs().max())
+        scale = float(want[0].float().abs().max())
+        assert err <= TOL[dtype] * scale, (label, C, dtype, err, scale)
+        f, n = check_masks(spec, mults, want[2], self.seed, B, T, C)
+        self.flips, self.compared = self.flips + f, self.compared + n
+        del want
+        got_b = fused_cell.fused_cell_backward(spec, x, outs, mults, dy,
+                                               weights, ln)
+        want_b = fused_cell.fused_cell_backward_reference(spec, x, outs, mults,
+                                                          dy, weights, ln)
+        torch.cuda.synchronize()
+        b_abs, b_rel = grad_errors(got_b, want_b)
+        print(f'train kernels  {label:18s} B={B:2d} C={C:4d} T={T:3d} '
+              f'p={spec.dropout_rate} {str(dtype)[6:]:8s} fwd err '
+              f'{err / scale:.2e} of scale, gate flips {f}/{n}; bwd '
+              f'max_abs_err {b_abs:.3e}, worst share {b_rel:.2e} '
+              f'(tol {GRAD_TOL[dtype]:.0e})')
+        assert b_rel <= GRAD_TOL[dtype], (label, B, C, dtype, b_rel)
+        for errors in (self.errors, self.step_errors)[:1 + (B == TRAIN_B)]:
+            for key, e in (('forward', (err, err / scale)),
+                           ('backward', (b_abs, b_rel))):
+                errors[key][dtype] = [max(a, b) for a, b in
+                                      zip(errors[key][dtype], e)]
+        return outs, mults
+
+
+@torch.no_grad()
+def check_train_kernels(device):
+    """Phase 6.  Returns (the TrainKernelCheck with its errors and gate
+    flips, the kept share, timing rows)."""
+    seed = torch.tensor(TRAIN_SEED, dtype=torch.int32, device=device)
+    checker = TrainKernelCheck(seed)
+    for C, T in TRAIN_WIDTHS:
+        g = torch.Generator().manual_seed(SEED + C + T)
+        x32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+        dy32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+        for name, kw in SPECS.items():
+            cell = make_cell(C, kw, device)
+            for rate in (0.0, DROPOUT):
+                for dtype in (torch.float32, torch.bfloat16):
+                    checker.check(name, train_spec(cell, rate), x32.to(dtype),
+                                  dy32.to(dtype), *cell.operands(dtype))
+
+    # kept share of one large draw: zero conv weights and bias 1 make every
+    # pre-activation 1, so a multiplier is 0 exactly where dropout drops
+    C, T = TRAIN_WIDTHS[0]
+    cell = make_cell(C, SPECS['flagship'], device)
+    for name, p in cell.named_parameters():
+        if name.endswith('conv_kernel_grouped'):
+            p.zero_()
+        elif name.endswith('conv_bias'):
+            p.fill_(1.0)
+    x = torch.zeros((TRAIN_B, T, C), device=device)
+    _, _, mults = fused_cell.fused_cell_train_forward(
+        train_spec(cell, DROPOUT), x, *cell.operands(torch.float32), seed)
+    kept = float((mults != 0).double().mean())
+    sigma = (DROPOUT * (1 - DROPOUT) / mults.numel()) ** 0.5
+    print(f'dropout: kept share {kept:.6f} of {mults.numel()} draws '
+          f'(expected {1 - DROPOUT}, 4 sigma = {4 * sigma:.2e})')
+    assert abs(kept - (1 - DROPOUT)) <= 4 * sigma
+
+    # the train step's own shapes (B=32): checked, then timed
+    rows = []
+    for C, T in TRAIN_WIDTHS:
+        cell = make_cell(C, SPECS['flagship'], device)
+        spec = train_spec(cell, DROPOUT)
+        g = torch.Generator().manual_seed(SEED + C)
+        x32 = torch.randn((TRAIN_B, T, C), generator=g).to(device)
+        dy32 = torch.randn((TRAIN_B, T, C), generator=g).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            weights, ln = cell.operands(dtype)
+            fwd = (spec, x, weights, ln, seed)
+            outs, mults = checker.check('flagship', spec, x, dy, weights, ln)
+            bwd = (spec, x, outs, mults, dy, weights, ln)
+            n = len(spec.nodes)
+            row = dict(
+                C=C, T=T, B=TRAIN_B, dtype=str(dtype)[6:],
+                fwd_ms=time_ms(lambda: fused_cell.fused_cell_train_forward(*fwd)),
+                fwd_plain_ms=time_ms(lambda: fused_cell.fused_cell_reference(
+                    *fwd, save=True), runs=10),
+                ms=time_ms(lambda: fused_cell.fused_cell_backward(*bwd)),
+                plain_ms=time_ms(
+                    lambda: fused_cell.fused_cell_backward_reference(*bwd),
+                    runs=10))
+            row['fwd_bound_ms'], row['fwd_bound_by'] = cell_bound(
+                cell, TRAIN_B, T, C, dtype, passes=2 + 2 * n)
+            row['bound_ms'], row['bound_by'] = cell_bound(
+                cell, TRAIN_B, T, C, dtype, passes=2 * n + 3, weight_passes=2,
+                op_factor=2)
+            rows.append(row)
+            print(f'flagship cell train  B={TRAIN_B} C={C:4d} T={T:3d} '
+                  f'{row["dtype"]:8s} forward {row["fwd_ms"]:.4f} ms (plain '
+                  f'{row["fwd_plain_ms"]:.4f}, bound {row["fwd_bound_ms"]:.4f} '
+                  f'{row["fwd_bound_by"]}); backward {row["ms"]:.4f} ms (plain '
+                  f'{row["plain_ms"]:.4f}, bound {row["bound_ms"]:.4f} '
+                  f'{row["bound_by"]})')
+    return checker, kept, rows
+
+
+BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
+               'nbasr_reduce_chunks', 'nbasr_node_dz', 'nbasr_conv_dw_partials',
+               'nbasr_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
+               'nbasr_convert')
+FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
+               'nbasr_layer_norm')
+
+
+def profile_train_step(trainer, batch, lr):
+    """Kernel time by name over one train step (torch.profiler), the busy
+    share, and the fused cell kernels' part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch, lr=lr)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print('profile: the profiler saw no device time (not measured)')
+        return
+    ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+    busy = ms(kernels)
+    fwd = ms([e for e in kernels if any(k in e.key for k in FWD_KERNELS)])
+    bwd = ms([e for e in kernels if any(k in e.key for k in BWD_KERNELS)])
+    print(f'train profile: {busy:.3f} ms of kernel time in one step, '
+          f'{wall_ms:.3f} ms wall under the profiler (busy {busy / wall_ms:.1%}); '
+          f'fused cell forward kernels {fwd:.3f} ms, backward kernels '
+          f'{bwd:.3f} ms, rest {busy - fwd - bwd:.3f} ms')
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f'  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  '
+              f'{e.key[:100]}')
+
+
+def check_train_step(device):
+    """Phase 7.  Returns the launch counts and the timings."""
+    model = get_model(FLAGSHIP, use_rnn=True, dropout_rate=DROPOUT,
+                      data_norm=True, compute_dtype=torch.bfloat16,
+                      device=device, generator=torch.Generator().manual_seed(SEED))
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batches = list(loaders[1].full)
+    assert all(b['audio'].shape[0] == TRAIN_B for b in batches)
+    trainer = Trainer(loaders, device=device)
+    trainer.init_state(model, seed=SEED)
+    lr = 1e-4
+    for i in range(2):                                        # warm-up
+        trainer.step(batches[i % len(batches)], lr=lr)
+    steps = [batches[i % len(batches)] for i in range(5)]
+    torch.cuda.synchronize()
+    fused_cell.reset_launches()
+    t0 = time.perf_counter()
+    for b in steps:
+        m = trainer.step(b, lr=lr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = dict(fused_cell.LAUNCHES), dict(fused_cell.BACKWARD_LAUNCHES)
+    print(f'train step: launches forward {fwd}, backward {bwd} in 5 steps')
+    assert fwd == {'kernel': 18 * 5, 'plain': 0}, fwd
+    assert bwd == {'kernel': 18 * 5, 'plain': 0}, bwd
+    assert np.isfinite(m['ctc_loss']) and trainer.nonfinite_steps == 0, \
+        (m, trainer.nonfinite_steps)
+    # audio seconds of the valid rows, as the frontend frames them
+    cfg = trainer.frontend
+    audio_s = sum(float((b['valid'] * ((b['feature_size'] - 1) * cfg.hop
+                                       + cfg.window)).sum())
+                  for b in steps) / SAMPLE_RATE
+    step_ms = 1e3 * wall / len(steps)
+    T = batches[0]['feature_size'].max()
+    frames = loaders[1].full.bucket_frames[0]
+    flops = algorithmic_flops(model, TRAIN_B, frames, train=True)
+    print(f'train step: bf16 B={TRAIN_B} T={frames} frames (longest {T}): '
+          f'{step_ms:.3f} ms per step (host clock, 5 steps), '
+          f'{audio_s / wall:.1f} audio-s/s, running train loss '
+          f'{m["ctc_loss"]:.4f}; {flops / 1e9:.1f} algorithmic GFLOP per step '
+          f'= {flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s')
+    profile_train_step(trainer, batches[0], lr)
+    return fwd['kernel'], bwd['kernel'], dict(step_ms=step_ms,
+                                              audio_s_per_s=audio_s / wall)
+
+
+@contextlib.contextmanager
+def plain_cells():
+    """A witness only, never the main path: inside, every FusedCell runs the
+    plain versions on the tensors it is given, on the card too, so a card
+    run inside differs from a card run outside in the cells alone."""
+    saved = fused_cell.fused_cell_train_forward, fused_cell.fused_cell_backward
+    fused_cell.fused_cell_train_forward = functools.partial(
+        fused_cell.fused_cell_reference, save=True)
+    fused_cell.fused_cell_backward = fused_cell.fused_cell_backward_reference
+    try:
+        yield
+    finally:
+        fused_cell.fused_cell_train_forward, fused_cell.fused_cell_backward = saved
+
+
+def check_train_cpu(device):
+    """Phase 8: one f32 step's gradients before clipping, card against CPU,
+    with witnesses that split the difference: the card's kernels against
+    the plain cells on the card (the kernels alone), the plain cells on the
+    card against the CPU (the card's other arithmetic), and each side
+    against itself with the audio perturbed by one ulp (the model's
+    conditioning).  Returns the readings, worst share per pair."""
+    from nbasr_torch.data.phonemes import PhonemeEncoder
+    model = get_model(FLAGSHIP, use_rnn=True, dropout_rate=0.0, data_norm=True,
+                      device=device,
+                      generator=torch.Generator().manual_seed(SEED + 1))
+    cpu_model = get_model(FLAGSHIP, use_rnn=True, dropout_rate=0.0,
+                          data_norm=True, device='cpu')
+    cpu_model.load_state_dict(model.state_dict())
+    ds = make_synthetic_split(2, seed=SEED + 5, min_samples=23000,
+                              max_samples=25000)
+    batch = next(iter(Loader(ds, 2)))
+    nudged = dict(batch, audio=(batch['audio'] * (1 + 1e-7 * np.random.RandomState(
+        SEED).randn(*batch['audio'].shape))).astype(np.float32))
+    loaders = (PhonemeEncoder(48), None, None, None)
+
+    def gradients(trainer, m, b):
+        trainer.init_state(m, seed=SEED)       # the same dropout masks
+        grads, metrics = trainer.gradients(b)
+        return {k: v.cpu() for k, v in grads.items()}, metrics
+
+    t0 = time.perf_counter()
+    card = Trainer(loaders, device=device)
+    got, got_m = gradients(card, model, batch)
+    got_nudged, _ = gradients(card, model, nudged)
+    with plain_cells():
+        fused_cell.reset_launches()
+        plain, _ = gradients(card, model, batch)
+        assert fused_cell.LAUNCHES['kernel'] == 0 and \
+            fused_cell.BACKWARD_LAUNCHES['kernel'] == 0
+    host = Trainer(loaders, device='cpu')
+    want, want_m = gradients(host, cpu_model, batch)
+    near, _ = gradients(host, cpu_model, nudged)
+    cpu_s = time.perf_counter() - t0
+    assert got.keys() == want.keys() and len(want) == len(list(model.parameters()))
+
+    def shares(a, ref):
+        out = {}
+        for name, w in ref.items():
+            assert bool(torch.isfinite(a[name]).all()), name
+            out[name] = float((a[name] - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+        return out
+
+    pairs = {'card vs cpu': shares(got, want),
+             'kernels vs plain cells, both on the card': shares(got, plain),
+             'plain cells on the card vs cpu': shares(plain, want),
+             'card vs card, audio nudged 1e-7': shares(got_nudged, got),
+             'cpu vs cpu, audio nudged 1e-7': shares(near, want)}
+    norm = lambda gs: float(torch.sqrt(sum(v.double().square().sum()
+                                           for v in gs.values())))
+    n_card, n_cpu = norm(got), norm(want)
+    print(f'card vs cpu f32 train step (B=2, {batch["feature_size"].tolist()} '
+          f'frames, cell dropout {DROPOUT}, same masks): loss '
+          f'{got_m["ctc_loss"]:.6f} vs {want_m["ctc_loss"]:.6f}; global norm '
+          f'{n_card:.6e} vs {n_cpu:.6e} (tol {TRAIN_NORM_TOL} relative); '
+          f'{len(want)} tensors; {cpu_s:.1f} s')
+    readings = {}
+    tols = {'card vs cpu': TRAIN_GRAD_TOL,
+            'kernels vs plain cells, both on the card': KERNEL_GRAD_TOL}
+    for label, s in pairs.items():
+        worst = max(s, key=s.get)
+        readings[label] = s[worst]
+        tol = f' (tol {tols[label]:.0e})' if label in tols else ''
+        print(f'  gradient error as a share of each tensor\'s max, {label}: '
+              f'worst {s[worst]:.2e} ({worst}), median '
+              f'{np.median(list(s.values())):.2e}{tol}')
+    top = sorted(pairs['card vs cpu'], key=pairs['card vs cpu'].get,
+                 reverse=True)[:4]
+    print('  worst tensors (card vs cpu / kernels vs plain / card nudged / '
+          'cpu nudged): ' + ', '.join(
+              f'{n} ' + '/'.join(f'{pairs[k][n]:.2e}' for k in (
+                  'card vs cpu', 'kernels vs plain cells, both on the card',
+                  'card vs card, audio nudged 1e-7',
+                  'cpu vs cpu, audio nudged 1e-7')) for n in top))
+    assert readings['kernels vs plain cells, both on the card'] <= KERNEL_GRAD_TOL
+    assert readings['card vs cpu'] <= TRAIN_GRAD_TOL
+    assert abs(n_card - n_cpu) <= TRAIN_NORM_TOL * n_cpu
+    return readings
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -327,11 +750,22 @@ def main():
 
     errors, rows = check_kernels(device)
     launches, serving = check_serving(device)
+    checker, kept, train_rows = check_train_kernels(device)
+    train_errors = checker.errors
+    at_step = {k: {str(d)[6:]: v[1] for d, v in e.items()}
+               for k, e in checker.step_errors.items()}
+    fwd_train, bwd_train, train = check_train_step(device)
+    train_grads = check_train_cpu(device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
     step = {k: sum(n * r[k] for n, r in zip(CELLS_PER_BLOCK, f32_rows))
             for k in ('ms', 'plain_ms', 'bound_ms')}
+    # one train step's 18 bf16 cells
+    bf16_rows = [r for r in train_rows if r['dtype'] == 'bfloat16']
+    tstep = {k: sum(n * r[k] for n, r in zip(CELLS_PER_BLOCK, bf16_rows))
+             for k in ('ms', 'plain_ms', 'bound_ms', 'fwd_ms', 'fwd_plain_ms',
+                       'fwd_bound_ms')}
     kernels = [dict(
         name='fused_cell_forward', route='cuda',
         source='nbasr_torch/csrc/fused_cell.cu',
@@ -344,7 +778,42 @@ def main():
         max_abs_err_bf16=errors[torch.bfloat16],
         times_cover='the 18 f32 cells of one flagship serving step, B=4, '
                     'T=772/772/386/193',
-        per_width=rows)]
+        per_width=rows,
+        dropout_checked=True, dropout_gate_flips=checker.flips,
+        dropout_multipliers_compared=checker.compared, dropout_kept_share=kept,
+        train_max_abs_err=train_errors['forward'][torch.float32][0],
+        train_max_abs_err_bf16=train_errors['forward'][torch.bfloat16][0],
+        launches_train_step=fwd_train,
+        train_ms=tstep['fwd_ms'], train_plain_ms=tstep['fwd_plain_ms'],
+        train_bound_ms=tstep['fwd_bound_ms'],
+        train_times_cover='the 18 bf16 training forwards (dropout 0.2, '
+                          'saving) of one flagship train step, B=32, '
+                          'T=300/300/150/75',
+        train_checked_at=TRAIN_CHECKED_AT,
+        train_step_shape_max_share_err=at_step['forward']),
+        dict(
+        name='fused_cell_backward', route='cuda',
+        source='nbasr_torch/csrc/fused_cell_bwd.cu',
+        replaces='nbasr_tpu/ops/fused_cell.py:447',
+        launches=bwd_train,
+        max_abs_err=train_errors['backward'][torch.float32][0],
+        ms=tstep['ms'], plain_ms=tstep['plain_ms'], bound_ms=tstep['bound_ms'],
+        bound_by='bytes' if all(r['bound_by'] == 'bytes' for r in bf16_rows)
+        else 'operations',
+        library_ms=None,
+        max_share_err=train_errors['backward'][torch.float32][1],
+        max_abs_err_bf16=train_errors['backward'][torch.bfloat16][0],
+        max_share_err_bf16=train_errors['backward'][torch.bfloat16][1],
+        times_cover='the 18 bf16 cells of one flagship train step, B=32, '
+                    'T=300/300/150/75',
+        checked_at=TRAIN_CHECKED_AT,
+        train_step_shape_max_share_err=at_step['backward'],
+        step_gradient_worst_share=train_grads,
+        per_width=train_rows),
+    ]
+    print(f'train step: {train["step_ms"]:.3f} ms, '
+          f'{train["audio_s_per_s"]:.1f} audio-s/s; serving: '
+          f'{serving["step_ms"]:.3f} ms per device step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,5 @@
-"""Data assets of the port."""
+"""Data assets of the port; the host input pipeline is
+:mod:`nbasr_torch.data.pipeline`."""
 
 import pathlib
 

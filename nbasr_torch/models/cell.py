@@ -1,11 +1,17 @@
 """Search cell: a small DAG of ops + identity skip branches, in one kernel.
 
 Counterpart of ``nbasr_tpu/models/cell.py`` ``SearchCell`` on its fused
-path (``_fused``): node *i* computes ``op_i(prev)`` and adds ``inputs[j]``
-for every live branch bit, then a LayerNorm.  The whole cell is one call of
-:func:`nbasr_torch.ops.fused_cell.fused_cell_forward` — the CUDA kernel on
-the card, its plain version on the CPU.  Parameter names match the JAX
-cell's (``node{n}_{op}/conv_kernel_grouped`` ..., ``norm/scale``).
+path (``_fused``): node *i* computes ``op_i(prev)``, clip-ReLU(20) and
+dropout, and adds ``inputs[j]`` for every live branch bit, then a
+LayerNorm.  The whole cell is one call of
+:func:`nbasr_torch.ops.fused_cell.fused_cell_forward` — the CUDA kernels on
+the card, their plain versions on the CPU — forward and backward.
+Parameter names match the JAX cell's (``node{n}_{op}/conv_kernel_grouped``
+..., ``norm/scale``).
+
+Like the JAX cell's ``train=False`` default, a cell is built in eval mode;
+``.train()`` turns its dropout on, and each training call then draws the
+cell's dropout seed from the ``torch.Generator`` its caller passes.
 """
 
 import torch
@@ -16,7 +22,11 @@ from ..ops.fused_cell import (ConvNode, FusedCellSpec, LinearNode, ZeroNode,
 from .layers import LayerNorm, LinearRelu, conv_padding, kernel_initializer, \
     norm_eps
 
-__all__ = ['SearchCell']
+__all__ = ['SearchCell', 'CELL_DROPOUT']
+
+#: Cell-op dropout is a constant 0.2 in the reference (tf/ops.py:60), not
+#: the model-level dropout flag (which only feeds the LSTM).
+CELL_DROPOUT = 0.2
 
 _CONVS = {'conv5': (5, 1), 'conv5d2': (5, 2),
           'conv7': (7, 1), 'conv7d2': (7, 2)}
@@ -44,7 +54,8 @@ class SearchCell(nn.Module):
     the JAX package's other implementations raise NotImplementedError.
     """
 
-    def __init__(self, filters, arch_desc, use_norm=True, groups=100,
+    def __init__(self, filters, arch_desc, dropout_rate=CELL_DROPOUT,
+                 use_norm=True, groups=100,
                  init_scheme='reference', grouped_impl='auto',
                  branch_semantics='canonical', apply_dilation=True,
                  pad_math='torch', norm_epsilon=norm_eps, generator=None):
@@ -90,6 +101,10 @@ class SearchCell(nn.Module):
         self.norm = LayerNorm(C, norm_epsilon) if use_norm else None
         self.spec = FusedCellSpec(nodes, ln_eps=norm_epsilon,
                                   use_norm=use_norm)
+        self.train_spec = FusedCellSpec(nodes, dropout_rate=dropout_rate,
+                                        train=True, ln_eps=norm_epsilon,
+                                        use_norm=use_norm)
+        self.eval()
 
     def operands(self, dtype):
         """``(weights, ln)`` as :func:`fused_cell_forward` takes them for
@@ -105,6 +120,24 @@ class SearchCell(nn.Module):
         ln = (self.norm.scale, self.norm.bias) if self.norm is not None else None
         return weights, ln
 
-    def forward(self, x):
-        return fused_cell_forward(self.spec, x.contiguous(),
-                                  *self.operands(x.dtype))
+    def forward(self, x, generator=None):
+        """``[B, T, C] -> [B, T, C]``; ``generator`` supplies the dropout
+        seed in training mode."""
+        spec = self.train_spec if self.training else self.spec
+        seed = _draw_seed(generator, x.device) if spec.dropping else None
+        return fused_cell_forward(spec, x.contiguous(),
+                                  *self.operands(x.dtype), seed=seed)
+
+
+def _draw_seed(generator, device):
+    """A dropout seed as the JAX cell draws one (``cell.py:312-316``): two
+    int32 in ``[0, 2**31 - 1)``, here from an explicit CPU generator, then
+    moved to ``device`` without waiting for it."""
+    if generator is None:
+        raise ValueError('dropout in training mode draws from a '
+                         'torch.Generator: pass generator=, or call .eval()')
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
+                         dtype=torch.int32)
+    if device.type == 'cuda':
+        return seed.pin_memory().to(device, non_blocking=True)
+    return seed.to(device)

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_cell import relu20_gate
+
 __all__ = ['FUTURE_CONTEXT', 'norm_eps', 'relu20', 'conv_padding',
            'kernel_initializer', 'Dense', 'LayerNorm', 'PadConvRelu',
            'LinearRelu', 'MeanVarianceNorm']
@@ -25,9 +27,28 @@ FUTURE_CONTEXT = 4
 norm_eps = 1e-3
 
 
+class _Relu20(torch.autograd.Function):
+    """clip(x, 0, 20) with ``jnp.clip``'s VJP: the gradient passes whole
+    inside (0, 20), half at exactly 0 or 20, and not at all outside.
+    ``torch.clamp`` would pass all of it at the ends; with zero biases a
+    fully masked frame puts a block conv's output exactly at 0, so the ends
+    are met every step, not by chance."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 20.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * relu20_gate(x).to(grad.dtype)
+
+
 def relu20(x):
-    """ReLU clipped at 20 (reference tf/ops.py:26, torch/ops.py:28)."""
-    return torch.clamp(x, 0.0, 20.0)
+    """ReLU clipped at 20 (reference tf/ops.py:26, torch/ops.py:28), with
+    the JAX package's gradient at the ends (see :class:`_Relu20`)."""
+    return _Relu20.apply(x)
 
 
 def _fans(shape):

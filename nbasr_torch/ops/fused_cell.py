@@ -1,41 +1,67 @@
-"""Fused SearchCell forward: the Hopper kernel's wrapper and its plain version.
+"""Fused SearchCell, forward and backward: the Hopper kernels' wrappers,
+their plain versions, and the autograd Function that joins them.
 
-Port of ``nbasr_tpu/ops/fused_cell.py`` ``_fwd_kernel`` at ``train=False``:
-one whole cell — every node's grouped conv or dense product, bias,
-clip-ReLU(20), branch adds, and the trailing LayerNorm — per call.  The
-kernel is ``nbasr_torch/csrc/fused_cell.cu``; its header states the bound
-and the design.  The TPU layout tricks (chunk expansion, 128-lane padding)
-are not carried over: the kernel reads the compact ``[K, ci, C]`` weights.
+Port of ``nbasr_tpu/ops/fused_cell.py``: ``_fwd_kernel`` runs one whole
+cell — every node's grouped conv or dense product, bias, clip-ReLU(20),
+dropout, branch adds, and the trailing LayerNorm — per call, and
+``_bwd_kernel`` its backward (LayerNorm backward, then a reverse walk of
+the node DAG giving dx, per-node dW and db, and the LayerNorm's dscale and
+dbias).  The kernels are ``nbasr_torch/csrc/fused_cell.cu`` and
+``nbasr_torch/csrc/fused_cell_bwd.cu``; their headers state the bounds and
+the designs.  The TPU layout tricks (chunk expansion, 128-lane padding) are
+not carried over: the kernels read and write the compact ``[K, ci, C]``
+weights.
 
-:func:`fused_cell_forward` runs the kernel on a CUDA tensor and the plain
-version :func:`fused_cell_reference` on a CPU tensor, and nothing else:
-there is no fallback from one to the other.  ``LAUNCHES`` counts the calls
-of each, so a run can show which one it went through.
+Dropout draws its bits from the JAX kernel's interpret-mode generator
+(``_Prng.bits``): a stateless hash of (seed, batch row, node, t, c) in
+uint32 arithmetic.  The kernel, the plain version and the JAX package in
+interpret mode therefore draw the same mask from the same seed, and the
+backward needs no stored generator state.
+
+A training forward keeps every node output and every node's multiplier
+(clip-ReLU gate × dropout keep / (1 − p), in the activation dtype) for the
+backward, which then recomputes nothing: the TPU kernel recomputes only
+because a cell has to fit one VMEM residency.
+
+:func:`fused_cell_forward` is the differentiable entry point.  A CUDA tensor
+goes to the kernels and a CPU tensor to the plain versions, and nothing
+else: there is no fallback from one to the other.  ``LAUNCHES`` and
+``BACKWARD_LAUNCHES`` count the calls of each, so a run can show which one
+it went through.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-__all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec',
-           'fused_cell_forward', 'fused_cell_reference', 'LAUNCHES',
-           'reset_launches']
+__all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
+           'fused_cell_forward', 'fused_cell_train_forward',
+           'fused_cell_backward', 'fused_cell_reference',
+           'fused_cell_backward_reference', 'dropout_bits', 'keep_threshold',
+           'relu20_gate',
+           'LAUNCHES', 'BACKWARD_LAUNCHES', 'reset_launches']
 
 LN_EPS_DEFAULT = 1e-3
 
-#: Calls of the CUDA kernel (``'kernel'``) and of the plain version
+#: Calls of the forward CUDA kernel (``'kernel'``) and of its plain version
 #: (``'plain'``) since the last :func:`reset_launches`.
 LAUNCHES = {'kernel': 0, 'plain': 0}
+#: The same for the backward.
+BACKWARD_LAUNCHES = {'kernel': 0, 'plain': 0}
 
 _KIND = {'conv': 0, 'linear': 1, 'zero': 2}
-_MAX_NODES = 7          # kMaxOutputs - 1 in the kernel
+_MAX_NODES = 7          # kMaxOutputs - 1 in the kernels
+_U32 = 0xFFFFFFFF
 
 
 def reset_launches():
     LAUNCHES.update(kernel=0, plain=0)
+    BACKWARD_LAUNCHES.update(kernel=0, plain=0)
 
 
 class ConvNode:
@@ -73,40 +99,175 @@ class ZeroNode:
 
 
 class FusedCellSpec:
-    """Static description of a cell: its nodes, then LayerNorm or not."""
+    """Static description of a cell: its nodes, dropout, then LayerNorm or
+    not.  Dropout applies only when ``train`` is set and the rate is
+    positive (:attr:`dropping`)."""
 
-    def __init__(self, nodes, ln_eps=LN_EPS_DEFAULT, use_norm=True):
+    def __init__(self, nodes, dropout_rate=0.0, train=False,
+                 ln_eps=LN_EPS_DEFAULT, use_norm=True):
         self.nodes = tuple(nodes)
+        self.dropout_rate = float(dropout_rate)
+        self.train = bool(train)
         self.ln_eps = float(ln_eps)
         self.use_norm = bool(use_norm)
 
+    @property
+    def dropping(self):
+        return self.train and self.dropout_rate > 0.0
 
-def fused_cell_forward(spec, x, weights, ln):
-    """Run one cell.
+
+def keep_threshold(rate):
+    """Keep iff the 32 random bits are below this (``_keep_threshold``)."""
+    return min(int((1.0 - rate) * (1 << 32)), (1 << 32) - 1)
+
+
+def _inv_keep(rate):
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def relu20_gate(a):
+    """The VJP gate of ``clip(a, 0, 20)`` as ``jnp.clip`` gives it: 1 inside
+    (0, 20), 0.5 at exactly 0 or 20, 0 outside; f32."""
+    return torch.where((a > 0) & (a < 20), 1.0,
+                       torch.where((a == 0) | (a == 20), 0.5, 0.0))
+
+
+def _seed_words(seed):
+    """The seed's two int32 words as uint32 Python ints."""
+    if seed is None or tuple(seed.shape) != (2,):
+        raise ValueError('a dropping cell needs an int32 seed of shape [2]')
+    return [int(v) & _U32 for v in seed.tolist()]
+
+
+def dropout_bits(seed, counter, B, T, C, device=None):
+    """``[B, T, C]`` int64 tensor of uint32 bits: the JAX kernel's
+    interpret-mode hash (``_Prng.bits``) at ``i`` = t, ``j`` = c, ``pid`` =
+    batch row, for the ``counter``-th draw (1, 2, ... over the conv and
+    linear nodes in node order).  int64 arithmetic masked to 32 bits after
+    every multiply and add, which is uint32 arithmetic with wraparound; every
+    shifted value is non-negative, so ``>>`` is the logical shift."""
+    s0, s1 = _seed_words(seed)
+    device = device or seed.device
+
+    def ramp(n, dim):
+        shape = [1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+
+    const = ((s0 * 0xC2B2AE35) & _U32) ^ ((s1 + 0x27D4EB2F) & _U32) \
+        ^ ((counter * 0x5851F42D) & _U32)
+    x = (((ramp(T, 1) * 0x9E3779B1) & _U32) ^ ((ramp(C, 2) * 0x85EBCA6B) & _U32)
+         ^ ((ramp(B, 0) * 0x165667B1) & _U32) ^ const)
+    for shift in (15, 13, 16):
+        x = x ^ (x >> shift)
+        x = (x * 0x2545F491) & _U32
+    return x ^ (x >> 16)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _device_kind(x):
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'the fused cell runs on cuda or cpu, not {x.device}')
+    return x.device.type
+
+
+def fused_cell_forward(spec, x, weights, ln, seed=None):
+    """Run one cell; differentiable.
 
     ``x [B, T, C]`` f32 or bf16; ``weights``: flat per-node ``(w, b)`` in
     node order, zero nodes taking none — conv ``w`` compact ``[K, ci, C]``,
     linear ``w [C, C]``, both in ``x.dtype``, ``b [C]`` f32; ``ln``:
-    ``(scale [C], bias [C])`` f32, ignored when ``spec.use_norm`` is False.
+    ``(scale [C], bias [C])`` f32, ignored when ``spec.use_norm`` is False;
+    ``seed``: int32 ``[2]`` on x's device, needed when ``spec.dropping``.
+    Where a gradient is needed the call goes through :class:`FusedCell`.
     """
-    if x.device.type == 'cpu':
-        return fused_cell_reference(spec, x, weights, ln)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_cell_forward runs on cuda or cpu, '
-                         f'not {x.device}')
-    return _launch(spec, x, weights, ln)
+    kind = _device_kind(x)
+    ln_scale, ln_bias = ln if spec.use_norm else (None, None)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, *weights, ln_scale, ln_bias)):
+        return FusedCell.apply(spec, x, seed, ln_scale, ln_bias, *weights)
+    if kind == 'cpu':
+        return fused_cell_reference(spec, x, weights, ln, seed)
+    return _launch(spec, x, weights, ln, seed, save=False)[0]
 
 
-def fused_cell_reference(spec, x, weights, ln):
-    """The plain PyTorch version of the kernel, with the same rounding
-    points: f32 sums and bias, node outputs rounded to ``x.dtype``, f32
-    LayerNorm statistics, the result rounded to ``x.dtype``."""
+def fused_cell_train_forward(spec, x, weights, ln, seed=None):
+    """The forward that keeps what the backward needs: ``(y, outs, mults)``
+    with ``outs [n_nodes, B, T, C]`` the node outputs and ``mults [n_nodes,
+    B, T, C]`` each conv or linear node's multiplier, both in ``x.dtype``
+    (a zero node's slot is not read).  Not differentiable."""
+    if _device_kind(x) == 'cpu':
+        return fused_cell_reference(spec, x, weights, ln, seed, save=True)
+    return _launch(spec, x, weights, ln, seed, save=True)
+
+
+def fused_cell_backward(spec, x, outs, mults, dy, weights, ln):
+    """``(dx, dweights, dln)`` of one cell from what
+    :func:`fused_cell_train_forward` kept: ``dx`` in ``x.dtype``,
+    ``dweights`` flat per-node ``(dW in x.dtype, db f32)``, ``dln``
+    ``(dscale, dbias)`` f32 or None without LayerNorm."""
+    if _device_kind(x) == 'cpu':
+        return fused_cell_backward_reference(spec, x, outs, mults, dy,
+                                             weights, ln)
+    return _launch_backward(spec, x, outs, mults, dy, weights, ln)
+
+
+class FusedCell(torch.autograd.Function):
+    """One cell with its fused backward.  Gradients for x, every weight and
+    bias, and the LayerNorm scale and bias; the seed has none.  dW comes
+    back in the weight operand's dtype (x's), as the JAX kernel's VJP gives
+    it; the caller's ``.to(dtype)`` carries it to an f32 parameter."""
+
+    @staticmethod
+    def forward(ctx, spec, x, seed, ln_scale, ln_bias, *weights):
+        ln = (ln_scale, ln_bias) if spec.use_norm else None
+        y, outs, mults = fused_cell_train_forward(spec, x, weights, ln, seed)
+        ctx.spec = spec
+        ctx.save_for_backward(x, outs, mults, ln_scale, ln_bias, *weights)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, outs, mults, ln_scale, ln_bias, *weights = ctx.saved_tensors
+        spec = ctx.spec
+        ln = (ln_scale, ln_bias) if spec.use_norm else None
+        dx, dweights, dln = fused_cell_backward(
+            spec, x, outs, mults, dy.contiguous(), weights, ln)
+        return (None, dx, None, *(dln or (None, None)), *dweights)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _conv_input(src, node):
+    """``[B, T, C]`` -> ``[B, C, lpad + T + rpad]`` f32."""
+    return F.pad(src.float().transpose(1, 2), (node.lpad, node.rpad))
+
+
+def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
+    """The plain PyTorch version of the forward kernel, with the same
+    rounding points: f32 sums and bias, dropout on the clipped value in
+    f32, node outputs rounded to ``x.dtype``, f32 LayerNorm statistics, the
+    result rounded to ``x.dtype``.  ``save=True`` returns ``(y, outs,
+    mults)`` as :func:`fused_cell_train_forward` does."""
     LAUNCHES['plain'] += 1
     B, T, C = x.shape
+    n = len(spec.nodes)
+    if spec.dropping:
+        thr = keep_threshold(spec.dropout_rate)
+        inv_keep = _inv_keep(spec.dropout_rate)
     outs = [x]
-    wi = 0
-    for node in spec.nodes:
-        src = outs[-1].float()
+    mults = torch.zeros((n, B, T, C), dtype=x.dtype, device=x.device) \
+        if save else None
+    wi = counter = 0
+    for i, node in enumerate(spec.nodes):
+        src = outs[-1]
         if node.kind == 'zero':
             total = torch.zeros((B, T, C), dtype=torch.float32,
                                 device=x.device)
@@ -114,12 +275,21 @@ def fused_cell_reference(spec, x, weights, ln):
             w, b = weights[wi].float(), weights[wi + 1]
             wi += 2
             if node.kind == 'conv':
-                xp = F.pad(src.transpose(1, 2), (node.lpad, node.rpad))
-                acc = F.conv1d(xp, w.permute(2, 1, 0), dilation=node.d,
+                acc = F.conv1d(_conv_input(src, node), w.permute(2, 1, 0),
+                               dilation=node.d,
                                groups=node.groups).transpose(1, 2)
             else:
-                acc = src @ w
-            total = torch.clamp(acc + b, 0.0, 20.0)
+                acc = src.float() @ w
+            acc = acc + b
+            total = torch.clamp(acc, 0.0, 20.0)
+            gate = relu20_gate(acc)
+            if spec.dropping:
+                counter += 1
+                keep = dropout_bits(seed, counter, B, T, C, x.device) < thr
+                total = torch.where(keep, total * inv_keep, 0.0)
+                gate = torch.where(keep, gate * inv_keep, 0.0)
+            if save:
+                mults[i] = gate.to(x.dtype)
         for j in node.branches:
             total = total + outs[j].float()
         outs.append(total.to(x.dtype))
@@ -128,23 +298,98 @@ def fused_cell_reference(spec, x, weights, ln):
         mu = xf.mean(dim=-1, keepdim=True)
         var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
         xf = (xf - mu) * torch.rsqrt(var + spec.ln_eps) * ln[0] + ln[1]
-    return xf.to(x.dtype)
+    y = xf.to(x.dtype)
+    if save:
+        return y, torch.stack(outs[1:]), mults
+    return y
 
 
-def _lib():
-    lib = _build.load('fused_cell')
-    fn = lib.nbasr_fused_cell_forward
+def fused_cell_backward_reference(spec, x, outs, mults, dy, weights, ln):
+    """The plain PyTorch version of the backward kernel, written out with
+    the JAX kernel's rounding points: the saved multipliers, gradient
+    buffers in f32, db from the f32 ``dz``, ``dz`` rounded to x's dtype
+    before the dW and dx products, dW rounded to x's dtype, dx rounded to
+    x's dtype.  Returns what :func:`fused_cell_backward` returns."""
+    BACKWARD_LAUNCHES['plain'] += 1
+    B, T, C = x.shape
+    n = len(spec.nodes)
+    inputs = [x] + list(outs.unbind(0))
+    dyf = dy.float()
+    dln = None
+    if spec.use_norm:
+        xf = inputs[n].float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + spec.ln_eps)
+        xhat = (xf - mu) * inv
+        dln = ((dyf * xhat).sum(dim=(0, 1)), dyf.sum(dim=(0, 1)))
+        dxhat = dyf * ln[0]
+        g_last = (dxhat - dxhat.sum(dim=-1, keepdim=True) / C
+                  - xhat * ((dxhat * xhat).sum(dim=-1, keepdim=True) / C)) * inv
+    else:
+        g_last = dyf
+    g = [torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
+         for _ in range(n)] + [g_last]
+    starts, wi = [], 0
+    for node in spec.nodes:
+        starts.append(wi)
+        wi += 0 if node.kind == 'zero' else 2
+    dweights = [None] * len(weights)
+    for i in reversed(range(n)):
+        node = spec.nodes[i]
+        dtotal = g[i + 1]
+        for j in node.branches:
+            g[j] = g[j] + dtotal
+        if node.kind == 'zero':
+            continue
+        dz = dtotal * mults[i].float()
+        wi = starts[i]
+        dweights[wi + 1] = dz.sum(dim=(0, 1))
+        dzc = dz.to(x.dtype).float()
+        w = weights[wi].float()
+        if node.kind == 'linear':
+            src = inputs[i].float().reshape(-1, C)
+            dw = src.T @ dzc.reshape(-1, C)
+            contrib = dzc @ w.T
+        else:
+            xp = _conv_input(inputs[i], node)
+            dzt = dzc.transpose(1, 2)
+            wt = w.permute(2, 1, 0)
+            dw = torch.nn.grad.conv1d_weight(
+                xp, wt.shape, dzt, dilation=node.d,
+                groups=node.groups).permute(2, 1, 0)
+            contrib = torch.nn.grad.conv1d_input(
+                xp.shape, wt, dzt, dilation=node.d, groups=node.groups)
+            contrib = contrib[:, :, node.lpad:node.lpad + T].transpose(1, 2)
+        dweights[wi] = dw.to(x.dtype)
+        g[i] = g[i] + contrib
+    return g[0].to(x.dtype), dweights, dln
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _lib(name, fn_name, argtypes):
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 5
-                       + [ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_void_p),
-                          ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.nbasr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nbasr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, fn
+
+
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_FWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP, _PP]
+             + [_P] * 5 + [ctypes.c_int, ctypes.c_float, _P, ctypes.c_uint,
+                           ctypes.c_float, _P, _P])
+_BWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP]
+             + [_P] * 5 + [ctypes.c_int, ctypes.c_float, _P, _PP, _PP, _P, _P,
+                           _P, _P])
+_WORKSPACE_ARGS = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _check(t, name, shape, dtype, device):
@@ -155,15 +400,23 @@ def _check(t, name, shape, dtype, device):
                          f'{tuple(t.shape)} on {t.device}')
 
 
-def _launch(spec, x, weights, ln):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f'the fused cell kernel takes f32 or bf16, '
-                         f'not {x.dtype}')
+def _refuse_detach(tensors):
+    """A launch makes tensors with no ``grad_fn``: where autograd would need
+    one, refuse rather than cut the graph silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError('the fused cell kernel would detach an input that '
+                           'needs a gradient; call fused_cell_forward, which '
+                           'goes through FusedCell')
+
+
+def _describe(spec, x, weights):
+    """(desc ints, weight pointers, bias pointers) after checking every
+    operand as the kernels take it."""
     B, T, C = x.shape
-    _check(x, 'x', (B, T, C), x.dtype, x.device)
     n = len(spec.nodes)
     if not 1 <= n <= _MAX_NODES:
-        raise ValueError(f'the fused cell kernel takes 1..{_MAX_NODES} '
+        raise ValueError(f'the fused cell kernels take 1..{_MAX_NODES} '
                          f'nodes, got {n}')
     desc, wptrs, bptrs = [], [], []
     wi = 0
@@ -194,26 +447,103 @@ def _launch(spec, x, weights, ln):
         _check(b, f'node {i} bias', (C,), torch.float32, x.device)
         wptrs.append(w.data_ptr())
         bptrs.append(b.data_ptr())
-    if spec.use_norm:
-        for t, name in zip(ln, ('ln scale', 'ln bias')):
-            _check(t, name, (C,), torch.float32, x.device)
-        ln_ptrs = [ln[0].data_ptr(), ln[1].data_ptr()]
-    else:
-        ln_ptrs = [None, None]
+    return desc, wptrs, bptrs
 
+
+def _ln_ptrs(spec, ln, x, which=(0, 1)):
+    if not spec.use_norm:
+        return [None] * len(which)
+    C = x.shape[-1]
+    for i in which:
+        _check(ln[i], ('ln scale', 'ln bias')[i], (C,), torch.float32,
+               x.device)
+    return [ln[i].data_ptr() for i in which]
+
+
+def _raise_on(err, lib, what):
+    if err:
+        raise RuntimeError(f'fused cell {what} kernel launch failed: '
+                           + lib.nbasr_cuda_error_string(err).decode())
+
+
+def _launch(spec, x, weights, ln, seed, save):
+    """The forward kernel: ``(y, outs, mults)``, the last two None unless
+    ``save``."""
+    _refuse_detach([x, *weights, *(ln or ())])
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'the fused cell kernel takes f32 or bf16, '
+                         f'not {x.dtype}')
+    B, T, C = x.shape
+    _check(x, 'x', (B, T, C), x.dtype, x.device)
+    desc, wptrs, bptrs = _describe(spec, x, weights)
+    ln_ptrs = _ln_ptrs(spec, ln, x)
+    n = len(spec.nodes)
+    if spec.dropping:
+        _check(seed, 'seed', (2,), torch.int32, x.device)
+        seed_ptr = seed.data_ptr()
+        thr, inv_keep = keep_threshold(spec.dropout_rate), _inv_keep(
+            spec.dropout_rate)
+    else:
+        seed_ptr, thr, inv_keep = None, 0, 1.0
     scratch = torch.empty((n, B, T, C), dtype=x.dtype, device=x.device)
+    mults = torch.empty_like(scratch) if save else None
     y = torch.empty_like(x)
-    lib = _lib()
+    lib, fn = _lib('fused_cell', 'nbasr_fused_cell_forward', _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nbasr_fused_cell_forward(
-            int(x.dtype == torch.bfloat16), B, T, C, n,
-            (ctypes.c_int * len(desc))(*desc),
-            (ctypes.c_void_p * n)(*wptrs), (ctypes.c_void_p * n)(*bptrs),
-            x.data_ptr(), scratch.data_ptr(), y.data_ptr(), *ln_ptrs,
-            int(spec.use_norm), spec.ln_eps, stream)
-    if err:
-        raise RuntimeError('fused cell kernel launch failed: '
-                           + lib.nbasr_cuda_error_string(err).decode())
+        err = fn(int(x.dtype == torch.bfloat16), B, T, C, n,
+                 (ctypes.c_int * len(desc))(*desc),
+                 (ctypes.c_void_p * n)(*wptrs), (ctypes.c_void_p * n)(*bptrs),
+                 x.data_ptr(), scratch.data_ptr(), y.data_ptr(), *ln_ptrs,
+                 int(spec.use_norm), spec.ln_eps, seed_ptr, thr, inv_keep,
+                 mults.data_ptr() if save else None, stream)
+    _raise_on(err, lib, 'forward')
     LAUNCHES['kernel'] += 1
-    return y
+    return (y, scratch, mults) if save else (y, None, None)
+
+
+def _launch_backward(spec, x, outs, mults, dy, weights, ln):
+    B, T, C = x.shape
+    n = len(spec.nodes)
+    for t, name in ((x, 'x'), (dy, 'dy')):
+        _check(t, name, (B, T, C), x.dtype, x.device)
+    for t, name in ((outs, 'outs'), (mults, 'mults')):
+        _check(t, name, (n, B, T, C), x.dtype, x.device)
+    desc, wptrs, _ = _describe(spec, x, weights)
+    (scale_ptr,) = _ln_ptrs(spec, ln, x, which=(0,))
+    desc_arr = (ctypes.c_int * len(desc))(*desc)
+    lib, fn = _lib('fused_cell_bwd', 'nbasr_fused_cell_backward', _BWD_ARGS)
+    size = lib.nbasr_fused_cell_backward_workspace
+    if size.argtypes is None:
+        size.argtypes = _WORKSPACE_ARGS
+        size.restype = ctypes.c_longlong
+    work = torch.empty((size(B, T, C, n, desc_arr),), dtype=torch.float32,
+                       device=x.device)
+    dx = torch.empty_like(x)
+    dweights, dwptrs, dbptrs = [], [], []
+    for w in weights:      # per node: dW like its weight, db f32 like its bias
+        dweights.append(torch.empty_like(w))
+    wi = 0
+    for node in spec.nodes:
+        if node.kind == 'zero':
+            dwptrs.append(None)
+            dbptrs.append(None)
+            continue
+        dwptrs.append(dweights[wi].data_ptr())
+        dbptrs.append(dweights[wi + 1].data_ptr())
+        wi += 2
+    dln = (torch.empty((C,), dtype=torch.float32, device=x.device),
+           torch.empty((C,), dtype=torch.float32, device=x.device)) \
+        if spec.use_norm else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(int(x.dtype == torch.bfloat16), B, T, C, n, desc_arr,
+                 (ctypes.c_void_p * n)(*wptrs), x.data_ptr(), outs.data_ptr(),
+                 mults.data_ptr(), dy.data_ptr(), scale_ptr,
+                 int(spec.use_norm), spec.ln_eps, dx.data_ptr(),
+                 (ctypes.c_void_p * n)(*dwptrs), (ctypes.c_void_p * n)(*dbptrs),
+                 dln[0].data_ptr() if dln else None,
+                 dln[1].data_ptr() if dln else None, work.data_ptr(), stream)
+    _raise_on(err, lib, 'backward')
+    BACKWARD_LAUNCHES['kernel'] += 1
+    return dx, dweights, dln

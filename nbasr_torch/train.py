@@ -1,0 +1,94 @@
+"""Train one NAS-Bench-ASR architecture with the port (the twin of the
+repository's ``train.py``, same 9-int arch vector and flags).
+
+    python -m nbasr_torch.train 1 0 1 0 0 1 0 0 0 --batch_size 64 \
+        --epochs 40 --data TIMIT --lr 1e-4 --dropout 0.2 --seed 1235
+
+``--data synthetic[:N]`` uses the built-in fake corpus.  ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
+``--dtype`` defaults to bfloat16 on the card and float32 on the CPU.  The
+eval decoder is greedy: beam search and the ``--dp/--tp`` meshes are
+later slices of the port (``ROADMAP.md``).
+"""
+
+import argparse
+import pathlib
+
+import torch
+
+from .data.pipeline import get_dataloaders
+from .models.asr import get_model, resolve_device
+from .training import get_loss, get_trainer
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('model', type=int, nargs=9,
+                        help='arch vector: 2 + 3 + 4 ints')
+    parser.add_argument('--batch_size', type=int, default=64)
+    parser.add_argument('--epochs', type=int, default=40)
+    parser.add_argument('--data', type=str, default='TIMIT')
+    parser.add_argument('--rnn', type=lambda s: s not in ('0', 'false', 'False'),
+                        default=True)
+    parser.add_argument('--exp_folder', type=str, default='results')
+    parser.add_argument('--exp_name', type=str, default=None)
+    parser.add_argument('--lr', type=float, default=0.0001)
+    parser.add_argument('--dropout', type=float, default=0.2)
+    parser.add_argument('--dp', type=int, default=None,
+                        help='not ported yet (ROADMAP.md)')
+    parser.add_argument('--tp', type=int, default=1,
+                        help='not ported yet (ROADMAP.md)')
+    parser.add_argument('--decoder', type=str, default='greedy',
+                        choices=['beam', 'greedy'],
+                        help="eval decoder; 'beam' is not ported yet")
+    parser.add_argument('--init_scheme', type=str, default=None,
+                        choices=['scaled', 'reference', 'he'],
+                        help="kernel init (default: the model's 'scaled')")
+    parser.add_argument('--adam_eps', type=float, default=None,
+                        help="Adam epsilon (default: the trainer's 1e-16; "
+                             "pass 1e-7 for the reference optimizer)")
+    parser.add_argument('--reset', action='store_true')
+    parser.add_argument('--seed', type=int, default=1235)
+    parser.add_argument('--dtype', type=str, default=None,
+                        choices=['float32', 'bfloat16'],
+                        help='encoder compute dtype; default: bfloat16 on '
+                             'the card, float32 on the CPU')
+    parser.add_argument('--device', type=str, default='cuda')
+    args = parser.parse_args(argv)
+    if args.dp or args.tp != 1:
+        parser.error('--dp/--tp: the distributed runners are not ported yet '
+                     '(see ROADMAP.md)')
+
+    device = resolve_device(args.device)
+    if args.dtype is None:
+        args.dtype = 'bfloat16' if device.type == 'cuda' else 'float32'
+    if device.type == 'cuda' and args.dtype == 'float32':
+        torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
+        torch.backends.cudnn.allow_tf32 = False
+
+    arch = [args.model[0:2], args.model[2:5], args.model[5:9]]
+    if not args.exp_name:
+        flat = '_'.join(map(str, args.model))
+        args.exp_name = f'{flat}_b{args.batch_size}_rnn{int(args.rnn)}'
+    print(f'Using backend: torch on {device}')
+    print(f'    Model vec: {arch}')
+    print(f'    Training for {args.epochs} epochs, batch {args.batch_size}, '
+          f'lr {args.lr}, dropout {args.dropout}')
+
+    dataloaders = get_dataloaders(args.data, batch_size=args.batch_size)
+    model_kw = {'init_scheme': args.init_scheme} if args.init_scheme else {}
+    model = get_model(
+        arch, use_rnn=args.rnn, dropout_rate=args.dropout, data_norm=True,
+        compute_dtype=getattr(torch, args.dtype), device=device,
+        generator=torch.Generator().manual_seed(args.seed), **model_kw)
+    trainer_kw = {} if args.adam_eps is None else {'adam_eps': args.adam_eps}
+    trainer = get_trainer(dataloaders, get_loss(), device=device,
+                          save_dir=pathlib.Path(args.exp_folder) / 'torch',
+                          eval_decoder=args.decoder, **trainer_kw)
+    return trainer.train(model, epochs=args.epochs, lr=args.lr,
+                         reset=args.reset, model_name=args.exp_name,
+                         seed=args.seed)
+
+
+if __name__ == '__main__':
+    main()

@@ -100,3 +100,180 @@ def test_forward_refuses_other_devices():
     with pytest.raises(ValueError, match='cuda or cpu'):
         fused_cell.fused_cell_forward(
             spec, torch.empty((1, 4, 24), device='meta'), [], None)
+
+
+# ---------------------------------------------------------------------------
+# training: dropout and the backward, against fused_cell_apply's VJP
+# ---------------------------------------------------------------------------
+
+SEED = np.array([123, 456789], np.int32)
+# one bf16 ulp of the scale: the two sides round at the same points and sum
+# in another order, which rarely moves a rounded value by one ulp
+BF16_ULP = 2.0 ** -8
+
+
+def _jax_spec(spec, rate):
+    nodes = []
+    for n in spec.nodes:
+        if n.kind == 'conv':
+            nodes.append(jax_fused_cell.ConvNode(
+                n.K, n.d, n.lpad, n.rpad, n.groups, 1, n.cin_pg, n.cout_pg,
+                n.branches))
+        elif n.kind == 'linear':
+            nodes.append(jax_fused_cell.LinearNode(n.branches))
+        else:
+            nodes.append(jax_fused_cell.ZeroNode(n.branches))
+    return jax_fused_cell.FusedCellSpec(nodes, dropout_rate=rate, train=True,
+                                        ln_eps=spec.ln_eps,
+                                        use_norm=spec.use_norm)
+
+
+def _cell_inputs(spec, zero_rows, C=24, seed=0):
+    """x, flat compact (w, b) per node, ln, dy; zeroed rows 8-16 with zero
+    biases put whole windows of pre-activations exactly at 0 (ties)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, 21, C).astype(np.float32)
+    if zero_rows:
+        x[:, 8:16] = 0.0
+    ws = []
+    for n in spec.nodes:
+        if n.kind == 'zero':
+            continue
+        w = (rng.randn(n.K, n.cin_pg, C) * 0.3 if n.kind == 'conv'
+             else rng.randn(C, C) * 0.2)
+        b = np.zeros(C) if zero_rows else rng.randn(C) * 0.1
+        ws += [w.astype(np.float32), b.astype(np.float32)]
+    ln = [(1 + 0.1 * rng.randn(C)).astype(np.float32),
+          (0.1 * rng.randn(C)).astype(np.float32)]
+    dy = rng.randn(2, 21, C).astype(np.float32)
+    return x, ws, ln, dy
+
+
+def _vjp_pair(arch, rate, zero_rows, dtype):
+    """(JAX y and VJP, port y and grads) of one training cell on the same
+    numpy inputs and seed; JAX's expand_chunked sits inside the function
+    under jax.vjp, so its dW comes back compact."""
+    spec = SearchCell(24, arch, groups=4, dropout_rate=rate).train_spec
+    x, ws, ln, dy = _cell_inputs(spec, zero_rows)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jspec = _jax_spec(spec, rate)
+
+    def f(x, ws, ln):
+        ops, i = [], 0
+        for n in spec.nodes:
+            if n.kind == 'zero':
+                continue
+            w, b = ws[i], ws[i + 1]
+            i += 2
+            if n.kind == 'conv':
+                w = jax_fused_cell.expand_chunked(w, n.groups, 1)
+            ops += [w.astype(jdt), b]
+        return jax_fused_cell.fused_cell_apply(jspec, x.astype(jdt), ops, ln,
+                                               jnp.asarray(SEED))
+
+    y, vjp = jax.vjp(f, jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                     [jnp.asarray(v) for v in ln])
+    gx, gws, gln = vjp(jnp.asarray(dy).astype(y.dtype))
+    want = [y, gx, *gws, *gln]
+
+    with torch.enable_grad():
+        xt = torch.tensor(x, requires_grad=True)
+        wt = [torch.tensor(w, requires_grad=True) for w in ws]
+        lt = [torch.tensor(v, requires_grad=True) for v in ln]
+        ops = [w.to(dtype) if i % 2 == 0 else w for i, w in enumerate(wt)]
+        yt = fused_cell.fused_cell_forward(spec, xt.to(dtype), ops, lt,
+                                           torch.tensor(SEED))
+        yt.backward(torch.tensor(dy).to(dtype))
+    got = [yt, xt.grad, *(w.grad for w in wt), *(v.grad for v in lt)]
+    return ([np.asarray(jnp.asarray(a, jnp.float32)) for a in want],
+            [t.detach().float().numpy() for t in got])
+
+
+@pytest.mark.parametrize('zero_rows', [False, True], ids=['', 'ties'])
+@pytest.mark.parametrize('rate', [0.0, 0.5])
+@pytest.mark.parametrize('arch', ARCHS, ids=ARCH_IDS)
+def test_cell_vjp_matches_jax(arch, rate, zero_rows):
+    """Output, dx, every compact dW and db, dscale and dbias within 1e-5 of
+    each tensor's scale in f32 (sums in another order); with dropout 0.5
+    the masks must be the same, or the outputs differ by O(1)."""
+    want, got = _vjp_pair(arch, rate, zero_rows, torch.float32)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize('arch', ARCHS, ids=ARCH_IDS)
+def test_cell_vjp_bf16_matches_jax(arch):
+    want, got = _vjp_pair(arch, 0.5, True, torch.bfloat16)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=BF16_ULP * np.abs(w).max())
+
+
+def test_tie_gradient_matches_jax():
+    """Regression: with zero biases and zeroed input rows, whole windows of
+    pre-activations sit exactly at 0, where the JAX kernel's clip-ReLU gate
+    passes half the gradient (jnp.clip's VJP); a cell differentiated
+    through torch.clamp passes all of it and gets the bias gradients
+    wrong by a fifth of their size."""
+    kw = dict(filters=24, arch_desc=ARCHS[0], groups=4, init_scheme='scaled')
+    jcell = JaxSearchCell(dropout_rate=0.0, grouped_impl='fused', **kw)
+    x = _x()
+    x[:, 8:16] = 0.0
+    v = jcell.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = jax.grad(lambda p: jnp.sum(jcell.apply(
+        {'params': p}, jnp.asarray(x)) ** 2))(v['params'])
+    port = SearchCell(**kw)
+    port.load_state_dict(from_flax(v))
+    with torch.enable_grad():
+        (port(torch.from_numpy(x)) ** 2).sum().backward()
+    want = from_flax({'params': want})
+    for name, p in port.named_parameters():
+        w = want[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=ATOL * np.abs(w).max(), err_msg=name)
+
+
+def test_dropout_bits_are_the_jax_interpret_hash():
+    prng = jax_fused_cell._Prng()
+    assert prng.interpret
+    for pid, s in ((0, (0, 0)), (3, (2147483646, 17)), (1, (-5, 123456789))):
+        prng.seed(jnp.int32(s[0]), jnp.int32(s[1]), jnp.int32(pid))
+        seed = torch.tensor(s, dtype=torch.int32)
+        for counter in (1, 2, 3):
+            want = np.asarray(prng.bits((7, 40)))
+            got = fused_cell.dropout_bits(seed, counter, pid + 1, 7, 40)[pid]
+            np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_training_cpu_goes_through_fused_cell():
+    cell = SearchCell(24, ARCHS[2], groups=4).train()
+    x = torch.from_numpy(_x())
+    fused_cell.reset_launches()
+    with torch.enable_grad():
+        y = cell(x, torch.Generator().manual_seed(0))
+        assert type(y.grad_fn).__name__ == 'FusedCellBackward'
+        y.sum().backward()
+    assert fused_cell.LAUNCHES == {'kernel': 0, 'plain': 1}
+    assert fused_cell.BACKWARD_LAUNCHES == {'kernel': 0, 'plain': 1}
+    assert all(p.grad is not None for p in cell.parameters())
+
+
+def test_dropout_seed_comes_from_the_callers_generator():
+    cell = SearchCell(24, ARCHS[0], groups=4).train()
+    x = torch.from_numpy(_x())
+    with pytest.raises(ValueError, match='torch.Generator'):
+        cell(x)
+    a = cell(x, torch.Generator().manual_seed(5))
+    b = cell(x, torch.Generator().manual_seed(5))
+    c = cell(x, torch.Generator().manual_seed(6))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    torch.testing.assert_close(cell.eval()(x), cell(x), rtol=0, atol=0)
+
+
+def test_kernel_launch_refuses_to_detach():
+    cell = SearchCell(24, ARCHS[2], groups=4)
+    x = torch.from_numpy(_x()).requires_grad_()
+    with torch.enable_grad(), pytest.raises(RuntimeError, match='detach'):
+        fused_cell._launch(cell.spec, x, *cell.operands(torch.float32),
+                           None, save=False)

@@ -23,7 +23,12 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = list(_modules())
-    assert 'nbasr_torch.serving' in mods and 'nbasr_torch.ops.fused_cell' in mods
+    assert {'nbasr_torch.serving', 'nbasr_torch.ops.fused_cell',
+            'nbasr_torch.training.trainer', 'nbasr_torch.training.loss',
+            'nbasr_torch.training.metrics', 'nbasr_torch.train',
+            'nbasr_torch.ops.ctc', 'nbasr_torch.ops.edit_distance',
+            'nbasr_torch.data.pipeline', 'nbasr_torch.data.phonemes',
+            'nbasr_torch.data.timit'} <= set(mods)
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             f'print(sorted(m for m in sys.modules '
@@ -64,3 +69,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         s = StreamingASR(model, chunk_frames=8, device='cpu')
         s.push(np.zeros(4000, np.float32))
         assert s.flush()
+    from nbasr_torch.data.pipeline import get_dataloaders
+    from nbasr_torch.train import main
+    from nbasr_torch.training import Trainer
+    loaders = get_dataloaders('synthetic:4', batch_size=2, curriculum=())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Trainer(loaders)
+    Trainer(loaders, device='cpu').init_state(model)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        main(['1', '0', '1', '0', '0', '1', '0', '0', '0', '--data',
+              'synthetic:4'])
