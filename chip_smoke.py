@@ -37,7 +37,23 @@ prints no result):
    cell dropout 0.2 with the same masks on both sides) on the card against
    the same port on the CPU, beside witnesses that split the difference:
    the card's kernels against the plain cells run on the card, and each
-   side against itself with the input audio nudged by one ulp.
+   side against itself with the input audio nudged by one ulp;
+9. grouped conv kernels (``grouped_impl`` 'pallas' and 'pallas_split'):
+   the forward (with and without its bias + clip-ReLU epilogue), dx and dW
+   kernels against their plain versions at the four train-step widths
+   (B=4), K/d 5/1, 5/2, 7/1, 7/2, on a dense tensor seen as a strided split
+   view and on a contiguous split tensor, f32 and bf16; then at B=32 with
+   conv5, checked and timed beside their bounds, plain versions and the
+   cuDNN call that computes the same function;
+10. grouped forward: the flagship's f32 logits with 'pallas' and
+   'pallas_split' against 'fused' on the card, same weights, one B=4
+   batch; 54 forward kernel launches per model forward, no plain call;
+11. grouped train steps: phase 7 for 'pallas' and 'pallas_split' (54
+   forward, 54 dx and 54 dW launches per step, no plain call, no fused
+   cell launch), beside the fused step of phase 7 in the same call; and one
+   f32 step's gradients (B=2, cell dropout 0.2) on the card against the
+   same configuration with the plain versions on the card, and, as a
+   witness, 'pallas' against 'fused' (the same gate rule and masks).
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -56,8 +72,10 @@ from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
 from nbasr_torch.models.asr import algorithmic_flops, count_params, get_model
 from nbasr_torch.models.cell import SearchCell
-from nbasr_torch.ops import _build, fused_cell
+from nbasr_torch.models.layers import conv_padding
+from nbasr_torch.ops import _build, fused_cell, grouped_conv
 from nbasr_torch.ops.fused_cell import FusedCellSpec
+from nbasr_torch.ops.grouped_conv import to_split
 from nbasr_torch.search_space import arch_vec_to_names
 from nbasr_torch.serving import StreamingASR, StreamingGreedyDecoder
 from nbasr_torch.training import Trainer, ratios
@@ -552,12 +570,14 @@ BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
                'nbasr_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
                'nbasr_convert')
 FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
-               'nbasr_layer_norm')
+               'nbasr_layer_norm', 'nbasr_gconv_forward')
+GCONV_BWD_KERNELS = ('nbasr_gconv_dx', 'nbasr_gconv_dw_partials',
+                     'nbasr_gconv_dw_reduce')
 
 
 def profile_train_step(trainer, batch, lr):
     """Kernel time by name over one train step (torch.profiler), the busy
-    share, and the fused cell kernels' part."""
+    share, and the cell kernels' part (fused cell or grouped conv)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -573,21 +593,24 @@ def profile_train_step(trainer, batch, lr):
     ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
     busy = ms(kernels)
     fwd = ms([e for e in kernels if any(k in e.key for k in FWD_KERNELS)])
-    bwd = ms([e for e in kernels if any(k in e.key for k in BWD_KERNELS)])
+    bwd = ms([e for e in kernels
+              if any(k in e.key for k in BWD_KERNELS + GCONV_BWD_KERNELS)])
     print(f'train profile: {busy:.3f} ms of kernel time in one step, '
           f'{wall_ms:.3f} ms wall under the profiler (busy {busy / wall_ms:.1%}); '
-          f'fused cell forward kernels {fwd:.3f} ms, backward kernels '
+          f'cell forward kernels {fwd:.3f} ms, backward kernels '
           f'{bwd:.3f} ms, rest {busy - fwd - bwd:.3f} ms')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f'  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  '
               f'{e.key[:100]}')
 
 
-def check_train_step(device):
-    """Phase 7.  Returns the launch counts and the timings."""
+def check_train_step(device, impl='auto'):
+    """Phase 7 (and 11 for the grouped impls).  Returns the launch counts
+    of the 5 timed steps and the timings."""
     model = get_model(FLAGSHIP, use_rnn=True, dropout_rate=DROPOUT,
                       data_norm=True, compute_dtype=torch.bfloat16,
-                      device=device, generator=torch.Generator().manual_seed(SEED))
+                      device=device, grouped_impl=impl,
+                      generator=torch.Generator().manual_seed(SEED))
     loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
     batches = list(loaders[1].full)
     assert all(b['audio'].shape[0] == TRAIN_B for b in batches)
@@ -599,15 +622,22 @@ def check_train_step(device):
     steps = [batches[i % len(batches)] for i in range(5)]
     torch.cuda.synchronize()
     fused_cell.reset_launches()
+    grouped_conv.reset_launches()
     t0 = time.perf_counter()
     for b in steps:
         m = trainer.step(b, lr=lr)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = dict(fused_cell.LAUNCHES), dict(fused_cell.BACKWARD_LAUNCHES)
-    print(f'train step: launches forward {fwd}, backward {bwd} in 5 steps')
-    assert fwd == {'kernel': 18 * 5, 'plain': 0}, fwd
-    assert bwd == {'kernel': 18 * 5, 'plain': 0}, bwd
+    launches = {'fused_forward': dict(fused_cell.LAUNCHES),
+                'fused_backward': dict(fused_cell.BACKWARD_LAUNCHES),
+                **{f'grouped_{k}': dict(v)
+                   for k, v in grouped_conv.LAUNCHES.items()}}
+    print(f'train step [{impl}]: launches in 5 steps {launches}')
+    fused = impl == 'auto'
+    for name, counts in launches.items():
+        want = (18 if fused else 0) if name.startswith('fused') else \
+            (0 if fused else 54)
+        assert counts == {'kernel': want * 5, 'plain': 0}, (name, counts)
     assert np.isfinite(m['ctc_loss']) and trainer.nonfinite_steps == 0, \
         (m, trainer.nonfinite_steps)
     # audio seconds of the valid rows, as the frontend frames them
@@ -619,14 +649,14 @@ def check_train_step(device):
     T = batches[0]['feature_size'].max()
     frames = loaders[1].full.bucket_frames[0]
     flops = algorithmic_flops(model, TRAIN_B, frames, train=True)
-    print(f'train step: bf16 B={TRAIN_B} T={frames} frames (longest {T}): '
-          f'{step_ms:.3f} ms per step (host clock, 5 steps), '
+    print(f'train step [{impl}]: bf16 B={TRAIN_B} T={frames} frames (longest '
+          f'{T}): {step_ms:.3f} ms per step (host clock, 5 steps), '
           f'{audio_s / wall:.1f} audio-s/s, running train loss '
           f'{m["ctc_loss"]:.4f}; {flops / 1e9:.1f} algorithmic GFLOP per step '
           f'= {flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s')
     profile_train_step(trainer, batches[0], lr)
-    return fwd['kernel'], bwd['kernel'], dict(step_ms=step_ms,
-                                              audio_s_per_s=audio_s / wall)
+    return ({k: v['kernel'] for k, v in launches.items()},
+            dict(step_ms=step_ms, audio_s_per_s=audio_s / wall))
 
 
 @contextlib.contextmanager
@@ -730,6 +760,358 @@ def check_train_cpu(device):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the grouped conv kernels ('pallas', 'pallas_split')
+# ---------------------------------------------------------------------------
+
+GROUPS = 100
+GCONV_KD = ((5, 1), (5, 2), (7, 1), (7, 2))
+GCONV_LAYOUTS = ('dense', 'split')       # a strided split view; contiguous
+GCONV_KERNELS = ('forward', 'dx', 'dw')
+GCONV_SOURCE = 'nbasr_torch/csrc/grouped_conv.cu'
+GCONV_REPLACES = {
+    'forward': 'nbasr_tpu/ops/grouped_conv.py:39 (_fwd_kernel, pallas_call '
+               ':138); nbasr_tpu/ops/cell_ops.py:59 (_fwd_kernel, '
+               'pallas_call :124)',
+    'dx': 'nbasr_tpu/ops/grouped_conv.py:56 (_dx_kernel, pallas_call :182); '
+          'nbasr_tpu/ops/cell_ops.py:78 (_dx_kernel, pallas_call :171)',
+    'dw': 'nbasr_tpu/ops/grouped_conv.py:79 (_dw_kernel, pallas_calls '
+          'grouped_conv.py:204 and cell_ops.py:192)'}
+GCONV_CHECKED_AT = ('B=4 at (C, T) = (600, 300), (800, 300), (1000, 150), '
+                    '(1200, 75), K/d 5/1, 5/2, 7/1, 7/2, and B=32 with K/d 5/1; '
+                    'a dense tensor as a strided split view and a contiguous '
+                    'split tensor; forward without and with the bias + '
+                    'clip-ReLU epilogue; f32 and bf16')
+# The flagship's logits with the grouped conv kernels against the fused cell
+# kernels, both f32 on the card, as a share of max|fused|: the two sum each
+# conv node in another order and round at other points (the fused cell in
+# one f32 pass per node, the grouped paths at each op), through 18 cells.
+GROUPED_LOGITS_TOL = 1e-3
+# Kernels against plain versions, f32 step gradients, per configuration.
+# 'pallas' is held to KERNEL_GRAD_TOL.  'pallas_split' cannot be: its gate
+# comes from the rounded output and passes nothing at exactly 0, and the
+# random-init flagship's backward turns the conv sums' order into up to
+# 4.78e-2 of a tensor's max (measured on an H100: the same reading as the
+# card's 1-ulp audio nudge of phase 8, on the same tensor; on the CPU,
+# 1e-7 relative noise on every split conv output moves the gradients by
+# 2.8e-2, on 'pallas' by 1.8e-2 with the 'he' init).  It is held to
+# TRAIN_GRAD_TOL, which a wrong kernel (off by its own size) still fails,
+# and the phase prints the split path's own 1-ulp audio nudge beside it.
+STEP_KERNEL_TOL = {'pallas': KERNEL_GRAD_TOL, 'pallas_split': TRAIN_GRAD_TOL}
+
+
+def _gconv_operands(C, T, Bn, K, d, dtype, device, g):
+    """x, dz (dense [Bn, T, C]), w [K, ci, C] and bias [C] in ``dtype``."""
+    ci = C // GROUPS
+    x = torch.randn((Bn, T, C), generator=g)
+    dz = torch.randn((Bn, T, C), generator=g)
+    w = torch.randn((K, ci, C), generator=g) / (K * ci) ** 0.5
+    b = 0.1 * torch.randn((C,), generator=g)
+    return [t.to(device=device, dtype=dtype) for t in (x, dz, w, b)]
+
+
+def _gconv_args(x, dz, layout):
+    """The split views the kernels take: of the dense tensors themselves,
+    or contiguous copies; and where each output goes."""
+    xs, zs = to_split(x, GROUPS), to_split(dz, GROUPS)
+    if layout == 'split':
+        return xs.contiguous(), zs.contiguous(), torch.empty_like(
+            xs, memory_format=torch.contiguous_format), torch.empty_like(
+            xs, memory_format=torch.contiguous_format)
+    return xs, zs, to_split(torch.empty_like(x), GROUPS), to_split(
+        torch.empty_like(x), GROUPS)
+
+
+def _gconv_calls(xs, zs, w, b, lpad, d, y, dx, fns):
+    """{kernel: zero-argument call} for the epilogue-free forward, the
+    forward with bias + clip-ReLU, dx and dW through ``fns`` (the kernels'
+    wrappers or their plain versions)."""
+    fwd, dxf, dwf = fns
+    return {'forward': lambda: fwd(xs, w, None, lpad, d, y),
+            'forward+bias': lambda: fwd(xs, w, b, lpad, d, y),
+            'dx': lambda: dxf(zs, w, lpad, d, dx),
+            'dw': lambda: dwf(xs, zs, w, lpad, d)}
+
+
+KERNEL_FNS = (grouped_conv._launch_forward, grouped_conv._launch_dx,
+              grouped_conv._launch_dw)
+PLAIN_FNS = (grouped_conv.conv_forward_reference,
+             grouped_conv.conv_dx_reference, grouped_conv.conv_dw_reference)
+
+
+def _gconv_compare(calls, plain, errors, label):
+    """Runs each kernel and its plain version on the same inputs; asserts
+    the error within TOL (forward) or GRAD_TOL (dx, dW) of max|plain|."""
+    for name in calls:
+        got = calls[name]().float().clone()
+        want = plain[name]().float()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-30)
+        dtype = label[-1]
+        tol = (TOL if name.startswith('forward') else GRAD_TOL)[dtype]
+        assert err <= tol * scale, (label, name, err, scale)
+        key = name.split('+')[0]
+        e = errors[key][dtype]
+        errors[key][dtype] = [max(e[0], err), max(e[1], err / scale)]
+
+
+def gconv_bound(C, T, Bn, K, dtype, name):
+    """(ms, 'bytes' | 'operations') for one node: each input read once and
+    each output written once (two [Bn, T, C] passes, the weight, and the
+    bias for the split forward or dW for the weight gradient) against
+    2*Bn*T*C*K*ci operations at the dtype's peak."""
+    size = torch.finfo(dtype).bits // 8
+    ci = C // GROUPS
+    nbytes = (2 * Bn * T * C + K * ci * C + (C if name == 'forward+bias' else 0)
+              ) * size
+    t_bytes = nbytes / MEM_BYTES_S
+    t_ops = 2 * Bn * T * C * K * ci / PEAK_OPS_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def _library_calls(x, dz, w, lpad, d):
+    """One cuDNN call per function on inputs already in its layout
+    ([B, C, T], the input padded): timed as yardsticks, never on a path."""
+    K = w.shape[0]
+    xp = torch.nn.functional.pad(x.transpose(1, 2), (lpad, (K - 1) * d - lpad)
+                                 ).contiguous()
+    zt = dz.transpose(1, 2).contiguous()
+    wt = w.permute(2, 1, 0).contiguous()
+    return {'forward': lambda: torch.nn.functional.conv1d(
+                xp, wt, dilation=d, groups=GROUPS),
+            'dx': lambda: torch.nn.grad.conv1d_input(
+                xp.shape, wt, zt, dilation=d, groups=GROUPS),
+            'dw': lambda: torch.nn.grad.conv1d_weight(
+                xp, wt.shape, zt, dilation=d, groups=GROUPS)}
+
+
+@torch.no_grad()
+def check_gconv_kernels(device):
+    """Phase 9.  Returns ({kernel: {dtype: [max abs err, max share]}},
+    timing rows at the train step's B=32)."""
+    errors = {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+              for k in GCONV_KERNELS}
+    for C, T in TRAIN_WIDTHS:
+        g = torch.Generator().manual_seed(SEED + 7 * C + T)
+        for K, d in GCONV_KD:
+            lpad, _ = conv_padding(K, d, 1)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, dz, w, b = _gconv_operands(C, T, CHECK_B, K, d, dtype,
+                                              device, g)
+                for layout in GCONV_LAYOUTS:
+                    xs, zs, y, dx = _gconv_args(x, dz, layout)
+                    _gconv_compare(
+                        _gconv_calls(xs, zs, w, b, lpad, d, y, dx, KERNEL_FNS),
+                        _gconv_calls(xs, zs, w, b, lpad, d, y.clone(),
+                                     dx.clone(), PLAIN_FNS),
+                        errors, (C, T, CHECK_B, K, d, layout, dtype))
+    for k, e in errors.items():
+        print(f'grouped conv {k:8s} kernel vs plain, B=4, all widths, K/d, '
+              f'layouts: f32 max_abs_err {e[torch.float32][0]:.3e} '
+              f'(share {e[torch.float32][1]:.2e}), bf16 '
+              f'{e[torch.bfloat16][0]:.3e} (share {e[torch.bfloat16][1]:.2e})')
+
+    rows = []
+    K, d = 5, 1                         # the flagship's conv5 nodes
+    lpad, _ = conv_padding(K, d, 1)
+    for C, T in TRAIN_WIDTHS:
+        g = torch.Generator().manual_seed(SEED + 11 * C)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dz, w, b = _gconv_operands(C, T, TRAIN_B, K, d, dtype, device, g)
+            library = _library_calls(x, dz, w, lpad, d)
+            for layout in GCONV_LAYOUTS:
+                xs, zs, y, dx = _gconv_args(x, dz, layout)
+                calls = _gconv_calls(xs, zs, w, b, lpad, d, y, dx, KERNEL_FNS)
+                plain = _gconv_calls(xs, zs, w, b, lpad, d, y.clone(),
+                                     dx.clone(), PLAIN_FNS)
+                _gconv_compare(calls, plain, errors,
+                               (C, T, TRAIN_B, K, d, layout, dtype))
+                # the path's forward: 'pallas' without, 'pallas_split' with
+                # the epilogue
+                fwd = 'forward' if layout == 'dense' else 'forward+bias'
+                for name in (fwd, 'dx', 'dw'):
+                    key = name.split('+')[0]
+                    bound_ms, bound_by = gconv_bound(C, T, TRAIN_B, K, dtype,
+                                                     name)
+                    row = dict(kernel=key, layout=layout, C=C, T=T, B=TRAIN_B,
+                               dtype=str(dtype)[6:],
+                               ms=time_ms(calls[name]),
+                               plain_ms=time_ms(plain[name], runs=10),
+                               library_ms=time_ms(library[key]),
+                               bound_ms=bound_ms, bound_by=bound_by)
+                    rows.append(row)
+                    print(f'grouped conv {key:8s} {layout:5s} B={TRAIN_B} '
+                          f'C={C:4d} T={T:3d} {row["dtype"]:8s} kernel '
+                          f'{row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f}  '
+                          f'cuDNN {row["library_ms"]:.4f}  bound '
+                          f'{bound_ms:.4f} ({bound_by})')
+    return errors, rows
+
+
+def _flagship_features(Bn, frames, seed):
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.randn((Bn, frames, 80), generator=g)
+    sizes = torch.full((Bn,), frames, dtype=torch.int32)
+    sizes[-1] = frames - frames // 5
+    return feats, sizes
+
+
+@torch.no_grad()
+def check_grouped_forward(device):
+    """Phase 10.  Returns {impl: (worst share of max|fused|, launches)}."""
+    fused = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
+                      generator=torch.Generator().manual_seed(SEED + 2))
+    feats, sizes = _flagship_features(CHECK_B, TRAIN_WIDTHS[0][1], SEED + 3)
+    feats, sizes = feats.to(device), sizes.to(device)
+    want = fused(feats, sizes)
+    scale = float(want.abs().max())
+    out = {}
+    for impl in ('pallas', 'pallas_split'):
+        model = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
+                          grouped_impl=impl)
+        model.load_state_dict(fused.state_dict())
+        grouped_conv.reset_launches()
+        fused_cell.reset_launches()
+        got = model(feats, sizes)
+        torch.cuda.synchronize()
+        launches = {k: dict(v) for k, v in grouped_conv.LAUNCHES.items()}
+        assert launches['forward'] == {'kernel': 54, 'plain': 0}, launches
+        assert fused_cell.LAUNCHES['kernel'] == 0
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        print(f'grouped forward [{impl}]: f32 logits vs fused on the card, '
+              f'B={CHECK_B} T={TRAIN_WIDTHS[0][1]}: max_abs_err {err:.3e}, '
+              f'max|fused| {scale:.3f} (tol {GROUPED_LOGITS_TOL * scale:.3e}); '
+              f'launches {launches}')
+        assert err <= GROUPED_LOGITS_TOL * scale, (impl, err, scale)
+        out[impl] = (err / scale, launches['forward']['kernel'])
+    return out
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """A witness only, never the main path: inside, every grouped conv runs
+    its plain versions on the tensors it is given, on the card too."""
+    names = ('_launch_forward', '_launch_dx', '_launch_dw')
+    saved = [getattr(grouped_conv, n) for n in names]
+    for n, fn in zip(names, PLAIN_FNS):
+        setattr(grouped_conv, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(grouped_conv, n, fn)
+
+
+def _step_grads(impl, device, state, batch, loaders):
+    """One f32 step's gradients before clipping on ``device`` (cell dropout
+    0.2, the masks of ``init_state(seed=SEED)``)."""
+    model = get_model(FLAGSHIP, use_rnn=True, dropout_rate=0.0, data_norm=True,
+                      device=device, grouped_impl=impl)
+    model.load_state_dict(state)
+    trainer = Trainer(loaders, device=device)
+    trainer.init_state(model, seed=SEED)
+    grads, metrics = trainer.gradients(batch)
+    return {k: v.cpu() for k, v in grads.items()}, metrics
+
+
+def _worst_share(got, want):
+    shares = {}
+    for name, w in want.items():
+        assert bool(torch.isfinite(got[name]).all()), name
+        shares[name] = float((got[name] - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+    worst = max(shares, key=shares.get)
+    return shares[worst], worst, float(np.median(list(shares.values())))
+
+
+def check_grouped_grads(device):
+    """Phase 11, gradients.  Returns the worst shares per reading."""
+    from nbasr_torch.data.phonemes import PhonemeEncoder
+    state = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device='cpu',
+                      generator=torch.Generator().manual_seed(SEED + 1)
+                      ).state_dict()
+    ds = make_synthetic_split(2, seed=SEED + 5, min_samples=23000,
+                              max_samples=25000)
+    batch = next(iter(Loader(ds, 2)))
+    nudged = dict(batch, audio=(batch['audio'] * (1 + 1e-7 * np.random.RandomState(
+        SEED).randn(*batch['audio'].shape))).astype(np.float32))
+    loaders = (PhonemeEncoder(48), None, None, None)
+    fused, _ = _step_grads('auto', device, state, batch, loaders)
+    readings = {}
+    for impl in ('pallas', 'pallas_split'):
+        grouped_conv.reset_launches()
+        got, m = _step_grads(impl, device, state, batch, loaders)
+        assert all(v == {'kernel': 54, 'plain': 0}
+                   for v in grouped_conv.LAUNCHES.values()), grouped_conv.LAUNCHES
+        with plain_convs():
+            grouped_conv.reset_launches()
+            plain, _ = _step_grads(impl, device, state, batch, loaders)
+            assert all(v == {'kernel': 0, 'plain': 54}
+                       for v in grouped_conv.LAUNCHES.values())
+            plain_nudged, _ = _step_grads(impl, device, state, nudged, loaders)
+        pairs = {'kernels vs plain versions, both on the card':
+                 _worst_share(got, plain),
+                 'plain versions vs themselves, audio nudged 1e-7':
+                 _worst_share(plain_nudged, plain),
+                 'vs the fused cell on the card': _worst_share(got, fused)}
+        for label, (worst, name, median) in pairs.items():
+            tol = (f' (tol {STEP_KERNEL_TOL[impl]:.0e})'
+                   if label.startswith('kernels') else ' (witness)')
+            print(f'grouped grads [{impl}] f32 step, B=2, cell dropout '
+                  f'{DROPOUT}, loss {m["ctc_loss"]:.6f}: {label}: worst '
+                  f'{worst:.2e} ({name}), median {median:.2e}{tol}')
+            readings[f'{impl}: {label}'] = worst
+        assert pairs['kernels vs plain versions, both on the card'][0] <= \
+            STEP_KERNEL_TOL[impl], impl
+    return readings
+
+
+
+def gconv_entry(name, errors, rows, train, logits, grads):
+    """The kernels line's entry for one grouped conv kernel: times summed
+    over the 54 bf16 conv5 nodes of one flagship train step, the 'pallas'
+    layout (dense) as ms and the 'pallas_split' layout as split_*."""
+    def step(layout, key):
+        per = [r for r in rows if r['kernel'] == name and
+               r['layout'] == layout and r['dtype'] == 'bfloat16']
+        return sum(3 * n * r[key] for n, r in zip(CELLS_PER_BLOCK, per))
+
+    f32, bf16 = errors[name][torch.float32], errors[name][torch.bfloat16]
+    per_path = {impl: launches[f'grouped_{name}']
+                for impl, (launches, _) in train.items()}
+    entry = dict(
+        name=f'grouped_conv_{name}', route='cuda', source=GCONV_SOURCE,
+        replaces=GCONV_REPLACES[name], launches=sum(per_path.values()),
+        launches_per_path=per_path, launches_per_train_step=54,
+        max_abs_err=f32[0], max_share_err=f32[1], max_abs_err_bf16=bf16[0],
+        max_share_err_bf16=bf16[1],
+        ms=step('dense', 'ms'), plain_ms=step('dense', 'plain_ms'),
+        bound_ms=step('dense', 'bound_ms'),
+        bound_by='bytes' if all(r['bound_by'] == 'bytes' for r in rows
+                                if r['kernel'] == name) else 'operations',
+        library_ms=step('dense', 'library_ms'),
+        split_ms=step('split', 'ms'), split_plain_ms=step('split', 'plain_ms'),
+        split_bound_ms=step('split', 'bound_ms'),
+        times_cover='the 54 bf16 conv5 nodes of one flagship train step, '
+                    'B=32, T=300/300/150/75; ms, plain_ms, bound_ms in the '
+                    "'pallas' layout (dense [B, T, C]), split_* in the "
+                    "'pallas_split' layout; library_ms one cuDNN call per "
+                    'node on inputs in its own layout',
+        checked_at=GCONV_CHECKED_AT,
+        per_width=[r for r in rows if r['kernel'] == name])
+    if name == 'forward':
+        entry['launches_per_model_forward'] = {
+            impl: n for impl, (_, n) in logits.items()}
+        entry['logits_vs_fused_share'] = {
+            impl: share for impl, (share, _) in logits.items()}
+    else:
+        entry['step_gradient_worst_share'] = grads
+    return entry
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -754,8 +1136,15 @@ def main():
     train_errors = checker.errors
     at_step = {k: {str(d)[6:]: v[1] for d, v in e.items()}
                for k, e in checker.step_errors.items()}
-    fwd_train, bwd_train, train = check_train_step(device)
+    fused_launches, train = check_train_step(device)
+    fwd_train = fused_launches['fused_forward']
+    bwd_train = fused_launches['fused_backward']
     train_grads = check_train_cpu(device)
+    gconv_errors, gconv_rows = check_gconv_kernels(device)
+    grouped_logits = check_grouped_forward(device)
+    grouped_train = {impl: check_train_step(device, impl)
+                     for impl in ('pallas', 'pallas_split')}
+    grouped_grads = check_grouped_grads(device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -811,9 +1200,14 @@ def main():
         step_gradient_worst_share=train_grads,
         per_width=train_rows),
     ]
+    kernels += [gconv_entry(name, gconv_errors, gconv_rows, grouped_train,
+                            grouped_logits, grouped_grads)
+                for name in GCONV_KERNELS]
     print(f'train step: {train["step_ms"]:.3f} ms, '
-          f'{train["audio_s_per_s"]:.1f} audio-s/s; serving: '
-          f'{serving["step_ms"]:.3f} ms per device step')
+          f'{train["audio_s_per_s"]:.1f} audio-s/s (fused), ' + ', '.join(
+              f'{t["step_ms"]:.3f} ms, {t["audio_s_per_s"]:.1f} audio-s/s '
+              f'({impl})' for impl, (_, t) in grouped_train.items())
+          + f'; serving: {serving["step_ms"]:.3f} ms per device step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -7,9 +7,12 @@ Counterpart of ``nbasr_tpu/models/asr.py``:
        → LayerNorm → {3,4,5,6} SearchCells)
   → optional LSTM(500) → Dense(49)
 
-Forward and backward: every SearchCell runs the fused cell kernels, with
-the cells' dropout (``cell_dropout``, 0.2) and the pre-LSTM dropout
-(``dropout_rate``) in training mode.  Like the JAX model's ``train=False``
+Forward and backward: every SearchCell runs the fused cell kernels
+(``grouped_impl`` ``'auto'``), or each of its conv nodes the grouped conv
+kernels (``'pallas'``; ``'pallas_split'`` with each block's cell stack in
+the split layout ``[B, C // G, T, G]``), with the cells' dropout
+(``cell_dropout``, 0.2) and the pre-LSTM dropout (``dropout_rate``) in
+training mode.  Like the JAX model's ``train=False``
 default, a model is built in eval mode; ``.train()`` turns dropout on, and
 a training call then draws every dropout decision from the
 ``torch.Generator`` it is given.  Parameter counts for the README arch
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.grouped_conv import from_split, to_split
 from ..search_space import arch_vec_to_names
 from .cell import CELL_DROPOUT, SearchCell
 from .layers import Dense, LayerNorm, MeanVarianceNorm, PadConvRelu, \
@@ -86,6 +90,7 @@ class ASRModel(nn.Module):
         self.block_filters = tuple(block_filters)
         self.cells_per_block = tuple(cells_per_block)
         self.cell_groups = cell_groups
+        self.grouped_impl = grouped_impl
         self.num_classes = num_classes
         self.rnn_units = rnn_units
         self.data_norm = (None if data_mean is None else MeanVarianceNorm(
@@ -141,11 +146,18 @@ class ASRModel(nn.Module):
                                 torch.zeros((), dtype=x.dtype, device=x.device))
             if self.data_norm is not None:
                 x = self.data_norm(x, mask=mask)
+            # 'pallas_split' keeps each block's cell stack in the split
+            # layout: one conversion each way per block
+            split = self.grouped_impl == 'pallas_split'
             for i, cells in enumerate(self.cells_per_block):
                 x = getattr(self, f'block{i}_conv')(x)
                 x = getattr(self, f'block{i}_norm')(x)
+                if split:
+                    x = to_split(x, self.cell_groups)
                 for j in range(cells):
                     x = getattr(self, f'block{i}_cell{j}')(x, generator)
+                if split:
+                    x = from_split(x)
             if stage == 'encode':
                 return x
         carry = None

@@ -1,17 +1,23 @@
-"""Search cell: a small DAG of ops + identity skip branches, in one kernel.
+"""Search cell: a small DAG of ops + identity skip branches.
 
-Counterpart of ``nbasr_tpu/models/cell.py`` ``SearchCell`` on its fused
-path (``_fused``): node *i* computes ``op_i(prev)``, clip-ReLU(20) and
-dropout, and adds ``inputs[j]`` for every live branch bit, then a
-LayerNorm.  The whole cell is one call of
-:func:`nbasr_torch.ops.fused_cell.fused_cell_forward` — the CUDA kernels on
-the card, their plain versions on the CPU — forward and backward.
-Parameter names match the JAX cell's (``node{n}_{op}/conv_kernel_grouped``
-..., ``norm/scale``).
+Counterpart of ``nbasr_tpu/models/cell.py`` ``SearchCell``: node *i*
+computes ``op_i(prev)``, clip-ReLU(20) and dropout, and adds ``inputs[j]``
+for every live branch bit, then a LayerNorm.  On the fused path
+(``grouped_impl`` ``'auto'``, ``'fused'``, ``'fused_aligned'``) the whole
+cell is one call of :func:`nbasr_torch.ops.fused_cell.fused_cell_forward`
+— the CUDA kernels on the card, their plain versions on the CPU — forward
+and backward.  On the unfused paths (``'pallas'``, ``'pallas_split'``,
+the JAX cell's ``__call__`` loop) each op runs itself: every conv node is
+the grouped conv kernel (``nbasr_torch/ops/grouped_conv.py``), the rest
+plain torch ops.  Parameter names match the JAX cell's
+(``node{n}_{op}/conv_kernel_grouped`` ..., ``norm/scale``) on every path.
 
 Like the JAX cell's ``train=False`` default, a cell is built in eval mode;
 ``.train()`` turns its dropout on, and each training call then draws the
-cell's dropout seed from the ``torch.Generator`` its caller passes.
+cell's dropout seed from the ``torch.Generator`` its caller passes.  Every
+path takes its masks from that seed through the same stateless hash, so
+the three compute the same training function up to rounding (and the
+split path's gate at exact ties).
 """
 
 import torch
@@ -19,8 +25,9 @@ from torch import nn
 
 from ..ops.fused_cell import (ConvNode, FusedCellSpec, LinearNode, ZeroNode,
                               fused_cell_forward)
-from .layers import LayerNorm, LinearRelu, conv_padding, kernel_initializer, \
-    norm_eps
+from ..ops.grouped_conv import from_split, to_split
+from .layers import GroupedPadConvRelu, LayerNorm, LinearRelu, \
+    SplitLayerNorm, conv_padding, norm_eps
 
 __all__ = ['SearchCell', 'CELL_DROPOUT']
 
@@ -31,27 +38,27 @@ CELL_DROPOUT = 0.2
 _CONVS = {'conv5': (5, 1), 'conv5d2': (5, 2),
           'conv7': (7, 1), 'conv7d2': (7, 2)}
 
-#: ``grouped_impl`` values of the JAX package whose kernels or lowerings
-#: later slices of the port bring.
-_LATER_IMPLS = ('pallas', 'pallas_split', 'chunked', 'masked_dense', 'native')
-
-
-class _ConvParams(nn.Module):
-    """A conv node's compact grouped kernel ``[K, ci, C]`` and its bias."""
-
-    def __init__(self, kernel_size, cin, filters, init_scheme, generator):
-        super().__init__()
-        self.conv_kernel_grouped = nn.Parameter(kernel_initializer(
-            init_scheme)((kernel_size, cin, filters), generator))
-        self.conv_bias = nn.Parameter(torch.zeros(filters))
+#: ``grouped_impl`` values that run the fused cell.  ``'fused_aligned'``
+#: is the JAX kernel in a 128-lane padded layout, a TPU layout the port does
+#: not carry: here it is the fused cell.
+_FUSED_IMPLS = ('auto', 'fused', 'fused_aligned')
+#: Values that run each op on its own, every conv node in the grouped conv
+#: kernels; ``'pallas_split'`` keeps the activations in the split layout.
+_UNFUSED_IMPLS = ('pallas', 'pallas_split')
+#: Values of the JAX package whose XLA lowerings later slices of the port
+#: bring.
+_LATER_IMPLS = ('chunked', 'masked_dense', 'native')
 
 
 class SearchCell(nn.Module):
     """Nodes over a growing list of outputs, then LayerNorm.
 
     ``arch_desc`` is the named form ``[[op_name, b...], ...]``.
-    ``grouped_impl`` ``'auto'`` and ``'fused'`` both run the fused cell;
-    the JAX package's other implementations raise NotImplementedError.
+    ``grouped_impl`` ``'auto'``, ``'fused'`` and ``'fused_aligned'`` run the
+    fused cell; ``'pallas'`` runs the ops on ``[B, T, C]``, and
+    ``'pallas_split'`` on the split layout ``[B, C // groups, T, groups]``
+    (input and output too: :class:`ASRModel` converts once per block); the
+    JAX package's XLA lowerings raise NotImplementedError.
     """
 
     def __init__(self, filters, arch_desc, dropout_rate=CELL_DROPOUT,
@@ -63,42 +70,54 @@ class SearchCell(nn.Module):
         if grouped_impl in _LATER_IMPLS:
             raise NotImplementedError(
                 f"grouped_impl={grouped_impl!r} is not ported yet (see "
-                f"ROADMAP.md, queue 2); 'auto' and 'fused' run the fused cell")
-        if grouped_impl not in ('auto', 'fused'):
+                f"ROADMAP.md, queue 1); {_FUSED_IMPLS} run the fused cell, "
+                f"{_UNFUSED_IMPLS} the grouped conv kernels")
+        if grouped_impl not in _FUSED_IMPLS + _UNFUSED_IMPLS:
             raise ValueError(f'unknown grouped_impl: {grouped_impl!r}')
         if branch_semantics not in ('canonical', 'tf_inverted'):
             raise ValueError(f'unknown branch_semantics: {branch_semantics!r}')
         if groups < 1 or filters % groups:
             raise ValueError(f'filters={filters} is not a multiple of '
                              f'groups={groups}')
+        if grouped_impl in _UNFUSED_IMPLS and groups < 2:
+            raise ValueError(f'grouped_impl={grouped_impl!r} runs grouped '
+                             f'convs; groups={groups} is a dense conv')
         generator = generator or torch.Generator().manual_seed(0)
         C = filters
         ci = C // groups
+        self.fused = grouped_impl in _FUSED_IMPLS
+        self.split = grouped_impl == 'pallas_split'
+        self.groups = groups
+        self.dropout_rate = dropout_rate
         live = 0 if branch_semantics == 'tf_inverted' else 1
         nodes = []
-        self._param_nodes = []
+        self._op_names = []      # per node: its module's name, None if zero
         for nidx, (op_name, *bits) in enumerate(arch_desc):
             branches = tuple(j for j, b in enumerate(bits) if b == live)
             name = f'node{nidx}_{op_name}'
             if op_name == 'zero':
                 nodes.append(ZeroNode(branches))
+                self._op_names.append(None)
                 continue
+            self._op_names.append(name)
             if op_name == 'linear':
-                self.add_module(name, LinearRelu(C, C, init_scheme, generator))
+                self.add_module(name, LinearRelu(C, C, init_scheme, generator,
+                                                 dropout_rate))
                 nodes.append(LinearNode(branches))
             elif op_name in _CONVS:
                 K, d = _CONVS[op_name]
                 if not apply_dilation:
                     d = 1
                 lpad, rpad = conv_padding(K, d, 1, pad_math=pad_math)
-                self.add_module(name, _ConvParams(K, ci, C, init_scheme,
-                                                  generator))
+                self.add_module(name, GroupedPadConvRelu(
+                    ci, C, K, d, groups, dropout_rate, self.split, pad_math,
+                    init_scheme, generator))
                 nodes.append(ConvNode(K, d, lpad, rpad, groups, ci, ci,
                                       branches))
             else:
                 raise ValueError(f'Unknown op: {op_name!r}')
-            self._param_nodes.append(name)
-        self.norm = LayerNorm(C, norm_epsilon) if use_norm else None
+        norm = SplitLayerNorm if self.split else LayerNorm
+        self.norm = norm(C, norm_epsilon) if use_norm else None
         self.spec = FusedCellSpec(nodes, ln_eps=norm_epsilon,
                                   use_norm=use_norm)
         self.train_spec = FusedCellSpec(nodes, dropout_rate=dropout_rate,
@@ -110,7 +129,7 @@ class SearchCell(nn.Module):
         """``(weights, ln)`` as :func:`fused_cell_forward` takes them for
         activations of ``dtype``: kernels cast to it, biases f32."""
         weights = []
-        for name in self._param_nodes:
+        for name in filter(None, self._op_names):
             p = getattr(self, name)
             if isinstance(p, LinearRelu):
                 w, b = p.dense.kernel, p.dense.bias
@@ -121,12 +140,37 @@ class SearchCell(nn.Module):
         return weights, ln
 
     def forward(self, x, generator=None):
-        """``[B, T, C] -> [B, T, C]``; ``generator`` supplies the dropout
-        seed in training mode."""
-        spec = self.train_spec if self.training else self.spec
-        seed = _draw_seed(generator, x.device) if spec.dropping else None
-        return fused_cell_forward(spec, x.contiguous(),
-                                  *self.operands(x.dtype), seed=seed)
+        """``[B, T, C] -> [B, T, C]`` (split: ``[B, c, T, G]`` both ways);
+        ``generator`` supplies the dropout seed in training mode."""
+        if self.fused:
+            spec = self.train_spec if self.training else self.spec
+            seed = _draw_seed(generator, x.device) if spec.dropping else None
+            return fused_cell_forward(spec, x.contiguous(),
+                                      *self.operands(x.dtype), seed=seed)
+        # the unfused ops hash their masks from a seed kept on the CPU, so
+        # that reading it does not wait for the card
+        seed = (_draw_seed(generator, torch.device('cpu'))
+                if self.training and self.dropout_rate > 0 else None)
+        outputs = [x]
+        counter = 0
+        for name, node in zip(self._op_names, self.spec.nodes):
+            total = None
+            if name is not None:
+                op = getattr(self, name)
+                counter += 1
+                if self.split and node.kind == 'linear':
+                    # the full-channel matmul round-trips to dense
+                    total = to_split(op(from_split(outputs[-1]), seed, counter),
+                                     self.groups)
+                else:
+                    total = op(outputs[-1], seed, counter)
+            for j in node.branches:
+                total = outputs[j] if total is None else total + outputs[j]
+            if total is None:                    # zero op, no live branch
+                total = outputs[-1] * 0.0
+            outputs.append(total)
+        out = outputs[-1]
+        return out if self.norm is None else self.norm(out)
 
 
 def _draw_seed(generator, device):

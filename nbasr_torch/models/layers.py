@@ -4,8 +4,10 @@ Counterpart of ``nbasr_tpu/models/layers.py``.  Module and parameter names
 follow the JAX package (``kernel``, ``scale``, ``conv_kernel_grouped`` ...)
 so :mod:`nbasr_torch.convert` maps checkpoints by name; the one layout
 change is the dense block conv, whose weight is PyTorch's ``[cout, cin, K]``.
-Grouped cell convs are not here: the SearchCell runs them in its fused
-kernel (``nbasr_torch/ops/fused_cell.py``).
+The cell ops (:class:`GroupedPadConvRelu`, :class:`LinearRelu`) hold the
+parameters the fused cell kernel reads (``nbasr_torch/ops/fused_cell.py``)
+and run themselves on the unfused ``grouped_impl`` paths, ``'pallas'`` and
+``'pallas_split'`` (``nbasr_torch/ops/grouped_conv.py``, ``cell_ops.py``).
 """
 
 import math
@@ -14,10 +16,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_cell import relu20_gate
+from ..ops.cell_ops import grouped_conv_relu
+from ..ops.fused_cell import dropout_bits, inv_keep, keep_threshold, \
+    relu20_gate
+from ..ops.grouped_conv import grouped_conv1d, to_split
 
 __all__ = ['FUTURE_CONTEXT', 'norm_eps', 'relu20', 'conv_padding',
-           'kernel_initializer', 'Dense', 'LayerNorm', 'PadConvRelu',
+           'kernel_initializer', 'hash_dropout', 'Dense', 'LayerNorm',
+           'SplitLayerNorm', 'PadConvRelu', 'GroupedPadConvRelu',
            'LinearRelu', 'MeanVarianceNorm']
 
 #: 4 frames of look-ahead = 40 ms (reference model/tf/ops.py:3).
@@ -49,6 +55,29 @@ def relu20(x):
     """ReLU clipped at 20 (reference tf/ops.py:26, torch/ops.py:28), with
     the JAX package's gradient at the ends (see :class:`_Relu20`)."""
     return _Relu20.apply(x)
+
+
+def hash_dropout(y, rate, seed, counter, groups=None):
+    """Dropout of a cell op's output with the fused cell's stateless hash:
+    the bits of :func:`~nbasr_torch.ops.fused_cell.dropout_bits` for draw
+    ``counter`` of the cell's CPU ``seed`` (int32 ``[2]``), in the dense
+    ``(t, c_full)`` coordinates, so the unfused paths drop what the fused
+    cell drops.  ``y`` is ``[B, T, C]``, or the split layout ``[B, c, T,
+    G]`` when ``groups`` is given (the mask is permuted to it).  flax's
+    ``nn.Dropout`` divides by ``1 - rate``; this multiplies by that
+    reciprocal rounded to f32, as the fused cell does: at most 1 ulp apart.
+    Plain torch ops, as the JAX package leaves dropout to XLA."""
+    if groups is None:
+        B, T, C = y.shape
+    else:
+        B, c, T, G = y.shape
+        C = c * G
+    keep = dropout_bits(seed, counter, B, T, C, y.device) < keep_threshold(
+        rate)
+    if groups is not None:
+        keep = to_split(keep, groups)
+    return torch.where(keep, y * inv_keep(rate),
+                       torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def _fans(shape):
@@ -127,6 +156,23 @@ class LayerNorm(nn.Module):
                             self.epsilon).to(x.dtype)
 
 
+class SplitLayerNorm(LayerNorm):
+    """LayerNorm over the channels of a split-layout ``[B, c, T, G]`` tensor
+    (axes 1 and 3), statistics in f32; ``scale`` and ``bias`` index the
+    dense channels group-major, with :class:`LayerNorm`'s names and shapes,
+    so checkpoints cross between the layouts."""
+
+    def forward(self, xs):
+        _, c, _, G = xs.shape
+        xf = xs.float()
+        mu = xf.mean(dim=(1, 3), keepdim=True)
+        var = torch.square(xf - mu).mean(dim=(1, 3), keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.epsilon)
+        scale = self.scale.view(G, c).T[None, :, None, :]
+        bias = self.bias.view(G, c).T[None, :, None, :]
+        return (y * scale + bias).to(xs.dtype)
+
+
 class _ConvWeights(nn.Module):
     """The dense conv's ``weight [cout, cin, K]`` and ``bias``, initialised
     on flax's ``[K, cin, cout]`` shape so the fans match."""
@@ -162,15 +208,68 @@ class PadConvRelu(nn.Module):
         return relu20(y).transpose(1, 2).contiguous()
 
 
-class LinearRelu(nn.Module):
-    """Parameters of the ``linear`` cell op, Dense → clip-ReLU(20), under
-    the JAX package's ``dense/{kernel,bias}``; the op itself runs in the
-    fused cell."""
+class GroupedPadConvRelu(nn.Module):
+    """A cell's grouped conv op, stride 1: ``conv_kernel_grouped [K, ci,
+    filters]`` and ``conv_bias [filters]``, the JAX layer's parameters,
+    which the fused cell reads.  On the unfused paths it runs itself:
 
-    def __init__(self, cin, filters, init_scheme='reference', generator=None):
+    - ``'pallas'``: ``[B, T, C]`` → pad → grouped conv (the kernel rounds
+      its f32 sum to the activation dtype) → + bias in the activation
+      dtype → :func:`relu20` → dropout
+      (``nbasr_tpu/models/layers.py:291-303``);
+    - ``'pallas_split'``: split layout ``[B, ci, T, G]`` → pad → grouped
+      conv with the bias and clip-ReLU in the kernel's f32 accumulator, one
+      rounding, a gate that passes nothing at exactly 0 or 20 → dropout
+      (``nbasr_tpu/models/layers.py:243-262``).
+    """
+
+    def __init__(self, cin, filters, kernel_size, dilation=1, groups=1,
+                 dropout_rate=0.0, split=False, pad_math='torch',
+                 init_scheme='reference', generator=None):
         super().__init__()
+        self.groups = groups
+        self.dilation = dilation
+        self.dropout_rate = dropout_rate
+        self.split = split
+        self.pads = conv_padding(kernel_size, dilation, 1, pad_math=pad_math)
+        self.conv_kernel_grouped = nn.Parameter(kernel_initializer(
+            init_scheme)((kernel_size, cin, filters), generator))
+        self.conv_bias = nn.Parameter(torch.zeros(filters))
+
+    def forward(self, x, seed=None, counter=0):
+        """``seed`` (the cell's, on the CPU) turns dropout on, with the
+        cell's ``counter``-th draw."""
+        w = self.conv_kernel_grouped.to(x.dtype)
+        b = self.conv_bias.to(x.dtype)
+        if self.split:
+            y = grouped_conv_relu(x, w, b, self.groups, *self.pads,
+                                  self.dilation)
+        else:
+            y = relu20(grouped_conv1d(x, w, self.groups, *self.pads,
+                                      self.dilation) + b)
+        if seed is not None:
+            y = hash_dropout(y, self.dropout_rate, seed, counter,
+                             self.groups if self.split else None)
+        return y
+
+
+class LinearRelu(nn.Module):
+    """The ``linear`` cell op, Dense → clip-ReLU(20) → dropout, under the
+    JAX package's ``dense/{kernel,bias}`` (which the fused cell reads);
+    ``[B, T, C]`` in the activation dtype."""
+
+    def __init__(self, cin, filters, init_scheme='reference', generator=None,
+                 dropout_rate=0.0):
+        super().__init__()
+        self.dropout_rate = dropout_rate
         self.dense = Dense(cin, filters, kernel_initializer(init_scheme),
                            generator)
+
+    def forward(self, x, seed=None, counter=0):
+        y = relu20(self.dense(x))
+        if seed is not None:
+            y = hash_dropout(y, self.dropout_rate, seed, counter)
+        return y
 
 
 class MeanVarianceNorm(nn.Module):

@@ -17,7 +17,7 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ['build', 'load', 'BUILD_DIR', 'NVCC_FLAGS']
+__all__ = ['build', 'load', 'function', 'check', 'BUILD_DIR', 'NVCC_FLAGS']
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
@@ -46,7 +46,7 @@ def _target(name):
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
-def build(names=('fused_cell', 'fused_cell_bwd')):
+def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
     Returns ``{name: (path, compiler log)}``; the log holds ptxas's register
@@ -82,3 +82,22 @@ def load(name):
         path, _ = build((name,))[name]
         _LIBS[name] = ctypes.CDLL(str(path))
     return _LIBS[name]
+
+
+def function(name, fn_name, argtypes, restype=ctypes.c_int):
+    """``fn_name`` of ``csrc/<name>.cu``'s library with its ctypes signature
+    set before its first call (an unset ``argtypes`` would pass every
+    pointer as a 32-bit int)."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+def check(err, name, what):
+    """Raise if ``err``, a cudaError_t returned by ``csrc/<name>.cu``."""
+    if err:
+        message = function(name, 'nbasr_cuda_error_string', [ctypes.c_int],
+                           ctypes.c_char_p)(err)
+        raise RuntimeError(f'{what} kernel launch failed: {message.decode()}')

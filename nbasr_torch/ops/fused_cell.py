@@ -43,7 +43,7 @@ __all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
            'fused_cell_forward', 'fused_cell_train_forward',
            'fused_cell_backward', 'fused_cell_reference',
            'fused_cell_backward_reference', 'dropout_bits', 'keep_threshold',
-           'relu20_gate',
+           'inv_keep', 'relu20_gate',
            'LAUNCHES', 'BACKWARD_LAUNCHES', 'reset_launches']
 
 LN_EPS_DEFAULT = 1e-3
@@ -121,7 +121,8 @@ def keep_threshold(rate):
     return min(int((1.0 - rate) * (1 << 32)), (1 << 32) - 1)
 
 
-def _inv_keep(rate):
+def inv_keep(rate):
+    """The dropout multiplier ``1 / (1 - rate)`` rounded to f32."""
     return float(np.float32(1.0 / (1.0 - rate)))
 
 
@@ -261,7 +262,7 @@ def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
     n = len(spec.nodes)
     if spec.dropping:
         thr = keep_threshold(spec.dropout_rate)
-        inv_keep = _inv_keep(spec.dropout_rate)
+        keep_scale = inv_keep(spec.dropout_rate)
     outs = [x]
     mults = torch.zeros((n, B, T, C), dtype=x.dtype, device=x.device) \
         if save else None
@@ -286,8 +287,8 @@ def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
             if spec.dropping:
                 counter += 1
                 keep = dropout_bits(seed, counter, B, T, C, x.device) < thr
-                total = torch.where(keep, total * inv_keep, 0.0)
-                gate = torch.where(keep, gate * inv_keep, 0.0)
+                total = torch.where(keep, total * keep_scale, 0.0)
+                gate = torch.where(keep, gate * keep_scale, 0.0)
             if save:
                 mults[i] = gate.to(x.dtype)
         for j in node.branches:
@@ -370,17 +371,6 @@ def fused_cell_backward_reference(spec, x, outs, mults, dy, weights, ln):
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _lib(name, fn_name, argtypes):
-    lib = _build.load(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.nbasr_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nbasr_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _FWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP, _PP]
@@ -460,12 +450,6 @@ def _ln_ptrs(spec, ln, x, which=(0, 1)):
     return [ln[i].data_ptr() for i in which]
 
 
-def _raise_on(err, lib, what):
-    if err:
-        raise RuntimeError(f'fused cell {what} kernel launch failed: '
-                           + lib.nbasr_cuda_error_string(err).decode())
-
-
 def _launch(spec, x, weights, ln, seed, save):
     """The forward kernel: ``(y, outs, mults)``, the last two None unless
     ``save``."""
@@ -481,23 +465,23 @@ def _launch(spec, x, weights, ln, seed, save):
     if spec.dropping:
         _check(seed, 'seed', (2,), torch.int32, x.device)
         seed_ptr = seed.data_ptr()
-        thr, inv_keep = keep_threshold(spec.dropout_rate), _inv_keep(
+        thr, keep_scale = keep_threshold(spec.dropout_rate), inv_keep(
             spec.dropout_rate)
     else:
-        seed_ptr, thr, inv_keep = None, 0, 1.0
+        seed_ptr, thr, keep_scale = None, 0, 1.0
     scratch = torch.empty((n, B, T, C), dtype=x.dtype, device=x.device)
     mults = torch.empty_like(scratch) if save else None
     y = torch.empty_like(x)
-    lib, fn = _lib('fused_cell', 'nbasr_fused_cell_forward', _FWD_ARGS)
+    fn = _build.function('fused_cell', 'nbasr_fused_cell_forward', _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(int(x.dtype == torch.bfloat16), B, T, C, n,
                  (ctypes.c_int * len(desc))(*desc),
                  (ctypes.c_void_p * n)(*wptrs), (ctypes.c_void_p * n)(*bptrs),
                  x.data_ptr(), scratch.data_ptr(), y.data_ptr(), *ln_ptrs,
-                 int(spec.use_norm), spec.ln_eps, seed_ptr, thr, inv_keep,
+                 int(spec.use_norm), spec.ln_eps, seed_ptr, thr, keep_scale,
                  mults.data_ptr() if save else None, stream)
-    _raise_on(err, lib, 'forward')
+    _build.check(err, 'fused_cell', 'fused cell forward')
     LAUNCHES['kernel'] += 1
     return (y, scratch, mults) if save else (y, None, None)
 
@@ -512,11 +496,11 @@ def _launch_backward(spec, x, outs, mults, dy, weights, ln):
     desc, wptrs, _ = _describe(spec, x, weights)
     (scale_ptr,) = _ln_ptrs(spec, ln, x, which=(0,))
     desc_arr = (ctypes.c_int * len(desc))(*desc)
-    lib, fn = _lib('fused_cell_bwd', 'nbasr_fused_cell_backward', _BWD_ARGS)
-    size = lib.nbasr_fused_cell_backward_workspace
-    if size.argtypes is None:
-        size.argtypes = _WORKSPACE_ARGS
-        size.restype = ctypes.c_longlong
+    fn = _build.function('fused_cell_bwd', 'nbasr_fused_cell_backward',
+                         _BWD_ARGS)
+    size = _build.function('fused_cell_bwd',
+                           'nbasr_fused_cell_backward_workspace',
+                           _WORKSPACE_ARGS, ctypes.c_longlong)
     work = torch.empty((size(B, T, C, n, desc_arr),), dtype=torch.float32,
                        device=x.device)
     dx = torch.empty_like(x)
@@ -544,6 +528,6 @@ def _launch_backward(spec, x, outs, mults, dy, weights, ln):
                  (ctypes.c_void_p * n)(*dwptrs), (ctypes.c_void_p * n)(*dbptrs),
                  dln[0].data_ptr() if dln else None,
                  dln[1].data_ptr() if dln else None, work.data_ptr(), stream)
-    _raise_on(err, lib, 'backward')
+    _build.check(err, 'fused_cell_bwd', 'fused cell backward')
     BACKWARD_LAUNCHES['kernel'] += 1
     return dx, dweights, dln

@@ -1,0 +1,318 @@
+"""Grouped 1-D convolution (stride 1, dilated) on the card: the wrappers of
+its three Hopper kernels, their plain versions, and ``grouped_conv1d``.
+
+Port of ``nbasr_tpu/ops/grouped_conv.py`` (``grouped_impl='pallas'``):
+``_fwd_kernel``, ``_dx_kernel`` and ``_dw_kernel`` become the forward, the
+input gradient and the weight gradient of ``nbasr_torch/csrc/grouped_conv.cu``,
+whose header states the bound and the design.  The same three kernels serve
+``nbasr_torch/ops/cell_ops.py`` (``'pallas_split'``), whose forward adds the
+bias and clip-ReLU(0, 20) in the f32 accumulator.
+
+Every activation is handed to a kernel as the split view ``[B, c, T, G]``
+(:func:`to_split`): channel ``c_full = g * c + c_in``, group-major, as the
+compact grouped kernel ``[K, ci, C_out]`` and ``F.conv1d(groups=G)`` number
+them.  A dense ``[B, T, C]`` tensor is that view with strides ``(T*C, 1, C,
+c)`` and the split layout the same view contiguous, so the kernels take
+the strides and serve both layouts without a copy, where the TPU wrappers
+materialise the transposes.
+
+:func:`conv_forward`, :func:`conv_dx` and :func:`conv_dw` take a CUDA
+tensor to the kernel and a CPU tensor to the plain version, and nothing
+else: no fallback from one to the other.  ``LAUNCHES`` counts the calls of
+each, so a run can show which one it went through.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from . import _build
+
+__all__ = ['grouped_conv1d', 'GroupedConv1d', 'to_split', 'from_split',
+           'conv_forward', 'conv_dx', 'conv_dw', 'conv_forward_reference',
+           'conv_dx_reference', 'conv_dw_reference', 'LAUNCHES',
+           'reset_launches']
+
+#: Calls of each kernel (``'kernel'``) and of its plain version
+#: (``'plain'``) since the last :func:`reset_launches`.
+LAUNCHES = {name: {'kernel': 0, 'plain': 0} for name in ('forward', 'dx', 'dw')}
+
+#: Row chunks of the weight gradient's partial sums (then summed in order).
+DW_CHUNKS = 64
+
+
+def reset_launches():
+    for counts in LAUNCHES.values():
+        counts.update(kernel=0, plain=0)
+
+
+def to_split(x, groups):
+    """``[B, T, C]`` -> the split view ``[B, C // groups, T, groups]`` of the
+    same memory (a copy only where the strides do not allow a view)."""
+    B, T, C = x.shape
+    return x.reshape(B, T, groups, C // groups).permute(0, 3, 1, 2)
+
+
+def from_split(xs):
+    """``[B, c, T, G]`` -> ``[B, T, G * c]``, the inverse of :func:`to_split`."""
+    B, c, T, G = xs.shape
+    return xs.permute(0, 2, 3, 1).reshape(B, T, G * c)
+
+
+def _dims(xs, w):
+    """(B, ci, T, G, K, co) after checking that the shapes agree."""
+    if xs.dim() != 4 or w.dim() != 3:
+        raise ValueError(f'expected a [B, ci, T, G] view and a [K, ci, C_out] '
+                         f'weight, got {tuple(xs.shape)} and {tuple(w.shape)}')
+    B, ci, T, G = xs.shape
+    K, wci, c_out = w.shape
+    if wci != ci or c_out % G:
+        raise ValueError(f'weight {tuple(w.shape)} does not fit {G} groups '
+                         f'of {ci} input channels')
+    return B, ci, T, G, K, c_out // G
+
+
+def _rpad(K, lpad, dilation):
+    rpad = (K - 1) * dilation - lpad
+    if rpad < 0:
+        raise ValueError(f'lpad={lpad} exceeds the receptive field of K={K}, '
+                         f'd={dilation}')
+    return rpad
+
+
+def _device_kind(x):
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'the grouped conv runs on cuda or cpu, not {x.device}')
+    return x.device.type
+
+
+# ---------------------------------------------------------------------------
+# entry points: the kernel for a CUDA tensor, the plain version for a CPU one
+# ---------------------------------------------------------------------------
+
+def conv_forward(xs, w, bias, lpad, dilation, out):
+    """``out[b,o,t,g] = sum_{k,c} xs[b,c,t+k*d-lpad,g] * w[k,c,g*co+o]``
+    (zero outside ``[0, T)``), summed in f32 and written into ``out``, a
+    ``[B, co, T, G]`` view in ``xs.dtype``.  With ``bias`` (``[C_out]`` in
+    ``xs.dtype``) the sum starts at the bias and is clipped to ``[0, 20]``
+    before the one rounding.  ``w`` is compact ``[K, ci, C_out]`` in
+    ``xs.dtype``.  Not differentiable; returns ``out``."""
+    if _device_kind(xs) == 'cpu':
+        return conv_forward_reference(xs, w, bias, lpad, dilation, out)
+    return _launch_forward(xs, w, bias, lpad, dilation, out)
+
+
+def conv_dx(dz, w, lpad, dilation, out):
+    """The input gradient of :func:`conv_forward` (without its epilogue):
+    ``out[b,c,t,g] = sum_{k,o} dz[b,o,t+lpad-k*d,g] * w[k,c,g*co+o]``, f32
+    sums, written into ``out``, a ``[B, ci, T, G]`` view in ``dz.dtype``."""
+    if _device_kind(dz) == 'cpu':
+        return conv_dx_reference(dz, w, lpad, dilation, out)
+    return _launch_dx(dz, w, lpad, dilation, out)
+
+
+def conv_dw(xs, dz, w, lpad, dilation):
+    """The weight gradient of :func:`conv_forward` (without its epilogue):
+    ``dw[k,c,g*co+o] = sum_{b,t} xs[b,c,t+k*d-lpad,g] * dz[b,o,t,g]`` summed
+    in f32, returned as a new ``[K, ci, C_out]`` tensor in ``w.dtype`` (the
+    weight operand's, as the JAX VJP casts it)."""
+    if _device_kind(xs) == 'cpu':
+        return conv_dw_reference(xs, dz, w, lpad, dilation)
+    return _launch_dw(xs, dz, w, lpad, dilation)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: F.conv1d and its gradients, f32, one rounding at the end
+# ---------------------------------------------------------------------------
+
+def _ncw(xs):
+    """A ``[B, c, T, G]`` view -> ``[B, G*c, T]`` f32, ``F.conv1d``'s layout."""
+    B, c, T, G = xs.shape
+    return xs.permute(0, 3, 1, 2).reshape(B, G * c, T).float()
+
+
+def _split_ncw(y, groups):
+    """``[B, G*c, T]`` -> the ``[B, c, T, G]`` view."""
+    return y.unflatten(1, (groups, -1)).permute(0, 2, 3, 1)
+
+
+def conv_forward_reference(xs, w, bias, lpad, dilation, out):
+    """The plain version of :func:`conv_forward`."""
+    LAUNCHES['forward']['plain'] += 1
+    _, _, _, G, K, _ = _dims(xs, w)
+    xp = F.pad(_ncw(xs), (lpad, _rpad(K, lpad, dilation)))
+    acc = F.conv1d(xp, w.float().permute(2, 1, 0), dilation=dilation,
+                   groups=G)
+    if bias is not None:
+        acc = torch.clamp(acc + bias.float()[:, None], 0.0, 20.0)
+    return out.copy_(_split_ncw(acc, G))
+
+
+def conv_dx_reference(dz, w, lpad, dilation, out):
+    """The plain version of :func:`conv_dx`."""
+    LAUNCHES['dx']['plain'] += 1
+    B, _, T, G = dz.shape
+    K, ci, c_out = w.shape
+    span = (K - 1) * dilation
+    grad = torch.nn.grad.conv1d_input(
+        (B, G * ci, T + span), w.float().permute(2, 1, 0), _ncw(dz),
+        dilation=dilation, groups=G)
+    return out.copy_(_split_ncw(grad[:, :, lpad:lpad + T], G))
+
+
+def conv_dw_reference(xs, dz, w, lpad, dilation):
+    """The plain version of :func:`conv_dw`."""
+    LAUNCHES['dw']['plain'] += 1
+    _, _, _, G, K, _ = _dims(xs, w)
+    xp = F.pad(_ncw(xs), (lpad, _rpad(K, lpad, dilation)))
+    dw = torch.nn.grad.conv1d_weight(xp, tuple(w.permute(2, 1, 0).shape),
+                                     _ncw(dz), dilation=dilation, groups=G)
+    return dw.permute(2, 1, 0).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_S = ctypes.POINTER(ctypes.c_longlong)
+_DIMS = [ctypes.c_int] * 9          # bf16, B, T, G, ci, co, K, d, lpad
+_FWD_ARGS = _DIMS + [_P, _S, _P, _P, _P, _S, _P]
+_DX_ARGS = _DIMS + [_P, _S, _P, _P, _S, _P]
+_DW_ARGS = _DIMS + [_P, _S, _P, _S, _P, _P, ctypes.c_int, _P]
+
+
+def _strides(t):
+    return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _check_operand(t, name, shape, dtype, device, contiguous=False):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or (contiguous and not t.is_contiguous())):
+        raise ValueError(f'{name}: expected a {"contiguous " * contiguous}'
+                         f'{dtype} tensor of shape {tuple(shape)} on {device}, '
+                         f'got {t.dtype} {tuple(t.shape)} on {t.device}')
+
+
+def _kernel_dims(xs, w, lpad, dilation):
+    """The integer arguments every entry point takes, after checking the
+    activation dtype, the weight and the padding."""
+    if xs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'the grouped conv kernels take f32 or bf16, '
+                         f'not {xs.dtype}')
+    B, ci, T, G, K, co = _dims(xs, w)
+    _check_operand(w, 'weight', w.shape, xs.dtype, xs.device, contiguous=True)
+    _rpad(K, lpad, dilation)
+    if lpad < 0 or dilation < 1:
+        raise ValueError(f'lpad={lpad}, dilation={dilation}')
+    return [int(xs.dtype == torch.bfloat16), B, T, G, ci, co, K, dilation,
+            lpad]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_forward(xs, w, bias, lpad, dilation, out):
+    dims = _kernel_dims(xs, w, lpad, dilation)
+    B, T, G, co = dims[1], dims[2], dims[3], dims[5]
+    if bias is not None:
+        _check_operand(bias, 'bias', (G * co,), xs.dtype, xs.device,
+                       contiguous=True)
+    _check_operand(out, 'out', (B, co, T, G), xs.dtype, xs.device)
+    fn = _build.function('grouped_conv', 'nbasr_grouped_conv_forward',
+                         _FWD_ARGS)
+    with torch.cuda.device(xs.device):
+        err = fn(*dims, xs.data_ptr(), _strides(xs), w.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 _strides(out), _stream(xs))
+    _build.check(err, 'grouped_conv', 'grouped conv forward')
+    LAUNCHES['forward']['kernel'] += 1
+    return out
+
+
+def _launch_dx(dz, w, lpad, dilation, out):
+    B, co, T, G = dz.shape
+    K, ci, _ = w.shape
+    _check_operand(out, 'out', (B, ci, T, G), dz.dtype, dz.device)
+    dims = _kernel_dims(out, w, lpad, dilation)
+    if dims[5] != co:
+        raise ValueError(f'dz has {co} channels per group, the weight '
+                         f'{dims[5]}')
+    fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dx', _DX_ARGS)
+    with torch.cuda.device(dz.device):
+        err = fn(*dims, dz.data_ptr(), _strides(dz), w.data_ptr(),
+                 out.data_ptr(), _strides(out), _stream(dz))
+    _build.check(err, 'grouped_conv', 'grouped conv dx')
+    LAUNCHES['dx']['kernel'] += 1
+    return out
+
+
+def _launch_dw(xs, dz, w, lpad, dilation):
+    dims = _kernel_dims(xs, w, lpad, dilation)
+    B, T, G, co = dims[1], dims[2], dims[3], dims[5]
+    _check_operand(dz, 'dz', (B, co, T, G), xs.dtype, xs.device)
+    dw = torch.empty_like(w)
+    work = torch.empty((DW_CHUNKS * w.numel(),), dtype=torch.float32,
+                       device=xs.device)
+    fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dw', _DW_ARGS)
+    with torch.cuda.device(xs.device):
+        err = fn(*dims, xs.data_ptr(), _strides(xs), dz.data_ptr(),
+                 _strides(dz), dw.data_ptr(), work.data_ptr(), DW_CHUNKS,
+                 _stream(xs))
+    _build.check(err, 'grouped_conv', 'grouped conv dW')
+    LAUNCHES['dw']['kernel'] += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# grouped_conv1d: the 'pallas' path's op
+# ---------------------------------------------------------------------------
+
+class GroupedConv1d(torch.autograd.Function):
+    """Forward kernel; backward the dx and dW kernels on the dense tensors
+    seen as split views.  dx comes back in x's dtype, dW in the weight
+    operand's (the JAX VJP's ``.astype(w.dtype)``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups, lpad, dilation):
+        B, T, _ = x.shape
+        y = torch.empty((B, T, w.shape[2]), dtype=x.dtype, device=x.device)
+        conv_forward(to_split(x, groups), w, None, lpad, dilation,
+                     to_split(y, groups))
+        ctx.save_for_backward(x, w)
+        ctx.conf = groups, lpad, dilation
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        groups, lpad, dilation = ctx.conf
+        dz = to_split(dy, groups)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            conv_dx(dz, w, lpad, dilation, to_split(dx, groups))
+        if ctx.needs_input_grad[1]:
+            dw = conv_dw(to_split(x, groups), dz, w, lpad, dilation)
+        return dx, dw, None, None, None
+
+
+def grouped_conv1d(x, w, groups, lpad, rpad, dilation=1):
+    """Grouped conv1d, stride 1: ``[B, T, C] x [K, ci, C_out] -> [B, T,
+    C_out]`` in ``x.dtype``, f32 sums.  ``w`` is the compact grouped kernel
+    (``ci = C // groups``, output channels group-major) in ``x.dtype``;
+    ``(lpad, rpad)`` is the time padding, which must keep the length
+    (``lpad + rpad == (K - 1) * dilation``, as every cell conv does).
+    Differentiable with respect to ``x`` and ``w``."""
+    K = w.shape[0]
+    if lpad + rpad != (K - 1) * dilation:
+        raise ValueError(f'padding ({lpad}, {rpad}) does not keep the length '
+                         f'for K={K}, d={dilation}')
+    if x.shape[2] != groups * w.shape[1]:
+        raise ValueError(f'x has {x.shape[2]} channels, the weight takes '
+                         f'{groups} groups of {w.shape[1]}')
+    return GroupedConv1d.apply(x, w, groups, lpad, dilation)

@@ -54,6 +54,14 @@ def main(argv=None):
                         help='encoder compute dtype; default: bfloat16 on '
                              'the card, float32 on the CPU')
     parser.add_argument('--device', type=str, default='cuda')
+    parser.add_argument('--grouped_impl', type=str, default='auto',
+                        choices=['auto', 'native', 'masked_dense', 'pallas',
+                                 'pallas_split', 'chunked', 'fused',
+                                 'fused_aligned'],
+                        help="cell implementation: 'auto', 'fused' and "
+                             "'fused_aligned' run the fused cell kernels, "
+                             "'pallas' and 'pallas_split' the grouped conv "
+                             "kernels; the XLA lowerings are not ported yet")
     args = parser.parse_args(argv)
     if args.dp or args.tp != 1:
         parser.error('--dp/--tp: the distributed runners are not ported yet '
@@ -80,6 +88,7 @@ def main(argv=None):
     model = get_model(
         arch, use_rnn=args.rnn, dropout_rate=args.dropout, data_norm=True,
         compute_dtype=getattr(torch, args.dtype), device=device,
+        grouped_impl=args.grouped_impl,
         generator=torch.Generator().manual_seed(args.seed), **model_kw)
     trainer_kw = {} if args.adam_eps is None else {'adam_eps': args.adam_eps}
     trainer = get_trainer(dataloaders, get_loss(), device=device,

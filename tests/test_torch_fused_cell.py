@@ -88,8 +88,7 @@ def test_cpu_runs_the_plain_version():
     assert fused_cell.LAUNCHES == {'kernel': 0, 'plain': 1}
 
 
-@pytest.mark.parametrize('impl', ['pallas', 'pallas_split', 'chunked',
-                                  'masked_dense', 'native'])
+@pytest.mark.parametrize('impl', ['chunked', 'masked_dense', 'native'])
 def test_later_impls_are_refused(impl):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         SearchCell(24, ARCHS[0], groups=4, grouped_impl=impl)
