@@ -53,7 +53,20 @@ prints no result):
    cell launch), beside the fused step of phase 7 in the same call; and one
    f32 step's gradients (B=2, cell dropout 0.2) on the card against the
    same configuration with the plain versions on the card, and, as a
-   witness, 'pallas' against 'fused' (the same gate rule and masks).
+   witness, 'pallas' against 'fused' (the same gate rule and masks);
+   phases 7 and 11 also count one CTC alpha and one beta launch per step;
+12. CTC kernels: the alpha and beta recursions against their plain
+   versions on the card, in f32, at the train step's shapes (the loader's
+   batch, T=75, B=32, S=65), an eval batch's (T=200, B=16, S=161), S=513
+   (more states than a block has threads) and S=8193 (the state in global
+   memory), each with a row without labels, repeated labels, padded frames
+   and an impossible alignment; the loss and its logits gradient with the
+   kernels against the plain versions, and F.ctc_loss as a witness; kernel,
+   plain, bound and F.ctc_loss times;
+13. eval: Trainer.evaluate with the default beam search (W=12) over the
+   synthetic val split with the flagship on the card (one alpha launch per
+   batch, no beta, no plain call), and beam_search_decode on the card
+   against the CPU on the same logits.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -70,10 +83,12 @@ import torch
 
 from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
-from nbasr_torch.models.asr import algorithmic_flops, count_params, get_model
+from nbasr_torch.models.asr import algorithmic_flops, count_params, \
+    get_model, logits_length
 from nbasr_torch.models.cell import SearchCell
 from nbasr_torch.models.layers import conv_padding
-from nbasr_torch.ops import _build, fused_cell, grouped_conv
+from nbasr_torch.ops import _build, ctc, ctc_pallas, decode, fused_cell, \
+    grouped_conv
 from nbasr_torch.ops.fused_cell import FusedCellSpec
 from nbasr_torch.ops.grouped_conv import to_split
 from nbasr_torch.search_space import arch_vec_to_names
@@ -623,6 +638,7 @@ def check_train_step(device, impl='auto'):
     torch.cuda.synchronize()
     fused_cell.reset_launches()
     grouped_conv.reset_launches()
+    ctc_pallas.reset_launches()
     t0 = time.perf_counter()
     for b in steps:
         m = trainer.step(b, lr=lr)
@@ -631,12 +647,17 @@ def check_train_step(device, impl='auto'):
     launches = {'fused_forward': dict(fused_cell.LAUNCHES),
                 'fused_backward': dict(fused_cell.BACKWARD_LAUNCHES),
                 **{f'grouped_{k}': dict(v)
-                   for k, v in grouped_conv.LAUNCHES.items()}}
+                   for k, v in grouped_conv.LAUNCHES.items()},
+                **{f'ctc_{k}': dict(v) for k, v in ctc_pallas.LAUNCHES.items()}}
     print(f'train step [{impl}]: launches in 5 steps {launches}')
     fused = impl == 'auto'
     for name, counts in launches.items():
-        want = (18 if fused else 0) if name.startswith('fused') else \
-            (0 if fused else 54)
+        if name.startswith('ctc'):
+            want = 1                    # one alpha and one beta per step
+        elif name.startswith('fused'):
+            want = 18 if fused else 0
+        else:
+            want = 0 if fused else 54
         assert counts == {'kernel': want * 5, 'plain': 0}, (name, counts)
     assert np.isfinite(m['ctc_loss']) and trainer.nonfinite_steps == 0, \
         (m, trainer.nonfinite_steps)
@@ -1069,6 +1090,319 @@ def check_grouped_grads(device):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: the CTC kernels, and the eval pass with beam search
+# ---------------------------------------------------------------------------
+
+CTC_SOURCE = 'nbasr_torch/csrc/ctc.cu'
+CTC_REPLACES = {
+    'alpha': 'nbasr_tpu/ops/ctc_pallas.py:42 (_alpha_kernel, pallas_call :69)',
+    'beta': 'nbasr_tpu/ops/ctc_pallas.py:88 (_beta_kernel, pallas_call :114)'}
+VOCAB = 49
+# Stacks, kernel against plain version on the card: finite entries within
+# the JAX package's tolerance for its Pallas kernels against its scans
+# (tests/test_ctc_pallas.py:40), since the two run the same f32 recursion
+# and differ by expf/logf against torch's exp/log, carried over T steps;
+# entries at or below CTC_FLOOR (-1e30 and -inf) floored on both sides.
+CTC_RTOL, CTC_ATOL, CTC_FLOOR = 1e-5, 1e-4, -1e29
+# The loss and its logits gradient, kernels against plain versions on the
+# card, as a share of max|plain|: the same arithmetic around the recursions.
+CTC_LOSS_TOL = 1e-5
+# F.ctc_loss, a witness: the same log-space algorithm, summed in other
+# orders (its own log-sum-exp, the gradient through autograd's
+# log-softmax).  Losses within 1e-4 relative.  The gradient's posterior
+# exp(alpha + beta - ll) carries each side's own f32 rounding of
+# log-probabilities summed over T frames (|alpha| reaches ~1e3, where an
+# ulp is 6e-5): on the CPU the two differ by 5.7e-4 of the scale at T=320,
+# 6.4e-5 at the train step's T=75; 2e-3 still fails a wrong posterior.
+CTC_WITNESS_TOL = {'loss': 1e-4, 'grad': 2e-3}
+# f32 operations per state and step: two log_adds of 9 (max, compare, two
+# subtracts, two exps, add, log, add) and the emission add.
+CTC_OPS_PER_STATE = 19
+# (label, T, B, U) of the generated cases; the train step's comes from the
+# loader.  S = 2U+1: 161 an eval batch's, 513 more states than a block has
+# threads (256), 8193 more than the shared memory holds.
+CTC_CASES = (('eval', 200, 16, 80), ('S=513', 320, 8, 256),
+             ('S=8193', 40, 4, 4096))
+EVAL_BEAM = 12
+BEAM_MARGIN = 1e-4
+
+
+def ctc_case(labels, label_len, logit_len, T, seed, device):
+    """Seeded logits ``[B, T, 49]`` and the loss's operands on ``device``,
+    with the rows every case covers: 0 has no labels, 1 repeated labels
+    (the skip off), 2 is impossible (more labels than frames), 3 has padded
+    frames."""
+    labels, label_len, logit_len = (np.array(a, dtype=np.int64) for a in
+                                    (labels, label_len, logit_len))
+    U = labels.shape[1]
+    labels[0], label_len[0] = 0, 0
+    n = min(6, U)
+    labels[1, :n] = [5, 5, 9, 9, 9, 2][:n]
+    label_len[1] = max(label_len[1], n)
+    logit_len[1] = max(logit_len[1], min(T, 4 * n))
+    n = min(4, U)
+    labels[2, :n] = [3, 7, 11, 13][:n]
+    label_len[2], logit_len[2] = n, 2
+    logit_len[3] = T // 2
+    label_len[3] = min(label_len[3], T // 8)
+    labels[np.arange(U)[None, :] >= label_len[:, None]] = 0
+    g = torch.Generator().manual_seed(seed)
+    logits = 2 * torch.randn((len(labels), T, VOCAB), generator=g)
+    return [torch.as_tensor(a).to(device)
+            for a in (logits, logit_len, labels, label_len)]
+
+
+def ctc_operands(logits, logit_len, labels, label_len):
+    """(em, skip_ok, final_states) as the loss builds them."""
+    lp = torch.log_softmax(logits, dim=-1)
+    ext = ctc._extended_labels(labels, 0)
+    em = ctc._emission_logprobs(lp, ext, logit_len, 0)
+    return em, ctc._transition_masks(ext, 0), ctc._final_states(
+        label_len, ext.shape[1])
+
+
+def stack_errors(got, want):
+    """(max abs error of the finite entries, floored entries); asserts the
+    JAX tolerance and the same floor pattern."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    floored = want <= CTC_FLOOR
+    assert torch.equal(got <= CTC_FLOOR, floored), 'floor patterns differ'
+    err = (got - want).abs()[~floored]
+    bad = err > CTC_ATOL + CTC_RTOL * want.abs()[~floored]
+    assert not bool(bad.any()), float(err.max())
+    return float(err.max()), int(floored.sum())
+
+
+@contextlib.contextmanager
+def plain_ctc():
+    """A witness only, never the main path: inside, the CTC loss runs the
+    plain recursions on the tensors it is given, on the card too."""
+    saved = ctc_pallas._launch_alpha, ctc_pallas._launch_beta
+    ctc_pallas._launch_alpha = ctc_pallas.alpha_scan_reference
+    ctc_pallas._launch_beta = ctc_pallas.beta_scan_reference
+    try:
+        yield
+    finally:
+        ctc_pallas._launch_alpha, ctc_pallas._launch_beta = saved
+
+
+def loss_and_grad(logits, logit_len, labels, label_len, fn):
+    """Per-row losses and the logits gradient of their sum over the rows
+    that have an alignment."""
+    lg = logits.detach().clone().requires_grad_()
+    loss = fn(lg, logit_len, labels, label_len)
+    (g,) = torch.autograd.grad(
+        torch.where(torch.isfinite(loss), loss, 0.0).sum(), lg)
+    return loss.detach(), g
+
+
+def f_ctc(logits, logit_len, labels, label_len):
+    """F.ctc_loss on the same rows (zero_infinity: the impossible row 0)."""
+    return torch.nn.functional.ctc_loss(
+        torch.log_softmax(logits, -1).transpose(0, 1), labels, logit_len,
+        label_len, reduction='none', zero_infinity=True)
+
+
+def ctc_bound(T, B, S, name):
+    """(ms, 'bytes' | 'operations'): em read and the stack written once,
+    with the [B, S] masks (one for alpha, two for beta), against
+    CTC_OPS_PER_STATE f32 operations per state and step."""
+    nbytes = 4 * (2 * T * B * S + (1 if name == 'alpha' else 2) * B * S)
+    t_bytes = nbytes / MEM_BYTES_S
+    t_ops = CTC_OPS_PER_STATE * T * B * S / PEAK_OPS_S[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def ctc_times(case, em, skip, final):
+    """Kernel, plain version, bound and library times of both recursions on
+    one case; the library is F.ctc_loss on the same rows, its forward for
+    alpha and its backward (autograd, the loss kept) for beta, on
+    log-probabilities it is given."""
+    logits, logit_len, labels, label_len = case
+    T, B, S = em.shape
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    lpg = lp.clone().requires_grad_()
+    args = (labels, logit_len, label_len)
+    f_loss = torch.nn.functional.ctc_loss(lpg, *args, reduction='none',
+                                          zero_infinity=True)
+    ones = torch.ones_like(f_loss)
+    calls = {
+        'alpha': (lambda: ctc_pallas._launch_alpha(em, skip),
+                  lambda: ctc_pallas.alpha_scan_reference(em, skip),
+                  lambda: torch.nn.functional.ctc_loss(
+                      lp, *args, reduction='none', zero_infinity=True)),
+        'beta': (lambda: ctc_pallas._launch_beta(em, skip, final),
+                 lambda: ctc_pallas.beta_scan_reference(em, skip, final),
+                 lambda: torch.autograd.grad(f_loss, lpg, ones,
+                                             retain_graph=True))}
+    rows = {}
+    with torch.no_grad():
+        for name, (kernel, plain, library) in calls.items():
+            bound_ms, bound_by = ctc_bound(T, B, S, name)
+            with torch.enable_grad():
+                library_ms = time_ms(library)
+            rows[name] = dict(T=T, B=B, S=S, ms=time_ms(kernel),
+                              plain_ms=time_ms(plain), bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+    return rows
+
+
+def check_ctc_kernels(device):
+    """Phase 12.  Returns ({'alpha'|'beta': max abs error}, timing rows per
+    case, loss readings)."""
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batch = next(iter(loaders[1].full))
+    frames = loaders[1].full.bucket_frames[0]
+    T = frames // 4                      # the flagship's strides 1, 1, 2, 2
+    lsize = logits_length(torch.as_tensor(batch['feature_size']), frames, T)
+    cases = {'train step': ctc_case(batch['labels'], batch['label_size'],
+                                    lsize, T, SEED + 12, device)}
+    for label, Tc, Bc, U in CTC_CASES:
+        rng = np.random.RandomState(SEED + Tc)
+        labels = rng.randint(1, VOCAB, size=(Bc, U))
+        most = min(U, Tc // 2)
+        label_len = rng.randint(most // 2, most + 1, size=Bc)
+        logit_len = rng.randint(Tc - Tc // 4, Tc + 1, size=Bc)
+        cases[label] = ctc_case(labels, label_len, logit_len, Tc, SEED + U,
+                                device)
+    errors = {'alpha': 0.0, 'beta': 0.0}
+    readings, times = {}, {}
+    for label, case in cases.items():
+        with torch.no_grad():
+            em, skip, final = ctc_operands(*case)
+            T, B, S = em.shape
+            got = {'alpha': ctc_pallas._launch_alpha(em, skip),
+                   'beta': ctc_pallas._launch_beta(em, skip, final)}
+            want = {'alpha': ctc_pallas.alpha_scan_reference(em, skip),
+                    'beta': ctc_pallas.beta_scan_reference(em, skip, final)}
+            torch.cuda.synchronize()
+            for name in got:
+                err, floored = stack_errors(got[name], want[name])
+                errors[name] = max(errors[name], err)
+                print(f'ctc {name:5s} kernel vs plain  {label:10s} T={T:3d} '
+                      f'B={B:2d} S={S:4d}: max_abs_err {err:.3e} over the '
+                      f'finite entries, {floored} floored on both sides')
+        got, got_g = loss_and_grad(*case, ctc.ctc_loss)
+        with plain_ctc():
+            want, want_g = loss_and_grad(*case, ctc.ctc_loss)
+        wit, wit_g = loss_and_grad(*case, f_ctc)
+        ok = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), ok) and not bool(ok[2])
+        assert bool(torch.isfinite(got_g).all()) and not bool(got_g[2].any())
+        loss_err = float(((got - want).abs() / want.abs().clamp(min=1e-30))[ok].max())
+        grad_err = float((got_g - want_g).abs().max() / want_g.abs().max())
+        labelled = ok & (case[3] > 0)
+        wit_loss = float(((got - wit).abs() / wit.abs().clamp(min=1e-30))[ok].max())
+        wit_grad = float((got_g - wit_g)[labelled].abs().max()
+                         / wit_g[labelled].abs().max())
+        print(f'ctc loss {label:10s}: kernels vs plain on the card: loss '
+              f'{loss_err:.2e} relative, logits gradient {grad_err:.2e} of the '
+              f'scale (tol {CTC_LOSS_TOL:.0e}); F.ctc_loss witness: loss '
+              f'{wit_loss:.2e} (tol {CTC_WITNESS_TOL["loss"]:.0e}), gradient '
+              f'on the labelled rows {wit_grad:.2e} (tol '
+              f'{CTC_WITNESS_TOL["grad"]:.0e})')
+        assert loss_err <= CTC_LOSS_TOL and grad_err <= CTC_LOSS_TOL, label
+        assert wit_loss <= CTC_WITNESS_TOL['loss'], label
+        assert wit_grad <= CTC_WITNESS_TOL['grad'], label
+        readings[label] = dict(loss=loss_err, grad=grad_err,
+                               witness_loss=wit_loss, witness_grad=wit_grad)
+        if label in ('train step', 'eval'):
+            times[label] = ctc_times(case, em, skip, final)
+            for name, r in times[label].items():
+                print(f'ctc {name:5s} {label:10s} T={T} B={B} S={S}: kernel '
+                      f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f}, F.ctc_loss '
+                      f'{"forward" if name == "alpha" else "backward"} '
+                      f'{r["library_ms"]:.4f}; bound {r["bound_ms"]:.5f} ms '
+                      f'({r["bound_by"]}); {T} dependent steps, '
+                      f'{1e3 * r["ms"] / T:.2f} us per step')
+    logits, logit_len, labels, label_len = cases['train step']
+    lg = logits.clone().requires_grad_()
+    port_ms = time_ms(lambda: torch.autograd.grad(
+        ctc.normalized_ctc_loss(lg, logit_len, labels, label_len).sum(), lg))
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        f_ctc(lg, logit_len, labels, label_len).sum(), lg))
+    print(f'ctc layer, train step shapes: the port\'s normalized_ctc_loss '
+          f'forward + backward {port_ms:.4f} ms; F.ctc_loss on log_softmax '
+          f'{lib_ms:.4f} ms')
+    readings['layer_ms'] = dict(port=port_ms, f_ctc_loss=lib_ms)
+    return errors, times, readings
+
+
+def check_eval(device):
+    """Phase 13.  Returns the eval pass's launches and readings."""
+    model = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
+                      generator=torch.Generator().manual_seed(SEED + 13))
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    val = list(loaders[2])
+    trainer = Trainer(loaders, device=device, verbose=False)
+    assert trainer.eval_decoder == 'beam' and trainer.beam_width == EVAL_BEAM
+    trainer.init_state(model, seed=SEED)
+    trainer.evaluate(val)                                      # warm-up
+    torch.cuda.synchronize()
+    ctc_pallas.reset_launches()
+    t0 = time.perf_counter()
+    m = trainer.evaluate(val)
+    wall = time.perf_counter() - t0
+    launches = {k: dict(v) for k, v in ctc_pallas.LAUNCHES.items()}
+    print(f'eval [beam W={EVAL_BEAM}]: {len(val)} batch(es) of {TRAIN_B}, '
+          f'{wall * 1e3 / len(val):.3f} ms per batch (host clock); {m}; '
+          f'CTC launches {launches}')
+    assert launches == {'alpha': {'kernel': len(val), 'plain': 0},
+                        'beta': {'kernel': 0, 'plain': 0}}, launches
+    assert all(np.isfinite(v) for v in m.values()), m
+
+    batch = trainer._put_batch(val[0])
+    with torch.no_grad():
+        logits, lsize = trainer._eval_logits(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, n, _ = decode._beam_search(logits, lsize, EVAL_BEAM, None, 0)
+    torch.cuda.synchronize()
+    beam_ms = 1e3 * (time.perf_counter() - t0)
+    want, want_n, scores = decode._beam_search(logits.cpu(), lsize.cpu(),
+                                               EVAL_BEAM, None, 0)
+    top2 = scores.topk(2, dim=1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > BEAM_MARGIN) & (batch['valid'].cpu() > 0)
+    ids, n = ids.cpu(), n.cpu()
+    same = (ids == want).all(1) & (n == want_n)
+    print(f'eval beam search, card vs cpu on the card\'s f32 logits '
+          f'{tuple(logits.shape)}: ids equal on {int(same[clear].sum())}/'
+          f'{int(clear.sum())} valid rows whose best two beams differ by more '
+          f'than {BEAM_MARGIN:g} (equal on {int(same.sum())}/{len(same)} rows '
+          f'in all); {beam_ms:.3f} ms on the card (host clock)')
+    assert bool(same[clear].all()) and int(clear.sum()) > 0
+    return launches['alpha']['kernel'], dict(
+        eval_ms_per_batch=wall * 1e3 / len(val), beam_ms=beam_ms,
+        beam_rows_compared=int(clear.sum()), metrics=m)
+
+
+def ctc_entry(name, errors, times, readings, train, eval_alpha):
+    """The kernels line's entry for one CTC recursion: times at the train
+    step's shapes, launches over the train steps of phases 7 and 11 and the
+    eval pass of phase 13."""
+    per_path = {impl: launches[f'ctc_{name}']
+                for impl, (launches, _) in train.items()}
+    if name == 'alpha':
+        per_path['eval'] = eval_alpha
+    row = times['train step'][name]
+    return dict(
+        name=f'ctc_{name}', route='cuda', source=CTC_SOURCE,
+        replaces=CTC_REPLACES[name], launches=sum(per_path.values()),
+        launches_per_path=per_path, launches_per_train_step=1,
+        launches_per_eval_batch=1 if name == 'alpha' else 0,
+        max_abs_err=errors[name], ms=row['ms'], plain_ms=row['plain_ms'],
+        bound_ms=row['bound_ms'], bound_by=row['bound_by'],
+        library_ms=row['library_ms'],
+        times_cover=f'one call at the train step\'s shapes, T={row["T"]}, '
+                    f'B={row["B"]}, S={row["S"]}; library_ms F.ctc_loss\'s '
+                    + ('forward' if name == 'alpha' else 'backward')
+                    + ' on the same rows',
+        checked_at='train step T=75 B=32 S=65, eval T=200 B=16 S=161, '
+                   'T=320 B=8 S=513, T=40 B=4 S=8193; rows with no labels, '
+                   'repeats, padded frames, an impossible alignment',
+        eval_shape=times['eval'][name], loss_readings=readings)
+
 
 def gconv_entry(name, errors, rows, train, logits, grads):
     """The kernels line's entry for one grouped conv kernel: times summed
@@ -1145,6 +1479,8 @@ def main():
     grouped_train = {impl: check_train_step(device, impl)
                      for impl in ('pallas', 'pallas_split')}
     grouped_grads = check_grouped_grads(device)
+    ctc_errors, ctc_rows, ctc_readings = check_ctc_kernels(device)
+    eval_alpha, evaluation = check_eval(device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -1203,11 +1539,15 @@ def main():
     kernels += [gconv_entry(name, gconv_errors, gconv_rows, grouped_train,
                             grouped_logits, grouped_grads)
                 for name in GCONV_KERNELS]
+    all_train = {'auto': (fused_launches, train), **grouped_train}
+    kernels += [ctc_entry(name, ctc_errors, ctc_rows, ctc_readings, all_train,
+                          eval_alpha) for name in ('alpha', 'beta')]
     print(f'train step: {train["step_ms"]:.3f} ms, '
           f'{train["audio_s_per_s"]:.1f} audio-s/s (fused), ' + ', '.join(
               f'{t["step_ms"]:.3f} ms, {t["audio_s_per_s"]:.1f} audio-s/s '
               f'({impl})' for impl, (_, t) in grouped_train.items())
-          + f'; serving: {serving["step_ms"]:.3f} ms per device step')
+          + f'; serving: {serving["step_ms"]:.3f} ms per device step; eval '
+          f'(beam): {evaluation["eval_ms_per_batch"]:.3f} ms per batch')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

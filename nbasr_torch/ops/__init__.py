@@ -1,1 +1,2 @@
-"""Ops of the port: frontend, fused cell kernel, decoding."""
+"""Ops of the port: frontend, cell kernels, CTC loss and its kernels,
+decoding."""

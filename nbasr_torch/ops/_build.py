@@ -46,7 +46,7 @@ def _target(name):
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
-def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv')):
+def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
     Returns ``{name: (path, compiler log)}``; the log holds ptxas's register

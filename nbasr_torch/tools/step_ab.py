@@ -1,0 +1,108 @@
+"""A/B of the flagship train step between checkouts, on one card.
+
+    python3 nbasr_torch/tools/step_ab.py [--impl auto] ROOT_A ROOT_B ROOT_B ROOT_A ...
+
+For each root in the order given (alternate them: host time drifts between
+processes), a fresh process imports ``nbasr_torch`` from that root, builds
+its kernels there with ``_build.build()``, and runs the train step that
+``chip_smoke.py`` times: the full-width flagship in bf16, B=32, dropout 0.2, on the
+``synthetic:64`` batches through ``Trainer.step``, ``--impl`` its
+``grouped_impl``.  After 3 warm-up steps it times BLOCKS blocks of
+STEPS steps on the host clock, each ended by ``torch.cuda.synchronize()``:
+
+- ``step_ms``: the median block's ms per step, and ``step_ms_blocks`` all
+  of them;
+- ``kernel_ms``: the device time of every kernel in a ``torch.profiler``
+  trace of STEPS steps, per step.
+
+Only the API that every version of the port has is used (``get_model``,
+``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``).  One
+JSON line per root, then a summary line.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+STEPS = 10
+BLOCKS = 3
+
+
+def measure(root, impl):
+    """The timings of one root, in this process."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import nbasr_torch
+    from nbasr_torch.data.pipeline import get_dataloaders
+    from nbasr_torch.models.asr import get_model
+    from nbasr_torch.ops import _build
+    from nbasr_torch.training import Trainer
+    assert nbasr_torch.__file__.startswith(os.path.abspath(root)), \
+        nbasr_torch.__file__
+    _build.build()
+    dev = torch.device('cuda')
+    model = get_model([[1, 0], [1, 0, 0], [1, 0, 0, 0]], use_rnn=True,
+                      dropout_rate=0.2, data_norm=True,
+                      compute_dtype=torch.bfloat16, device=dev,
+                      grouped_impl=impl,
+                      generator=torch.Generator().manual_seed(0))
+    loaders = get_dataloaders('synthetic:64', batch_size=32)
+    batches = list(loaders[1].full)
+    trainer = Trainer(loaders, device=dev)
+    trainer.init_state(model, seed=0)
+    step = iter(range(1 << 30))
+
+    def run(n):
+        for _ in range(n):
+            trainer.step(batches[next(step) % len(batches)], lr=1e-4)
+        torch.cuda.synchronize()
+
+    run(3)
+    blocks = []
+    for _ in range(BLOCKS):
+        t0 = time.perf_counter()
+        run(STEPS)
+        blocks.append(1e3 * (time.perf_counter() - t0) / STEPS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(STEPS)
+    kernel = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / STEPS
+    return {'root': root, 'impl': impl, 'step_ms': float(np.median(blocks)),
+            'step_ms_blocks': blocks,
+            'kernel_ms': kernel if kernel > 0 else None}
+
+
+def main(argv):
+    if argv[:1] == ['--one']:
+        print(json.dumps(measure(argv[1], argv[2])))
+        return
+    impl = 'auto'
+    if argv[:1] == ['--impl']:
+        impl, argv = argv[1], argv[2:]
+    if not argv:
+        raise SystemExit(__doc__)
+    rows = []
+    for root in argv:
+        root = os.path.abspath(root)
+        env = dict(os.environ, PYTHONPATH=root)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--one', root, impl], cwd=root, env=env,
+                             check=True, capture_output=True, text=True,
+                             timeout=600)
+        rows.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    summary = {}
+    for row in rows:
+        for k in ('step_ms', 'kernel_ms'):
+            summary.setdefault(row['root'], {}).setdefault(k, []).append(row[k])
+    print(json.dumps({'summary': summary}))
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])

@@ -6,9 +6,10 @@ repository's ``train.py``, same 9-int arch vector and flags).
 
 ``--data synthetic[:N]`` uses the built-in fake corpus.  ``--device``
 defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
-``--dtype`` defaults to bfloat16 on the card and float32 on the CPU.  The
-eval decoder is greedy: beam search and the ``--dp/--tp`` meshes are
-later slices of the port (``ROADMAP.md``).
+``--dtype`` defaults to bfloat16 on the card and float32 on the CPU.  Eval
+decodes with the merged-prefix beam search, W=12, as ``train.py`` does
+(``--decoder greedy`` for the greedy decoder).  The ``--dp/--tp`` meshes
+are a later slice of the port (``ROADMAP.md``).
 """
 
 import argparse
@@ -38,9 +39,8 @@ def main(argv=None):
                         help='not ported yet (ROADMAP.md)')
     parser.add_argument('--tp', type=int, default=1,
                         help='not ported yet (ROADMAP.md)')
-    parser.add_argument('--decoder', type=str, default='greedy',
-                        choices=['beam', 'greedy'],
-                        help="eval decoder; 'beam' is not ported yet")
+    parser.add_argument('--decoder', type=str, default='beam',
+                        choices=['beam', 'greedy'])
     parser.add_argument('--init_scheme', type=str, default=None,
                         choices=['scaled', 'reference', 'he'],
                         help="kernel init (default: the model's 'scaled')")

@@ -11,16 +11,20 @@ reference's 1e-7; ``adam_eps`` overrides it), lr ×0.9 per epoch from epoch
 best weights, ``scores.pickle``/``test_scores.pickle``.
 
 The step runs where the model lives: the log-mel frontend, the model
-(every SearchCell in the fused cell kernels, forward and backward), the
-loss and the update.  As ``optax.apply_if_finite`` does, a step whose
-gradients are not all finite changes neither the parameters nor Adam's
-state and is counted.  Metrics accumulate on the device as (num, den)
-pairs and are read once per epoch.  Dropout draws from the trainer's own
-``torch.Generator`` (seeded ``seed + 1``, as the JAX trainer's dropout key).
+(every SearchCell in the cell kernels, forward and backward), the loss
+(its CTC recursions in the alpha and beta kernels) and the update.  As
+``optax.apply_if_finite`` does, a step whose gradients are not all finite
+changes neither the parameters nor Adam's state and is counted.  Metrics
+accumulate on the device as (num, den) pairs and are read once per epoch.
+Dropout draws from the trainer's own ``torch.Generator`` (seeded ``seed +
+1``, as the JAX trainer's dropout key).  Eval decodes with the
+merged-prefix beam search, W=12, by default (``eval_decoder='greedy'``
+for the greedy decoder); with a ``save_dir``, TensorBoard scalars go to
+``<run>/tb`` as the JAX trainer writes them.
 
-Not ported yet (``ROADMAP.md``): the beam-search eval decoder,
-``transcribe``, TensorBoard scalars and the profiler hook; the eval prewarm
-hides an XLA compile and has no counterpart here.
+Not ported yet (``ROADMAP.md``): the flax-checkpoint loader and the
+profiler hook; the eval prewarm hides an XLA compile and has no
+counterpart here.
 """
 
 import json
@@ -33,10 +37,11 @@ import torch
 
 from ..data.phonemes import PhonemeEncoder
 from ..models.asr import logits_length, resolve_device
-from ..ops.decode import greedy_decode
+from ..ops.decode import beam_search_decode, greedy_decode
 from ..ops.edit_distance import edit_distance
 from ..ops.frontend import FrontendConfig, log_mel_spectrogram, \
     mel_weight_matrix
+from ..utils.tbwriter import SummaryWriter
 from .loss import conv_l2, get_loss
 from .metrics import METRIC_KEYS, accumulate, ratios, zeros_like_metrics
 
@@ -54,15 +59,11 @@ class Trainer:
     asks for the CPU)."""
 
     def __init__(self, dataloaders, loss=None, device='cuda', save_dir=None,
-                 verbose=True, frontend=None, eval_decoder='greedy',
-                 strict_numerics=False, decay=0.9, decay_start_epoch=5,
-                 clip_norm=5.0, adam_eps=1e-16):
-        if eval_decoder == 'beam':
-            raise NotImplementedError(
-                "eval_decoder='beam' (merged-prefix beam search, "
-                "nbasr_tpu/ops/decode.py:65) is not ported yet, see "
-                "ROADMAP.md; use eval_decoder='greedy'")
-        if eval_decoder != 'greedy':
+                 verbose=True, frontend=None, eval_decoder='beam',
+                 beam_width=12, strict_numerics=False, decay=0.9,
+                 decay_start_epoch=5, clip_norm=5.0, adam_eps=1e-16,
+                 tensorboard=True, tb_step_interval=10):
+        if eval_decoder not in ('beam', 'greedy'):
             raise ValueError(f'unknown eval_decoder: {eval_decoder!r}')
         encoder, self.data_train, self.data_validate, self.data_test = \
             dataloaders
@@ -77,6 +78,12 @@ class Trainer:
             cfg.num_mel_bins, cfg.num_bins, cfg.sample_rate, cfg.lower_hz,
             cfg.upper_hz), device=self.device)
         self.eval_decoder = eval_decoder
+        self.beam_width = beam_width
+        #: TensorBoard scalars under ``<run>/tb`` when ``save_dir`` is set:
+        #: the running train loss every ``tb_step_interval`` steps and the
+        #: per-epoch metrics (reference callbacks/tensorboard.py:16-28)
+        self.tensorboard = tensorboard
+        self.tb_step_interval = tb_step_interval
         self.strict_numerics = strict_numerics
         self.decay = decay
         self.decay_start_epoch = decay_start_epoch
@@ -145,16 +152,25 @@ class Trainer:
         self.step_count += 1
         self.metrics = accumulate(self.metrics, m)
 
-    @torch.no_grad()
-    def _eval_step(self, batch, acc):
+    def _eval_logits(self, batch):
+        """Eval-mode logits of a placed batch and their lengths."""
         self.model.eval()
         feats, fsize = self._features(batch)
         logits = self.model(feats, fsize)
-        lsize = logits_length(fsize, feats.shape[1], logits.shape[1])
+        return logits, logits_length(fsize, feats.shape[1], logits.shape[1])
+
+    def _decode(self, logits, lsize):
+        if self.eval_decoder == 'beam':
+            return beam_search_decode(logits, lsize, beam_width=self.beam_width)
+        return greedy_decode(logits, lsize)
+
+    @torch.no_grad()
+    def _eval_step(self, batch, acc):
+        logits, lsize = self._eval_logits(batch)
         m = {}
         self.loss(logits, lsize, batch['labels'], batch['label_size'],
                   metrics=m, valid=batch['valid'])
-        hyp, hyp_len = greedy_decode(logits, lsize)
+        hyp, hyp_len = self._decode(logits, lsize)
         labels, label_size = batch['labels'], batch['label_size']
         valid = batch['valid']
         den = (label_size.float() * valid).sum()
@@ -210,12 +226,36 @@ class Trainer:
                  for n, p in self.model.named_parameters() if p.grad is not None}
         return grads, ratios(m)
 
-    def evaluate(self, loader):
-        """Eval over a loader: ``{'ctc_loss', 'wer', 'ler'}`` ratios."""
+    def evaluate(self, loader, return_transcripts=0):
+        """Eval over a loader: ``{'ctc_loss', 'wer', 'ler'}`` ratios.  With
+        ``return_transcripts=N``, ``(ratios, transcripts)``: the
+        (hypothesis, reference) phoneme sentences of the first N utterances
+        of the first batch (reference ``training/tf/trainer.py:493-500``)."""
         acc = zeros_like_metrics(METRIC_KEYS, self.device)
+        transcripts = []
         for batch in loader:
-            acc = self._eval_step(self._put_batch(batch), acc)
+            batch = self._put_batch(batch)
+            if return_transcripts and not transcripts:
+                transcripts = self.transcribe(batch, limit=return_transcripts)
+            acc = self._eval_step(batch, acc)
+        if return_transcripts:
+            return ratios(acc), transcripts
         return ratios(acc)
+
+    @torch.no_grad()
+    def transcribe(self, batch, limit=None):
+        """Decode a batch to (hypothesis, reference) phoneme sentences, the
+        valid rows among the first ``limit``."""
+        batch = self._put_batch(batch)
+        hyp, hyp_len = (t.cpu().numpy() for t in self._decode(
+            *self._eval_logits(batch)))
+        valid = batch['valid'].cpu().numpy()
+        labels = batch['labels'].cpu().numpy()
+        label_size = batch['label_size'].cpu().numpy()
+        n = len(hyp) if limit is None else min(limit, len(hyp))
+        return [(self.encoder.decode_to_sentence(hyp[b][:hyp_len[b]]),
+                 self.encoder.decode_to_sentence(labels[b][:label_size[b]]))
+                for b in range(n) if valid[b]]
 
     def train(self, model, epochs=40, lr=0.0001, reset=False, model_name=None,
               seed=0):
@@ -251,13 +291,21 @@ class Trainer:
 
         stream = (iter(self.data_train) if hasattr(self.data_train, 'full')
                   else forever(self.data_train))
+        tb = None
+        if out_dir is not None and self.tensorboard:
+            tb = SummaryWriter(str(out_dir / 'tb'))
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.time()
             epoch_lr = lr_at_epoch(lr, epoch, self.decay, self.decay_start_epoch)
             self.metrics = zeros_like_metrics(('ctc_loss',), self.device)
             skipped = self.nonfinite_steps
-            for _ in range(self.data_train.steps):
+            for step_i in range(self.data_train.steps):
                 self._train_step(self._put_batch(next(stream)), epoch_lr)
+                if (tb is not None and self.tb_step_interval
+                        and (step_i + 1) % self.tb_step_interval == 0):
+                    # the running epoch-mean train loss, read only here
+                    tb.scalar('batch_ctc_loss', ratios(self.metrics)['ctc_loss'],
+                              step=self.step_count)
             train_m = ratios(self.metrics)
             notfinite = self.nonfinite_steps - skipped
             if notfinite and self.strict_numerics:
@@ -278,6 +326,13 @@ class Trainer:
                     self.save(best_ckpt, epoch=epoch, best_val=best_val)
             if latest_ckpt:
                 self.save(latest_ckpt, epoch=epoch, best_val=best_val)
+            if tb is not None:
+                tb.scalars({'epoch_ctc_loss': train_m['ctc_loss'],
+                            'epoch_val_ctc_loss': val_m['ctc_loss'],
+                            'epoch_val_wer': val_m['wer'],
+                            'epoch_val_ler': val_m['ler'],
+                            'lr': epoch_lr}, step=epoch)
+                tb.flush()
             if out_dir:
                 with open(out_dir / 'metrics.jsonl', 'a') as f:
                     f.write(json.dumps({
@@ -293,6 +348,8 @@ class Trainer:
                       f'val_per {val_m["ler"]:.4f} lr {epoch_lr:.2e} '
                       f'({history["epoch_seconds"][-1]:.1f}s)')
 
+        if tb is not None:
+            tb.close()
         self.recall_best()
         test_m = self.evaluate(self.data_test)
         test_scores = {f'val_{k}': v for k, v in test_m.items()}

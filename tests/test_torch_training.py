@@ -1,9 +1,10 @@
 """The port's training slice against the JAX package on the CPU: relu20's
 gradient, the CTC loss, conv L2, edit distance and greedy eval, the input
 pipeline, FLOP counting, and one whole Trainer step (loss and every
-gradient, then the parameters after 3 steps) with the JAX cells in the
-fused Pallas kernel in interpret mode; plus the port's own Trainer
-contracts and the ``train.py`` twin end to end."""
+gradient, then the parameters after 3 steps) and its eval with either
+decoder and the beam-search transcripts, with the JAX cells in the fused
+Pallas kernel in interpret mode; plus the port's own Trainer contracts
+(TensorBoard scalars among them) and the ``train.py`` twin end to end."""
 
 import itertools
 import pathlib
@@ -214,7 +215,11 @@ def pair(tmp_path_factory):
 
         (_, ctc), grads = jax.value_and_grad(loss_fn, has_aux=True)(
             jtr.state.params)
-        j_eval = jtr.evaluate(jloaders[2])
+        j_eval = {'greedy': jtr.evaluate(jloaders[2])}
+        jtr.eval_decoder = 'beam'
+        jtr._build_steps()
+        j_eval['beam'], j_transcripts = jtr.evaluate(jloaders[2],
+                                                     return_transcripts=3)
         for _ in range(3):
             jtr.step(batch, training=True, lr=LR)
         after = jax.tree_util.tree_map(np.asarray, jtr.state.params)
@@ -228,7 +233,7 @@ def pair(tmp_path_factory):
     return dict(trainer=trainer, loaders=loaders, batch=batch,
                 ctc=float(ctc), grads=from_flax({'params': grads}),
                 init=from_flax(init), after=from_flax({'params': after}),
-                eval=j_eval)
+                eval=j_eval, transcripts=j_transcripts)
 
 
 def test_train_step_loss_and_gradients_match_jax(pair):
@@ -239,15 +244,37 @@ def test_train_step_loss_and_gradients_match_jax(pair):
         _close(grads[name], want.numpy(), STEP_TOL)
 
 
-def test_eval_matches_jax(pair):
-    """Loss, WER (p48) and LER (p39 fold) of a greedy eval pass from the
-    same weights."""
-    got = pair['trainer'].evaluate(pair['loaders'][2])
-    want = pair['eval']
+@pytest.mark.parametrize('decoder', ['greedy', 'beam'])
+def test_eval_matches_jax(pair, decoder):
+    """Loss, WER (p48) and LER (p39 fold) of an eval pass from the same
+    weights, with each decoder (beam search: W=12, the default)."""
+    trainer = pair['trainer']
+    trainer.model.load_state_dict(pair['init'])
+    trainer.eval_decoder = decoder
+    try:
+        got = trainer.evaluate(pair['loaders'][2])
+    finally:
+        trainer.eval_decoder = 'beam'
+    want = pair['eval'][decoder]
     assert got.keys() == want.keys() == {'ctc_loss', 'wer', 'ler'}
     assert got['ctc_loss'] == pytest.approx(want['ctc_loss'], rel=1e-5)
     assert got['wer'] == pytest.approx(want['wer'], abs=1e-6)
     assert got['ler'] == pytest.approx(want['ler'], abs=1e-6)
+
+
+def test_transcripts_match_jax(pair):
+    """``evaluate(return_transcripts=3)``: the beam-search sentences of the
+    first batch's first three utterances, and the same ratios."""
+    trainer = pair['trainer']
+    trainer.model.load_state_dict(pair['init'])
+    assert trainer.eval_decoder == 'beam' and trainer.beam_width == 12
+    got, transcripts = trainer.evaluate(pair['loaders'][2],
+                                        return_transcripts=3)
+    assert transcripts == pair['transcripts']
+    assert len(transcripts) == 3 and all(ref for _, ref in transcripts)
+    assert got['wer'] == pytest.approx(pair['eval']['beam']['wer'], abs=1e-6)
+    batch = next(iter(pair['loaders'][2]))
+    assert trainer.transcribe(batch, limit=3) == transcripts
 
 
 def test_three_steps_match_jax(pair):
@@ -340,14 +367,114 @@ def test_save_load_round_trip(tmp_path):
         torch.testing.assert_close(v, saved[k], rtol=0, atol=0)
 
 
-def test_beam_and_meshes_are_refused():
-    loaders = (None, None, None, None)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        Trainer(loaders, device='cpu', eval_decoder='beam')
+def test_meshes_are_refused():
     from nbasr_torch.train import main
     with pytest.raises(SystemExit):
         main(['1', '0', '1', '0', '0', '1', '0', '0', '0', '--dp', '2',
               '--device', 'cpu'])
+    with pytest.raises(ValueError, match='eval_decoder'):
+        Trainer((None, None, None, None), device='cpu', eval_decoder='prefix')
+
+
+def test_beam_eval_runs(monkeypatch):
+    """The default decoder is the beam search (W=12), in the Trainer as in
+    the JAX trainer and in the train twin as in ``train.py``; an eval pass
+    runs the CTC forward alone (one alpha recursion per batch, no beta)."""
+    import nbasr_torch.train
+    from nbasr_torch.ops import ctc_pallas
+    seen = {}
+
+    class Recorder:
+        def __init__(self, *args, **kwargs):
+            seen.update(kwargs)
+
+        def train(self, *args, **kwargs):
+            return 'trained'
+
+    monkeypatch.setattr(nbasr_torch.train, 'get_trainer', Recorder)
+    assert nbasr_torch.train.main(
+        ['1', '0', '1', '0', '0', '1', '0', '0', '0', '--device', 'cpu',
+         '--data', 'synthetic:4']) == 'trained'
+    assert seen['eval_decoder'] == 'beam'
+    model = get_model(ARCH, use_rnn=True, device='cpu', **KW)
+    loaders = get_dataloaders('synthetic:8', batch_size=4, curriculum=())
+    trainer = Trainer(loaders, device='cpu')
+    assert trainer.eval_decoder == 'beam' and trainer.beam_width == 12
+    trainer.init_state(model, seed=0)
+    batches = len(list(loaders[2]))
+    ctc_pallas.reset_launches()
+    m = trainer.evaluate(loaders[2])
+    assert ctc_pallas.LAUNCHES == {'alpha': {'kernel': 0, 'plain': batches},
+                                   'beta': {'kernel': 0, 'plain': 0}}
+    assert all(np.isfinite(v) for v in m.values()) and m['wer'] > 0
+
+
+def _tb_scalars(path):
+    """{tag: [(step, value)]} of a TensorBoard event file, parsed from its
+    TFRecord framing and the Event / Summary.Value protobuf fields."""
+    import struct
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = _varint(buf, i)
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                val, i = _varint(buf, i)
+            elif wire == 1:
+                val, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                val, i = buf[i:i + 4], i + 4
+            else:
+                n, i = _varint(buf, i)
+                val, i = buf[i:i + n], i + n
+            yield num, val
+
+    data, out, i = path.read_bytes(), {}, 0
+    while i < len(data):
+        (n,) = struct.unpack('<Q', data[i:i + 8])
+        record, i = data[i + 12:i + 12 + n], i + 16 + n
+        event = dict(fields(record))
+        for num, value in fields(event.get(5, b'')):
+            v = dict(fields(value))
+            out.setdefault(v[1].decode(), []).append(
+                (event[2], struct.unpack('<f', v[2])[0]))
+    return out
+
+
+def _varint(buf, i):
+    shift = val = 0
+    while True:
+        b = buf[i]
+        val |= (b & 0x7F) << shift
+        i, shift = i + 1, shift + 7
+        if not b & 0x80:
+            return val, i
+
+
+def test_tensorboard_scalars(tmp_path):
+    """``train`` with a ``save_dir`` writes the JAX trainer's scalars: the
+    running loss every ``tb_step_interval`` steps, at the global step, and
+    the per-epoch metrics, equal to the history."""
+    model = get_model(ARCH, use_rnn=False, device='cpu', **KW)
+    loaders = get_dataloaders('synthetic:8', batch_size=2, curriculum=())
+    trainer = Trainer(loaders, device='cpu', save_dir=tmp_path, verbose=False,
+                      eval_decoder='greedy', tb_step_interval=2)
+    history, _ = trainer.train(model, epochs=2, lr=1e-3, model_name='run')
+    (events,) = (tmp_path / 'run' / 'tb').glob('events.out.tfevents.*')
+    scalars = _tb_scalars(events)
+    assert set(scalars) == {'batch_ctc_loss', 'epoch_ctc_loss',
+                            'epoch_val_ctc_loss', 'epoch_val_wer',
+                            'epoch_val_ler', 'lr'}
+    steps = loaders[1].steps
+    assert steps >= 2
+    assert [s for s, _ in scalars['batch_ctc_loss']] == [
+        e * steps + i + 1 for e in range(2) for i in range(1, steps, 2)]
+    for tag, key in (('epoch_ctc_loss', 'ctc_loss'),
+                     ('epoch_val_ler', 'val_ler'), ('lr', 'lr')):
+        assert [s for s, _ in scalars[tag]] == [1, 2]
+        np.testing.assert_allclose([v for _, v in scalars[tag]], history[key],
+                                   rtol=1e-6)
 
 
 def test_trainer_defaults_to_the_card(monkeypatch):
