@@ -25,7 +25,9 @@ prints no result):
    the backward kernel against their plain versions at the four widths of
    the train-step batch (B=4), on every node kind, in f32 and bf16: output,
    saved multipliers (the dropout masks must agree exactly), dx, every dW
-   and db, dscale and dbias; the same for the flagship cell at the train
+   and db, dscale and dbias; three specs with 50 groups of 24 channels at
+   C=1200 (wider than a backward dW thread's 16); the same for the flagship
+   cell at the train
    step's own shapes (B=32, dropout 0.2); the kept share of one large
    dropout draw; the forward and backward times per flagship cell at the
    train step's shapes beside their bounds;
@@ -146,9 +148,11 @@ TRAIN_WIDTHS = ((600, 300), (800, 300), (1000, 150), (1200, 75))
 TRAIN_DATA = 'synthetic:64'
 DROPOUT = 0.2
 TRAIN_SEED = (1234567, 7654321)
+WIDE_GROUPS = 50          # ci = 24 at C=1200, wider than a dW thread's 16
 TRAIN_CHECKED_AT = ('B=4 at T=300/300/150/75 on the four SPECS, dropout 0 '
-                    'and 0.2; the flagship cell at B=32, dropout 0.2 (the '
-                    'train step\'s shapes); f32 and bf16')
+                    'and 0.2; three SPECS with 50 groups of 24 channels at '
+                    'C=1200, T=75; the flagship cell at B=32, dropout 0.2 '
+                    '(the train step\'s shapes); f32 and bf16')
 # Backward kernel against its plain version on the same saved inputs, as a
 # share of each gradient's max|plain|.  f32: both sum in f32 in other
 # orders, dW and db over B*T = 300-1200 rows, so they differ by ~1e-6 of
@@ -186,12 +190,12 @@ def card_line():
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def make_cell(C, spec, device):
+def make_cell(C, spec, device, groups=100):
     """A flagship-width cell with every parameter drawn from the seed (the
     biases and LayerNorm too, so that their indexing is tested)."""
     g = torch.Generator().manual_seed(SEED + C)
     kw = {k: v for k, v in spec.items() if k != 'arch'}
-    cell = SearchCell(C, arch_vec_to_names(spec['arch']), groups=100,
+    cell = SearchCell(C, arch_vec_to_names(spec['arch']), groups=groups,
                       init_scheme='scaled', generator=g, **kw)
     with torch.no_grad():
         for name, p in cell.named_parameters():
@@ -522,6 +526,17 @@ def check_train_kernels(device):
                 for dtype in (torch.float32, torch.bfloat16):
                     checker.check(name, train_spec(cell, rate), x32.to(dtype),
                                   dy32.to(dtype), *cell.operands(dtype))
+    # groups wider than the 16 channels a backward dW thread sums at once:
+    # 50 groups of 24 at C=1200, every conv kind
+    C, T = TRAIN_WIDTHS[-1]
+    g = torch.Generator().manual_seed(SEED + WIDE_GROUPS)
+    x32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+    dy32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+    for name in ('flagship', 'linear+dilated', 'conv7+zero+linear'):
+        cell = make_cell(C, SPECS[name], device, groups=WIDE_GROUPS)
+        for dtype in (torch.float32, torch.bfloat16):
+            checker.check(f'{name} ci=24', train_spec(cell, DROPOUT),
+                          x32.to(dtype), dy32.to(dtype), *cell.operands(dtype))
 
     # kept share of one large draw: zero conv weights and bias 1 make every
     # pre-activation 1, so a multiplier is 0 exactly where dropout drops
@@ -586,8 +601,7 @@ BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
                'nbasr_convert')
 FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
                'nbasr_layer_norm', 'nbasr_gconv_forward')
-GCONV_BWD_KERNELS = ('nbasr_gconv_dx', 'nbasr_gconv_dw_partials',
-                     'nbasr_gconv_dw_reduce')
+GCONV_BWD_KERNELS = ('nbasr_gconv_dx', 'nbasr_gconv_dw')  # dw and dw_reduce
 
 
 def profile_train_step(trainer, batch, lr):
@@ -803,6 +817,16 @@ GCONV_CHECKED_AT = ('B=4 at (C, T) = (600, 300), (800, 300), (1000, 150), '
                     'a dense tensor as a strided split view and a contiguous '
                     'split tensor; forward without and with the bias + '
                     'clip-ReLU epilogue; f32 and bf16')
+# dW beyond the flagship's shapes, (B, T, G, ci, co, K, d): groups of 24
+# (G=50 at C=1200), of one channel, T shorter than the halo, B=1, T not a
+# multiple of the row tile, taps and outputs past the register tile
+GCONV_DW_EDGES = ((4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
+                  (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
+                  (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1))
+GCONV_DW_CHECKED_AT = (GCONV_CHECKED_AT + '; dW also at (B, T, G, ci, co, K, '
+                       f'd) = {", ".join(map(str, GCONV_DW_EDGES))} on both '
+                       'layouts and a [B, G, T, c] view (g strided); two '
+                       'calls bit-equal at every shape')
 # The flagship's logits with the grouped conv kernels against the fused cell
 # kernels, both f32 on the card, as a share of max|fused|: the two sum each
 # conv node in another order and round at other points (the fused cell in
@@ -865,6 +889,8 @@ def _gconv_compare(calls, plain, errors, label):
     the error within TOL (forward) or GRAD_TOL (dx, dW) of max|plain|."""
     for name in calls:
         got = calls[name]().float().clone()
+        if name == 'dw':        # no atomics, every sum in a fixed order
+            assert torch.equal(calls[name]().float(), got), (label, 'dW bits')
         want = plain[name]().float()
         torch.cuda.synchronize()
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
@@ -908,6 +934,66 @@ def _library_calls(x, dz, w, lpad, d):
                 xp, wt.shape, zt, dilation=d, groups=GROUPS)}
 
 
+def check_dw_edges(device, errors):
+    """The dW kernel against its plain version, and two calls bit-equal,
+    at GCONV_DW_EDGES on both layouts and on a view whose groups are not
+    contiguous ([B, G, T, c] memory: staged element by element), in f32
+    and bf16."""
+    for Bn, T, G, ci, co, K, d in GCONV_DW_EDGES:
+        lpad, _ = conv_padding(K, d, 1)
+        g = torch.Generator().manual_seed(SEED + Bn + T + ci)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((Bn, T, G * ci), generator=g).to(device, dtype)
+            dz = torch.randn((Bn, T, G * co), generator=g).to(device, dtype)
+            w = torch.empty((K, ci, G * co), device=device, dtype=dtype)
+            for layout in GCONV_LAYOUTS + ('strided',):
+                xs, zs = to_split(x, G), to_split(dz, G)
+                if layout == 'split':
+                    xs, zs = xs.contiguous(), zs.contiguous()
+                elif layout == 'strided':   # g not contiguous: by element
+                    xs = x.reshape(Bn, T, G, ci).permute(0, 2, 1, 3).contiguous(
+                        ).permute(0, 3, 2, 1)
+                    zs = dz.reshape(Bn, T, G, co).permute(0, 2, 1, 3).contiguous(
+                        ).permute(0, 3, 2, 1)
+                calls = {'dw': lambda: grouped_conv._launch_dw(xs, zs, w, lpad, d)}
+                plain = {'dw': lambda: grouped_conv.conv_dw_reference(
+                    xs, zs, w, lpad, d)}
+                _gconv_compare(calls, plain, errors,
+                               (Bn, T, G, ci, co, K, d, layout, dtype))
+    e = errors['dw']
+    print(f'grouped conv dw       kernel vs plain and bit-equal across two '
+          f'calls at {len(GCONV_DW_EDGES)} edge shapes too: f32 share '
+          f'{e[torch.float32][1]:.2e}, bf16 {e[torch.bfloat16][1]:.2e}')
+
+
+# Cycles of torch.cuda._sleep before a queued timing (~10 ms on an H100):
+# long enough for the host to enqueue every call of the run behind it.
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def device_ms(kernel, library, runs=20):
+    """(kernel ms, library ms): device time per call of ``runs`` calls of
+    each, back to back, CUDA events around them.  The calls are queued
+    behind a spin kernel, so the card runs them one after another without
+    waiting for the host; unlike ``time_ms`` this leaves out the wrappers'
+    host time, which a lone call on an idle card waits for."""
+    out = []
+    for fn in (kernel, library):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        assert not end.query(), 'the host did not queue the run in time'
+        end.synchronize()
+        out.append(start.elapsed_time(end) / runs)
+    return tuple(out)
+
+
 @torch.no_grad()
 def check_gconv_kernels(device):
     """Phase 9.  Returns ({kernel: {dtype: [max abs err, max share]}},
@@ -933,6 +1019,7 @@ def check_gconv_kernels(device):
               f'layouts: f32 max_abs_err {e[torch.float32][0]:.3e} '
               f'(share {e[torch.float32][1]:.2e}), bf16 '
               f'{e[torch.bfloat16][0]:.3e} (share {e[torch.bfloat16][1]:.2e})')
+    check_dw_edges(device, errors)
 
     rows = []
     K, d = 5, 1                         # the flagship's conv5 nodes
@@ -962,12 +1049,27 @@ def check_gconv_kernels(device):
                                plain_ms=time_ms(plain[name], runs=10),
                                library_ms=time_ms(library[key]),
                                bound_ms=bound_ms, bound_by=bound_by)
+                    note = ''
+                    if key == 'dw' and dtype == torch.bfloat16:
+                        row['device_ms'], row['library_device_ms'] = \
+                            device_ms(calls[name], library[key])
+                        note = (f'; device time {row["device_ms"]:.4f}, '
+                                  f'cuDNN {row["library_device_ms"]:.4f}')
                     rows.append(row)
                     print(f'grouped conv {key:8s} {layout:5s} B={TRAIN_B} '
                           f'C={C:4d} T={T:3d} {row["dtype"]:8s} kernel '
                           f'{row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f}  '
                           f'cuDNN {row["library_ms"]:.4f}  bound '
-                          f'{bound_ms:.4f} ({bound_by})')
+                          f'{bound_ms:.4f} ({bound_by}){note}')
+    keys = ('ms', 'library_ms', 'device_ms', 'library_device_ms', 'bound_ms')
+    for layout in GCONV_LAYOUTS:
+        step = gconv_step_sums(rows, 'dw', layout, keys)
+        print(f'grouped conv dw per train step, {layout}: the 9/12/15/18 bf16 '
+              f'nodes of the four widths: kernel {step["ms"]:.3f} ms, cuDNN '
+              f'{step["library_ms"]:.3f} ms (one call each, CUDA events); '
+              f'device time {step["device_ms"]:.3f} ms, cuDNN '
+              f'{step["library_device_ms"]:.3f} ms (queued runs); bound '
+              f'{step["bound_ms"]:.4f} ms')
     return errors, rows
 
 
@@ -1243,7 +1345,7 @@ def ctc_times(case, em, skip, final):
             with torch.enable_grad():
                 library_ms = time_ms(library)
             rows[name] = dict(T=T, B=B, S=S, ms=time_ms(kernel),
-                              plain_ms=time_ms(plain), bound_ms=bound_ms,
+                              plain_ms=time_ms(plain, runs=10), bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
     return rows
 
@@ -1404,14 +1506,21 @@ def ctc_entry(name, errors, times, readings, train, eval_alpha):
         eval_shape=times['eval'][name], loss_readings=readings)
 
 
+def gconv_step_sums(rows, name, layout, keys):
+    """{key: the sum over one flagship train step's 54 bf16 conv5 nodes}
+    of kernel ``name``'s timing rows in ``layout`` (3 nodes per cell)."""
+    per = [r for r in rows if r['kernel'] == name and r['layout'] == layout
+           and r['dtype'] == 'bfloat16']
+    return {k: sum(3 * n * r[k] for n, r in zip(CELLS_PER_BLOCK, per))
+            for k in keys}
+
+
 def gconv_entry(name, errors, rows, train, logits, grads):
     """The kernels line's entry for one grouped conv kernel: times summed
     over the 54 bf16 conv5 nodes of one flagship train step, the 'pallas'
     layout (dense) as ms and the 'pallas_split' layout as split_*."""
     def step(layout, key):
-        per = [r for r in rows if r['kernel'] == name and
-               r['layout'] == layout and r['dtype'] == 'bfloat16']
-        return sum(3 * n * r[key] for n, r in zip(CELLS_PER_BLOCK, per))
+        return gconv_step_sums(rows, name, layout, (key,))[key]
 
     f32, bf16 = errors[name][torch.float32], errors[name][torch.bfloat16]
     per_path = {impl: launches[f'grouped_{name}']
@@ -1429,13 +1538,24 @@ def gconv_entry(name, errors, rows, train, logits, grads):
         library_ms=step('dense', 'library_ms'),
         split_ms=step('split', 'ms'), split_plain_ms=step('split', 'plain_ms'),
         split_bound_ms=step('split', 'bound_ms'),
+        split_library_ms=step('split', 'library_ms'),
         times_cover='the 54 bf16 conv5 nodes of one flagship train step, '
                     'B=32, T=300/300/150/75; ms, plain_ms, bound_ms in the '
                     "'pallas' layout (dense [B, T, C]), split_* in the "
                     "'pallas_split' layout; library_ms one cuDNN call per "
                     'node on inputs in its own layout',
-        checked_at=GCONV_CHECKED_AT,
+        checked_at=GCONV_DW_CHECKED_AT if name == 'dw' else GCONV_CHECKED_AT,
         per_width=[r for r in rows if r['kernel'] == name])
+    if name == 'dw':
+        entry.update(
+            device_ms=step('dense', 'device_ms'),
+            library_device_ms=step('dense', 'library_device_ms'),
+            split_device_ms=step('split', 'device_ms'),
+            split_library_device_ms=step('split', 'library_device_ms'),
+            device_times_cover='the same nodes, device time per call of 20 '
+                               'calls queued back to back behind a spin '
+                               "kernel (no wrapper host time), the kernel's "
+                               "and cuDNN's alike")
     if name == 'forward':
         entry['launches_per_model_forward'] = {
             impl: n for impl, (_, n) in logits.items()}
@@ -1461,26 +1581,35 @@ def main():
     for name, (path, log) in built.items():
         print(f'  {name}: {path}')
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+            if ('registers' in line or 'spill' in line or 'Compiling' in line
+                    or line.startswith('compiled in')):
                 print('   ', line.strip())
 
-    errors, rows = check_kernels(device)
-    launches, serving = check_serving(device)
-    checker, kept, train_rows = check_train_kernels(device)
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f'[{label}: {time.perf_counter() - t:.1f} s, '
+              f'{time.perf_counter() - t0:.1f} s since the build began]')
+        return out
+
+    errors, rows = timed('phase 3', check_kernels, device)
+    launches, serving = timed('phases 4-5', check_serving, device)
+    checker, kept, train_rows = timed('phase 6', check_train_kernels, device)
     train_errors = checker.errors
     at_step = {k: {str(d)[6:]: v[1] for d, v in e.items()}
                for k, e in checker.step_errors.items()}
-    fused_launches, train = check_train_step(device)
+    fused_launches, train = timed('phase 7', check_train_step, device)
     fwd_train = fused_launches['fused_forward']
     bwd_train = fused_launches['fused_backward']
-    train_grads = check_train_cpu(device)
-    gconv_errors, gconv_rows = check_gconv_kernels(device)
-    grouped_logits = check_grouped_forward(device)
-    grouped_train = {impl: check_train_step(device, impl)
-                     for impl in ('pallas', 'pallas_split')}
-    grouped_grads = check_grouped_grads(device)
-    ctc_errors, ctc_rows, ctc_readings = check_ctc_kernels(device)
-    eval_alpha, evaluation = check_eval(device)
+    train_grads = timed('phase 8', check_train_cpu, device)
+    gconv_errors, gconv_rows = timed('phase 9', check_gconv_kernels, device)
+    grouped_logits = timed('phase 10', check_grouped_forward, device)
+    grouped_train = {impl: timed(f'phase 11 {impl}', check_train_step, device,
+                                 impl) for impl in ('pallas', 'pallas_split')}
+    grouped_grads = timed('phase 11 gradients', check_grouped_grads, device)
+    ctc_errors, ctc_rows, ctc_readings = timed('phase 12', check_ctc_kernels,
+                                               device)
+    eval_alpha, evaluation = timed('phase 13', check_eval, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']

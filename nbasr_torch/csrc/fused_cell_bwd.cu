@@ -40,8 +40,10 @@
 //     one thread per channel, then a second pass sums the chunks in order.
 //   dz:      one thread per channel walks a row chunk: the branch adds, dz
 //            into a dzc buffer, db partial sums (then the chunk reduction).
-//   conv dW: one thread per (channel c, tap k) walks a row chunk holding ci
-//            partial sums in registers; then the chunk reduction, rounded.
+//   conv dW: one thread per (channel c, tap k, slice of at most kMaxCi input
+//            channels) walks a row chunk holding the slice's partial sums in
+//            registers, so a group of any width runs (ci = 24 at 50 groups
+//            of C = 1200 takes two slices); then the chunk reduction, rounded.
 //   conv dx: the gather form (taps flipped), one thread per input element,
 //            K*co FMAs read through L1, added into g[n].
 //   linear:  64x64 shared-memory tiles like the forward's: dW = src^T dzc
@@ -64,7 +66,7 @@ constexpr int kTile = 64;          // linear: output tile edge
 constexpr int kTileK = 16;         // linear: reduction slice per stage
 constexpr long kMaxGridY = 65535;
 constexpr int kChunks = 64;        // row chunks of the partial sums
-constexpr int kMaxCi = 16;         // widest group a dW thread holds (search space: <= 12)
+constexpr int kMaxCi = 16;         // input channels a dW thread sums at once (wider: slices)
 
 __device__ __forceinline__ float load(const float* p, long i) { return __ldg(p + i); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
@@ -194,17 +196,22 @@ __global__ void __launch_bounds__(kThreads) nbasr_node_dz(
   if (mult) part[static_cast<long>(blockIdx.y) * C + c] = db;
 }
 
-// grid (ceil(C / kDwThreads), kChunks, K): thread = output channel c at tap
-// k = blockIdx.z; ci partial sums over a row chunk into
-// part[chunk][k][i][c] (the [K, ci, C] layout per chunk).
+// grid (ceil(C / kDwThreads), kChunks, K * ceil(ci / kMaxCi)): thread =
+// output channel c at tap k and input slice [i0, i0 + kMaxCi) of its group
+// (blockIdx.z = k * slices + i0 / kMaxCi); partial sums over a row chunk
+// into part[chunk][k][i][c] (the [K, ci, C] layout per chunk).  A group of
+// any width runs, in slices of at most kMaxCi register sums.
 template <typename T>
 __global__ void __launch_bounds__(kDwThreads) nbasr_conv_dw_partials(
     const T* __restrict__ src, const T* __restrict__ dzc, float* __restrict__ part, long rows,
     int t_len, int C, int ci, int co, int K, int d, int lpad) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const int k = blockIdx.z;
-  const int in0 = (c / co) * ci;
+  const int slices = (ci + kMaxCi - 1) / kMaxCi;
+  const int k = blockIdx.z / slices;
+  const int i0 = (blockIdx.z % slices) * kMaxCi;
+  const int width = ci - i0 < kMaxCi ? ci - i0 : kMaxCi;
+  const int in0 = (c / co) * ci + i0;
   long first, last;
   chunk_rows(rows, blockIdx.y, gridDim.y, &first, &last);
   float acc[kMaxCi];
@@ -218,12 +225,12 @@ __global__ void __launch_bounds__(kDwThreads) nbasr_conv_dw_partials(
     const T* xs = src + (r - t + ts) * C + in0;
 #pragma unroll
     for (int i = 0; i < kMaxCi; ++i)
-      if (i < ci) acc[i] += load(xs, i) * dz;
+      if (i < width) acc[i] += load(xs, i) * dz;
   }
-  float* out = part + (static_cast<long>(blockIdx.y) * K + k) * ci * C + c;
+  float* out = part + ((static_cast<long>(blockIdx.y) * K + k) * ci + i0) * C + c;
 #pragma unroll
   for (int i = 0; i < kMaxCi; ++i)
-    if (i < ci) out[static_cast<long>(i) * C] = acc[i];
+    if (i < width) out[static_cast<long>(i) * C] = acc[i];
 }
 
 // grid (ceil(C / kThreads), min(rows, 65535)); thread = input channel, block
@@ -429,9 +436,10 @@ int run_backward(int batch, int t_len, int C, int n_nodes, const int* desc,
     T* dw = static_cast<T*>(dweights[n]);
     if (nd[0] == kConv) {
       const int K = nd[1], d = nd[2], lpad = nd[3], ci = nd[4], co = nd[5];
-      if (ci > kMaxCi || ci < 1 || co < 1) return cudaErrorInvalidValue;
+      if (ci < 1 || co < 1) return cudaErrorInvalidValue;
       const long kcic = static_cast<long>(K) * ci * C;
-      const dim3 dw_grid((C + kDwThreads - 1) / kDwThreads, kChunks, K);
+      const dim3 dw_grid((C + kDwThreads - 1) / kDwThreads, kChunks,
+                         K * ((ci + kMaxCi - 1) / kMaxCi));
       nbasr_conv_dw_partials<T><<<dw_grid, kDwThreads, 0, stream>>>(
           in[n], dzc, part_dw, rows, t_len, C, ci, co, K, d, lpad);
       NBASR_CHECK();

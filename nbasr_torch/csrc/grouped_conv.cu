@@ -32,18 +32,45 @@
 // T=300, about 7 us.  The operations, 2*B*T*C*K*ci, are 2*K*ci = 60-170
 // per element moved, under the card's rate even without the tensor cores.
 //
-// Design, simple first:
-//   forward, dx: one thread per (b, t, g), g fastest, holding up to kOut
-//     outputs of its group (co for the forward, ci for dx) in registers;
-//     the K*ci (K*co) activations of its window and the weights are read
-//     through L1, where the threads of a warp share them.
-//   dW: one thread per (k, c, g) and row chunk, holding up to kOut partial
-//     sums over the chunk's (b, t) rows; a second pass sums the chunks in
-//     order.  No float atomics, so two runs give the same bits.
+// Design:
+//   forward, dx (simple first): one thread per (b, t, g), g fastest,
+//     holding up to kOut outputs of its group (co for the forward, ci for
+//     dx) in registers; the K*ci (K*co) activations of its window and the
+//     weights are read through L1, where the threads of a warp share them.
+//   dW: per group a product [K*ci, rows] x [rows, co] over the B*T rows, so
+//     it is bound by how often each activation is read and by how many
+//     partial sums go back to memory.  The launch plan (dw_plan in
+//     nbasr_torch/ops/grouped_conv.py, checked again here) answers:
+//     - staging: a block owns a slab of gs groups and a chunk of row tiles
+//       (up to 64 time steps of one utterance, so the halo reads zero at
+//       the utterance's own edges, never the next row of the batch).  Each
+//       tile's x, with its (K-1)*d halo, and dz go to shared memory by
+//       cp.async of 16, 8 or 4-byte vectors along the contiguous axis (a
+//       slab's (g, c) in the dense layout, g in the split layout; any
+//       other view element by element along g), the next tile in flight
+//       while this one is summed;
+//     - register blocking: a thread holds a KT x OT tile of (tap, output)
+//       sums for one (group, channel): per row it reads KT x values and
+//       OT dz values from shared memory for KT*OT FMAs (5 x 6-12 on the
+//       flagship); lanes of threads split a tile's rows and are summed in
+//       order in shared memory at the end;
+//     - few partials: one partial set per block, as many row chunks as one
+//       wave of resident blocks holds (the CUDA occupancy calculator,
+//       nbasr_grouped_conv_dw_blocks_per_sm) while the partials' f32 bytes
+//       stay within a quarter of the activation bytes (one chunk writes dW
+//       directly), the slab size chosen to fill that wave; a second pass
+//       sums the chunks in order.  No float atomics, so two runs give the
+//       same bits.
+//     Any ci, co, K, d, lpad, B, T run: taps past the instantiated tile
+//     (KT 7, else chunks of 5) and outputs past OT (6, 8, 10, 12) take
+//     further items of the same kernel, whose overhanging sums are dropped.
 // Each entry point returns the first cudaError_t of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -153,50 +180,261 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// grid (ceil(K*ci*G / kThreads), chunks): thread = (k, c, g), g fastest, over
-// the rows [first, last) of its chunk; partial sums into
-// part[chunk][k][c][g*co + o], the [K, ci, C_out] layout per chunk.
+// ---------------------------------------------------------------------------
+// dW: staged tiles, register blocking, one partial set per block
+// ---------------------------------------------------------------------------
+
+constexpr int kDwThreads = 256;
+constexpr int kDwPlanInts = 19;
+
+// How nbasr_grouped_conv_dw cuts the work, in the order of
+// nbasr_torch/ops/grouped_conv.py DW_PLAN_FIELDS (dw_plan says what each is).
+struct DwPlan {
+  int gs, items, lanes, rows, x_rows, tiles, chunks, item_chunks, kt, ot, nk, no, x_mode, x_vec,
+      z_mode, z_vec, x_buf, z_buf, smem;
+};
+
+// One operand as a block stages it: its [b, c, t, g] strides, its channels
+// per group, and the plan's mode (0: runs over the slab's groups, shared
+// [t][c][g], element by element where g is not contiguous; 1: one run over
+// the slab's (g, c) per time step, the dense layout, shared [t][g][c]) and
+// vector bytes (16, 8, 4, or one 2-byte element copied by hand).
+struct Stage {
+  View v;
+  int nch, mode, vec;
+};
+
+// Element strides of a staged tile in shared memory.
+struct SmemView {
+  int c, t, g;
+};
+
+// A warp's threads read neighbouring addresses of one row in either layout,
+// so its loads fall in distinct banks.
+__device__ __forceinline__ SmemView smem_view(int mode, int nch, int gs) {
+  if (mode == 0) return SmemView{gs, nch * gs, 1};
+  return SmemView{1, gs * nch, nch};
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int vec) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  else if (vec == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void zero_fill(void* dst, int vec) {
+  if (vec == 16)
+    *static_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  else if (vec == 8)
+    *static_cast<uint2*>(dst) = make_uint2(0u, 0u);
+  else if (vec == 4)
+    *static_cast<unsigned*>(dst) = 0u;
+  else
+    *static_cast<unsigned short*>(dst) = 0;
+}
+
+// Copies the times [ts0, ts0 + nrows) of `geff` groups of one operand (src
+// at its (b, c = 0, t = 0, g0)) into `sm`, laid out for its mode with `gs`
+// groups; a time outside [0, T) of this utterance reads zero.  Vectors of
+// 4 bytes and more go by cp.async.  Not inlined: one copy per dtype serves
+// every register tile, which keeps the build short.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    nbasr_gconv_dw_partials(const T* __restrict__ x, View xv, const T* __restrict__ dz, View zv,
-                            float* __restrict__ part, long long rows, int t_len, int groups, int ci,
-                            int co, int K, int d, int lpad) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  const long long kcg = static_cast<long long>(K) * ci * groups;
-  if (i >= kcg) return;
-  const int g = static_cast<int>(i % groups);
-  const int kc = static_cast<int>(i / groups);
-  const int c = kc % ci, k = kc / ci;
-  const long long first = rows * blockIdx.y / gridDim.y;
-  const long long last = rows * (blockIdx.y + 1) / gridDim.y;
-  const long long c_out = static_cast<long long>(groups) * co;
-  float* out = part + (static_cast<long long>(blockIdx.y) * K * ci + kc) * c_out +
-               static_cast<long long>(g) * co;
-  const T* xg = x + c * xv.c + g * xv.g;
-  const T* zg = dz + g * zv.g;
-  for (int o0 = 0; o0 < co; o0 += kOut) {
-    float acc[kOut];
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[j] = 0.0f;
-    long long b = first / t_len;
-    int t = static_cast<int>(first - b * t_len);
-    for (long long r = first; r < last; ++r) {
-      const int ts = t + k * d - lpad;
-      if (ts >= 0 && ts < t_len) {
-        const float xval = load(xg, b * xv.b + ts * xv.t);
-        const T* zs = zg + b * zv.b + t * zv.t + o0 * zv.c;
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          if (o0 + j < co) acc[j] += xval * load(zs, j * zv.c);
-      }
-      if (++t == t_len) {
-        t = 0;
-        ++b;
-      }
+__device__ __noinline__ void stage_tile(T* sm, const T* src, Stage st, int ts0, int nrows,
+                                        int gs, int geff, int t_len) {
+  // 32-bit index arithmetic: a tile fits shared memory
+  const int runs = st.mode == 0 ? st.nch * nrows : nrows;
+  const int run_len = st.mode == 0 ? geff : geff * st.nch;
+  const int per_vec = st.vec / static_cast<int>(sizeof(T));
+  const int vpr = run_len / per_vec;
+  const long long step = st.mode == 0 ? st.v.g : 1;  // element stride within a run
+  for (int i = threadIdx.x; i < runs * vpr; i += blockDim.x) {
+    const int r = i / vpr;
+    const int v = i - r * vpr;
+    int trow, soff;
+    long long goff;
+    if (st.mode == 0) {
+      const int c = r / nrows;
+      trow = r - c * nrows;
+      soff = (trow * st.nch + c) * gs;
+      goff = c * st.v.c;
+    } else {
+      trow = r;
+      soff = trow * gs * st.nch;
+      goff = 0;
     }
+    const int ts = ts0 + trow;
+    T* dst = sm + soff + v * per_vec;
+    if (ts < 0 || ts >= t_len) {
+      zero_fill(dst, st.vec);
+      continue;
+    }
+    const T* s = src + goff + ts * st.v.t + v * per_vec * step;
+    if (st.vec >= 4)
+      cp_async(dst, s, st.vec);
+    else
+      *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(s);
+  }
+}
+
+// acc[a][b] += sum over the tile's rows j = j0, j0 + lanes, ... < rt of
+// x[row j + (k0+a)*d] * dz[row j, o0+b]: koff and ooff hold each tap's and
+// output's shared-memory offset for this thread's (group, channel).  A tap
+// or output past the real ones reads a valid address of the tile and its
+// sum is never written, so the loop needs no masks.
+template <int KT, int OT, typename T>
+__device__ __forceinline__ void tile_sums(float (&acc)[KT][OT], const T* xt, const T* zt,
+                                          const int (&koff)[KT], const int (&ooff)[OT], int j0,
+                                          int rt, int lanes, int sx_t, int sz_t) {
+  for (int j = j0; j < rt; j += lanes) {
+    const T* xr = xt + j * sx_t;
+    const T* zr = zt + j * sz_t;
+    float xv[KT], zv[OT];
 #pragma unroll
-    for (int j = 0; j < kOut; ++j)
-      if (o0 + j < co) out[o0 + j] = acc[j];
+    for (int a = 0; a < KT; ++a) xv[a] = to_f(xr[koff[a]]);
+#pragma unroll
+    for (int b = 0; b < OT; ++b) zv[b] = to_f(zr[ooff[b]]);
+#pragma unroll
+    for (int a = 0; a < KT; ++a)
+#pragma unroll
+      for (int b = 0; b < OT; ++b) acc[a][b] = fmaf(xv[a], zv[b], acc[a][b]);
+  }
+}
+
+// The tile of unit u (utterance b, time tile i): its first time and length.
+__device__ __forceinline__ void unit_rows(long long u, const DwPlan& p, int t_len, long long* b,
+                                          int* t0, int* rt) {
+  *b = u / p.tiles;
+  *t0 = static_cast<int>(u - *b * p.tiles) * p.rows;
+  *rt = min(p.rows, t_len - *t0);
+}
+
+// grid (slabs * item_chunks, chunks), p.items * p.lanes threads.  A block
+// owns the groups [g0, g0 + gs) and items of (group, input channel, tap
+// tile, output tile); lane l of an item sums the tile rows l, l + lanes, ...
+// of the block's row units, every unit staged in shared memory while the
+// one before it is summed.  The lanes are summed in order, then the block
+// writes its partial set part[chunk][k][c][g*co + o] (or dw itself, rounded,
+// when there is one chunk).
+template <typename T, int KT, int OT>
+__global__ void __launch_bounds__(kDwThreads)
+    nbasr_gconv_dw(const T* __restrict__ x, Stage xs, const T* __restrict__ dz, Stage zs,
+                   float* __restrict__ part, T* __restrict__ dw, DwPlan p, int batch, int t_len,
+                   int groups, int ci, int co, int K, int d, int lpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const xbuf0 = reinterpret_cast<T*>(smem_raw);
+  T* const zbuf0 = xbuf0 + p.x_buf;
+  T* const xbuf1 = zbuf0 + p.z_buf;
+  T* const zbuf1 = xbuf1 + p.x_buf;
+  const int slab = blockIdx.x / p.item_chunks;
+  const int g0 = slab * p.gs;
+  const int geff = min(p.gs, groups - g0);
+  const int lane = threadIdx.x / p.items;
+  const int slot = threadIdx.x - lane * p.items;
+  const int item = (blockIdx.x - slab * p.item_chunks) * p.items + slot;
+  const int pairs = p.gs * ci;
+  const int pair = item % pairs, q = item / pairs;
+  int gl, cl;
+  if (xs.mode == 0) {  // neighbouring threads on neighbouring groups
+    gl = pair % p.gs;
+    cl = pair / p.gs;
+  } else {             // ... or channels, as the tile lies in shared memory
+    cl = pair % ci;
+    gl = pair / ci;
+  }
+  const int k0 = (q % p.nk) * KT, o0 = (q / p.nk) * OT;
+  const bool live = q < p.nk * p.no && gl < geff;
+  const int kn = min(KT, K - k0), on = min(OT, co - o0);
+  const SmemView sx = smem_view(xs.mode, ci, p.gs);
+  const SmemView sz = smem_view(zs.mode, co, p.gs);
+  int koff[KT], ooff[OT];
+#pragma unroll
+  for (int a = 0; a < KT; ++a) koff[a] = (a < kn ? (k0 + a) * d * sx.t : 0) + cl * sx.c + gl * sx.g;
+#pragma unroll
+  for (int b = 0; b < OT; ++b) ooff[b] = (b < on ? (o0 + b) * sz.c : 0) + gl * sz.g;
+
+  const long long units = static_cast<long long>(batch) * p.tiles;
+  const long long u0 = units * blockIdx.y / gridDim.y;
+  const long long u1 = units * (blockIdx.y + 1) / gridDim.y;
+  const int halo = (K - 1) * d;
+  const T* const xg = x + static_cast<long long>(g0) * xs.v.g;
+  const T* const zg = dz + static_cast<long long>(g0) * zs.v.g;
+  float acc[KT][OT];
+#pragma unroll
+  for (int a = 0; a < KT; ++a)
+#pragma unroll
+    for (int b = 0; b < OT; ++b) acc[a][b] = 0.0f;
+
+  long long b;
+  int t0, rt;
+  if (u0 < u1) {
+    unit_rows(u0, p, t_len, &b, &t0, &rt);
+    stage_tile(xbuf0, xg + b * xs.v.b, xs, t0 - lpad, rt + halo, p.gs, geff, t_len);
+    stage_tile(zbuf0, zg + b * zs.v.b, zs, t0, rt, p.gs, geff, t_len);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (long long u = u0; u < u1; ++u) {
+    const bool odd = (u - u0) & 1;
+    if (u + 1 < u1) {  // the next unit into the other buffers
+      unit_rows(u + 1, p, t_len, &b, &t0, &rt);
+      stage_tile(odd ? xbuf0 : xbuf1, xg + b * xs.v.b, xs, t0 - lpad, rt + halo, p.gs, geff,
+                 t_len);
+      stage_tile(odd ? zbuf0 : zbuf1, zg + b * zs.v.b, zs, t0, rt, p.gs, geff, t_len);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    if (live) {
+      unit_rows(u, p, t_len, &b, &t0, &rt);
+      const T* xt = odd ? xbuf1 : xbuf0;
+      const T* zt = odd ? zbuf1 : zbuf0;
+      tile_sums(acc, xt, zt, koff, ooff, lane, rt, p.lanes, sx.t, sz.t);
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+
+  if (p.lanes > 1) {  // lanes 1.. hand their sums to lane 0 through shared memory
+    float* red = reinterpret_cast<float*>(smem_raw);
+    __syncthreads();
+    if (lane > 0) {
+#pragma unroll
+      for (int a = 0; a < KT; ++a)
+#pragma unroll
+        for (int b2 = 0; b2 < OT; ++b2)
+          red[((lane - 1) * KT * OT + a * OT + b2) * p.items + slot] = acc[a][b2];
+    }
+    __syncthreads();
+    if (lane == 0) {
+      for (int l = 1; l < p.lanes; ++l)
+#pragma unroll
+        for (int a = 0; a < KT; ++a)
+#pragma unroll
+          for (int b2 = 0; b2 < OT; ++b2)
+            acc[a][b2] += red[((l - 1) * KT * OT + a * OT + b2) * p.items + slot];
+    }
+  }
+  if (lane != 0 || !live) return;
+  const long long n = static_cast<long long>(K) * ci * groups * co;
+  const int g = g0 + gl;
+#pragma unroll
+  for (int a = 0; a < KT; ++a) {
+#pragma unroll
+    for (int b2 = 0; b2 < OT; ++b2) {
+      if (a >= kn || b2 >= on) continue;
+      const long long e =
+          ((static_cast<long long>(k0 + a) * ci + cl) * groups + g) * co + o0 + b2;
+      if (part)
+        part[blockIdx.y * n + e] = acc[a][b2];
+      else
+        store(dw, e, acc[a][b2]);
+    }
   }
 }
 
@@ -249,21 +487,112 @@ int input_grad(int batch, int t_len, int groups, int ci, int co, int K, int d, i
   return cudaGetLastError();
 }
 
+// A plan the kernel can run: what dw_plan makes, checked again here.
+bool bad_plan(const DwPlan& p, int esize, int t_len, int groups, int ci, int co, int K, int d) {
+  const auto bad_vec = [esize](int v) {
+    return !(v == esize || ((v == 4 || v == 8 || v == 16) && v > esize));
+  };
+  const long long items_all = static_cast<long long>(p.gs) * ci * p.nk * p.no;
+  const long long stages = 2LL * (static_cast<long long>(p.x_buf) + p.z_buf) * esize;
+  const long long reduce = 4LL * (p.lanes - 1) * p.items * p.kt * p.ot;
+  return p.gs < 1 || p.gs > groups || p.items < 1 || p.lanes < 1 ||
+         p.items * p.lanes > kDwThreads || p.rows < 1 || p.tiles < 1 ||
+         static_cast<long long>(p.rows) * p.tiles < t_len ||
+         static_cast<long long>(p.rows) * (p.tiles - 1) >= t_len ||
+         p.x_rows != p.rows + (K - 1) * d || p.chunks < 1 || p.chunks > 65535 ||
+         p.item_chunks < 1 || static_cast<long long>(p.items) * p.item_chunks < items_all ||
+         p.nk * p.kt < K || p.no * p.ot < co || p.x_mode < 0 || p.x_mode > 1 || p.z_mode < 0 ||
+         p.z_mode > 1 || bad_vec(p.x_vec) || bad_vec(p.z_vec) ||
+         static_cast<long long>(p.x_buf) < static_cast<long long>(ci) * p.x_rows * p.gs ||
+         static_cast<long long>(p.z_buf) < static_cast<long long>(co) * p.rows * p.gs ||
+         (static_cast<long long>(p.x_buf) * esize) % 16 != 0 ||
+         (static_cast<long long>(p.z_buf) * esize) % 16 != 0 || p.smem < stages ||
+         p.smem < reduce || p.smem > 232448;
+}
+
+// The strides allow the staging mode: one (g, c) run per time step needs
+// the dense layout's strides, a vector along g needs g contiguous.
+bool stage_fits(const Stage& st, int esize) {
+  if (st.mode == 1) return (st.v.c == 1 || st.nch == 1) && st.v.g == st.nch;
+  return st.vec == esize || st.v.g == 1;
+}
+
+template <typename T, int KT, int OT>
+int launch_dw(const DwPlan& p, int batch, int t_len, int groups, int ci, int co, int K, int d,
+              int lpad, const T* x, const Stage& xs, const T* dz, const Stage& zs, T* dw,
+              float* part, cudaStream_t s) {
+  const auto kernel = nbasr_gconv_dw<T, KT, OT>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>((groups + p.gs - 1) / p.gs) * p.item_chunks, p.chunks);
+  kernel<<<grid, p.items * p.lanes, p.smem, s>>>(x, xs, dz, zs, part, dw, p, batch, t_len, groups,
+                                                 ci, co, K, d, lpad);
+  return cudaGetLastError();
+}
+
+template <typename T, int KT, int OT>
+int dw_occupancy(int threads, int smem) {
+  const auto kernel = nbasr_gconv_dw<T, KT, OT>;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// f(KT, OT) as integral constants for the register tile (kt, ot) when it is
+// instantiated, else -1: every tile dw_plan picks in bf16, the train step's
+// dtype; in f32, the checks' dtype, the widest one alone (fewer kernels to
+// build).
+template <typename T, typename F>
+int with_tile(int kt, int ot, F&& f) {
+#define NBASR_DW_TILE(KT, OT) \
+  if (kt == KT && ot == OT)   \
+    return f(std::integral_constant<int, KT>{}, std::integral_constant<int, OT>{});
+  if constexpr (std::is_same_v<T, float>) {
+    NBASR_DW_TILE(7, 12)
+  } else {
+    NBASR_DW_TILE(5, 6)
+    NBASR_DW_TILE(5, 8)
+    NBASR_DW_TILE(5, 10)
+    NBASR_DW_TILE(5, 12)
+    NBASR_DW_TILE(7, 6)
+    NBASR_DW_TILE(7, 8)
+    NBASR_DW_TILE(7, 10)
+    NBASR_DW_TILE(7, 12)
+  }
+#undef NBASR_DW_TILE
+  return -1;
+}
+
 template <typename T>
 int weight_grad(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad,
-                const T* x, View xv, const T* dz, View zv, T* dw, float* work, int chunks,
+                const T* x, View xv, const T* dz, View zv, T* dw, float* work, const DwPlan& p,
                 cudaStream_t s) {
   const long long n = static_cast<long long>(K) * ci * groups * co;
   const long long rows = static_cast<long long>(batch) * t_len;
   if (rows == 0) return cudaMemsetAsync(dw, 0, sizeof(T) * n, s);
-  const dim3 grid(blocks_for(static_cast<long long>(K) * ci * groups), chunks);
-  nbasr_gconv_dw_partials<T><<<grid, kThreads, 0, s>>>(x, xv, dz, zv, work, rows, t_len, groups,
-                                                       ci, co, K, d, lpad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (bad_plan(p, sizeof(T), t_len, groups, ci, co, K, d) || (p.chunks > 1 && !work))
+    return cudaErrorInvalidValue;
+  const Stage xs{xv, ci, p.x_mode, p.x_vec}, zs{zv, co, p.z_mode, p.z_vec};
+  if (!stage_fits(xs, sizeof(T)) || !stage_fits(zs, sizeof(T))) return cudaErrorInvalidValue;
+  float* part = p.chunks > 1 ? work : nullptr;
+  const int err = with_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
+    return launch_dw<T, decltype(kt)::value, decltype(ot)::value>(
+        p, batch, t_len, groups, ci, co, K, d, lpad, x, xs, dz, zs, dw, part, s);
+  });
+  if (err < 0) return cudaErrorInvalidValue;
+  if (err != cudaSuccess || !part) return err;
   const long long nb = (n + kThreads - 1) / kThreads;
   nbasr_gconv_dw_reduce<T><<<static_cast<unsigned>(nb < 8192 ? nb : 8192), kThreads, 0, s>>>(
-      work, chunks, n, dw);
+      work, p.chunks, n, dw);
   return cudaGetLastError();
 }
 
@@ -313,27 +642,46 @@ extern "C" int nbasr_grouped_conv_dx(int bf16, int batch, int t_len, int groups,
 }
 
 // dw [K, ci, G*co] (contiguous, x's dtype) = the weight gradient for x (a
-// [B, ci, T, G] view) and dz (a [B, co, T, G] view), summed over the batch;
-// work holds chunks * K * ci * G * co floats of partial sums.
+// [B, ci, T, G] view) and dz (a [B, co, T, G] view), summed over the batch,
+// cut as plan says (kDwPlanInts ints, dw_plan's DW_PLAN_FIELDS); work holds
+// plan.chunks * K * ci * G * co floats of partial sums, or is null for one
+// chunk.
 extern "C" int nbasr_grouped_conv_dw(int bf16, int batch, int t_len, int groups, int ci, int co,
                                      int K, int d, int lpad, const void* x,
                                      const long long* x_strides, const void* dz,
                                      const long long* dz_strides, void* dw, void* work,
-                                     int chunks, void* stream) {
-  if (bad_dims(batch, t_len, groups, ci, co, K, d, lpad) || chunks < 1 || chunks > 65535)
-    return cudaErrorInvalidValue;
+                                     const int* plan, void* stream) {
+  if (bad_dims(batch, t_len, groups, ci, co, K, d, lpad) || !plan) return cudaErrorInvalidValue;
+  static_assert(sizeof(DwPlan) == kDwPlanInts * sizeof(int), "DwPlan is kDwPlanInts ints");
+  DwPlan p;
+  std::memcpy(&p, plan, sizeof(p));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto wk = static_cast<float*>(work);
   if (bf16) {
     using T = __nv_bfloat16;
     return weight_grad<T>(batch, t_len, groups, ci, co, K, d, lpad, static_cast<const T*>(x),
                           view(x_strides), static_cast<const T*>(dz), view(dz_strides),
-                          static_cast<T*>(dw), wk, chunks, s);
+                          static_cast<T*>(dw), wk, p, s);
   }
   return weight_grad<float>(batch, t_len, groups, ci, co, K, d, lpad,
                             static_cast<const float*>(x), view(x_strides),
                             static_cast<const float*>(dz), view(dz_strides),
-                            static_cast<float*>(dw), wk, chunks, s);
+                            static_cast<float*>(dw), wk, p, s);
+}
+
+// Resident blocks per SM of the dW kernel with a plan's register tile (kt,
+// ot), threads and shared memory bytes, from the CUDA occupancy calculator;
+// -1 for a tile that is not instantiated or an error.
+extern "C" int nbasr_grouped_conv_dw_blocks_per_sm(int bf16, int kt, int ot, int threads,
+                                                   int smem) {
+  if (threads < 1 || threads > kDwThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return with_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      return dw_occupancy<__nv_bfloat16, decltype(a)::value, decltype(b)::value>(threads, smem);
+    });
+  return with_tile<float>(kt, ot, [&](auto a, auto b) {
+    return dw_occupancy<float, decltype(a)::value, decltype(b)::value>(threads, smem);
+  });
 }
 
 extern "C" const char* nbasr_cuda_error_string(int err) {

@@ -16,6 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 __all__ = ['build', 'load', 'function', 'check', 'BUILD_DIR', 'NVCC_FLAGS']
 
@@ -49,10 +50,12 @@ def _target(name):
 def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
-    Returns ``{name: (path, compiler log)}``; the log holds ptxas's register
-    and shared-memory report, empty for a library found already built.
+    Returns ``{name: (path, compiler log)}``; the log starts with the
+    seconds nvcc took and holds ptxas's register and shared-memory report,
+    empty for a library found already built.
     """
     out, procs = {}, {}
+    t0 = time.perf_counter()
     for name in names:
         target = _target(name)
         if target.exists():
@@ -70,7 +73,8 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
             failed.append(f'{name}: nvcc exited {proc.returncode}\n{log}')
             continue
         os.replace(tmp, target)
-        out[name] = (target, log)
+        out[name] = (target, f'compiled in {time.perf_counter() - t0:.1f} s '
+                             f'or less\n{log}')
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
     return out

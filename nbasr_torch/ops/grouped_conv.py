@@ -23,6 +23,7 @@ each, so a run can show which one it went through.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +40,25 @@ __all__ = ['grouped_conv1d', 'GroupedConv1d', 'to_split', 'from_split',
 #: (``'plain'``) since the last :func:`reset_launches`.
 LAUNCHES = {name: {'kernel': 0, 'plain': 0} for name in ('forward', 'dx', 'dw')}
 
-#: Row chunks of the weight gradient's partial sums (then summed in order).
-DW_CHUNKS = 64
+#: The weight gradient's launch plan (:func:`dw_plan`): shared memory a
+#: block may use on Hopper, the share of it one block aims for (two blocks
+#: per SM), the row tile's first length, threads per block, the tap and
+#: output tiles a thread may hold in registers in bf16 (the kernel's
+#: template instantiations; f32, the checks' dtype, has the widest alone),
+#: and the cap on the partial sums' f32 bytes as a share of the activation
+#: bytes.
+SMEM_LIMIT = 232448
+DW_SMEM_TARGET = 100 * 1024
+DW_ROWS = 64
+DW_THREADS = 256
+DW_TAP_TILES = (5, 7)           # any other K: chunks of the first
+DW_OUT_TILES = (6, 8, 10, 12)
+DW_F32_TILE = (7, 12)
+DW_PARTIAL_SHARE = 0.25
+#: Ints of a plan in the order ``nbasr_grouped_conv_dw`` reads them.
+DW_PLAN_FIELDS = ('gs', 'items', 'lanes', 'rows', 'x_rows', 'tiles',
+                  'chunks', 'item_chunks', 'kt', 'ot', 'nk', 'no', 'x_mode',
+                  'x_vec', 'z_mode', 'z_vec', 'x_buf', 'z_buf', 'smem')
 
 
 def reset_launches():
@@ -173,6 +191,138 @@ def conv_dw_reference(xs, dz, w, lpad, dilation):
 
 
 # ---------------------------------------------------------------------------
+# the weight gradient's launch plan (pure Python, so the CPU tests check it)
+# ---------------------------------------------------------------------------
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _align16(nbytes):
+    return _ceil(nbytes, 16) * 16
+
+
+def _stage(strides, nch, gs, groups, esize, ptr):
+    """(mode, vector bytes) of how a block stages one operand's tile.
+
+    Mode 1, the dense layout (channels contiguous, groups one after
+    another): one run over the slab's ``(g, c)`` per time step, shared
+    memory ``[t][g][c]``.  Mode 0, any other view: runs over the slab's
+    groups, shared memory ``[t][c][g]``, element by element unless ``g``
+    is contiguous (the split layout).  The vector is the widest of 16, 8
+    and 4 bytes that every address and run of the tile is aligned to,
+    else one element."""
+    s_b, s_c, s_t, s_g = strides
+    last = groups - (_ceil(groups, gs) - 1) * gs
+    if (s_c == 1 or nch == 1) and s_g == nch:
+        mode, lens, step, offsets = 1, (gs * nch, last * nch), 1, ()
+    else:
+        mode, lens, step, offsets = 0, (gs, last), s_g, (s_c,)
+    for vec in (16, 8, 4):
+        if vec <= esize or step != 1:
+            break
+        need = (ptr, s_b * esize, s_t * esize, gs * s_g * esize) + tuple(
+            o * esize for o in offsets + lens)
+        if all(v % vec == 0 for v in need):
+            return mode, vec
+    return mode, esize
+
+
+def estimated_blocks_per_sm(kt, ot, threads, smem):
+    """Resident blocks of the dW kernel per SM, as the CPU can guess it:
+    2048 threads, 228 KB of shared memory and 64 K registers at 128 per
+    thread (what ptxas gives the bf16 instantiations).  On the card the
+    wrapper asks the CUDA occupancy calculator."""
+    return max(1, min(2048 // threads, (228 * 1024) // max(smem + 1024, 1),
+                      65536 // (128 * threads)))
+
+
+def dw_plan(B, T, G, ci, co, K, d, esize, x_strides, z_strides, x_ptr=0,
+            z_ptr=0, sms=132, blocks_per_sm=estimated_blocks_per_sm):
+    """How ``nbasr_grouped_conv_dw`` cuts the weight gradient: a dict of
+    :data:`DW_PLAN_FIELDS` plus the grid and the workspace.
+
+    A block owns a slab of ``gs`` groups and a chunk of the ``B * tiles``
+    row tiles (``rows`` time steps of one utterance each, so a tile never
+    crosses an utterance); it stages each tile's x (with the ``(K-1)*d``
+    halo) and dz in shared memory, two tiles in flight, and ``lanes``
+    threads share each ``(group, channel, tap/output tile)`` item, summed
+    in order at the end.  ``chunks`` blocks along the rows each write one
+    partial set, summed in order by a second pass (none for one chunk);
+    they are as many as one wave of resident blocks holds
+    (``blocks_per_sm(kt, ot, threads, smem)`` on ``sms`` SMs), within
+    ``DW_PARTIAL_SHARE`` of the activation bytes, and the slab size is the
+    one that fills that wave best.  Raises ``ValueError`` only where one
+    time step of one group does not fit shared memory."""
+    halo = (K - 1) * d
+    if esize == 4:
+        kt, ot = DW_F32_TILE
+        nk, no = _ceil(K, kt), _ceil(co, ot)
+    else:
+        kt = K if K in DW_TAP_TILES else DW_TAP_TILES[0]
+        nk = _ceil(K, kt)
+        no = _ceil(co, DW_OUT_TILES[-1])
+        ot = next(t for t in DW_OUT_TILES if t >= _ceil(co, no))
+    nq = nk * no
+
+    act_bytes = B * T * G * (ci + co) * esize
+    cap = max(1, int(DW_PARTIAL_SHARE * act_bytes // (K * ci * G * co * 4)))
+
+    def layout(gs):
+        """The plan for slabs of ``gs`` groups, or None where one time step
+        does not fit shared memory: row tiles of up to DW_ROWS steps, shorter
+        while the two stages pass DW_SMEM_TARGET, balanced over T."""
+        items_all = gs * ci * nq
+        items = min(items_all, DW_THREADS)
+        lanes = max(1, min(8, DW_THREADS // items))
+
+        def smem_for(rows):
+            x_buf = _align16((rows + halo) * gs * ci * esize) // esize
+            z_buf = _align16(rows * gs * co * esize) // esize
+            reduce = (lanes - 1) * items * kt * ot * 4
+            return x_buf, z_buf, max(2 * (x_buf + z_buf) * esize, reduce)
+
+        rows = DW_ROWS
+        while rows > 1 and smem_for(rows)[2] > DW_SMEM_TARGET:
+            rows //= 2
+        if smem_for(rows)[2] > SMEM_LIMIT:
+            return None
+        tiles = max(1, _ceil(T, rows))
+        rows = max(1, _ceil(T, tiles))        # balanced tiles, never longer
+        x_buf, z_buf, smem = smem_for(rows)
+        item_chunks = _ceil(items_all, items)
+        blocks_x = _ceil(G, gs) * item_chunks
+        # one wave: as many row chunks as resident blocks allow, within cap
+        slots = sms * max(1, blocks_per_sm(kt, ot, items * lanes, smem))
+        chunks = max(1, min(B * tiles, cap, slots // blocks_x, 65535))
+        x_mode, x_vec = _stage(x_strides, ci, gs, G, esize, x_ptr)
+        z_mode, z_vec = _stage(z_strides, co, gs, G, esize, z_ptr)
+        plan = dict(gs=gs, items=items, lanes=lanes, rows=rows,
+                    x_rows=rows + halo, tiles=tiles, chunks=chunks,
+                    item_chunks=item_chunks, kt=kt, ot=ot, nk=nk, no=no,
+                    x_mode=x_mode, x_vec=x_vec, z_mode=z_mode, z_vec=z_vec,
+                    x_buf=x_buf, z_buf=z_buf, smem=smem)
+        plan.update(grid=(blocks_x, chunks), threads=items * lanes,
+                    workspace=chunks * K * ci * G * co if chunks > 1 else 0)
+        # ranked by the share of the wave it fills (to the nearest quarter),
+        # then by padded groups, 10% more where a staged vector is under 8
+        # bytes (copies of 4 bytes or one element), then by the larger slab
+        fill = min(1.0, blocks_x * chunks / slots)
+        padded = _ceil(G, gs) * gs + (G // 10 if min(x_vec, z_vec) < 8 else 0)
+        return (-int(4 * fill + 0.5), padded, -gs), plan
+
+    # slabs of at most about 128 items; one group always stages unless a
+    # single time step overflows shared memory
+    plans = [p for p in map(layout, range(1, max(1, min(G, 128 // (ci * nq)))
+                                         + 1)) if p is not None]
+    if not plans:
+        raise ValueError(f'the dW kernel cannot stage one time step of a '
+                         f'group: halo {halo}, ci={ci}, co={co} need more '
+                         f'than {SMEM_LIMIT} bytes of shared memory')
+    return min(plans, key=lambda p: p[0])[1]
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
@@ -181,7 +331,7 @@ _S = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = [ctypes.c_int] * 9          # bf16, B, T, G, ci, co, K, d, lpad
 _FWD_ARGS = _DIMS + [_P, _S, _P, _P, _P, _S, _P]
 _DX_ARGS = _DIMS + [_P, _S, _P, _P, _S, _P]
-_DW_ARGS = _DIMS + [_P, _S, _P, _S, _P, _P, ctypes.c_int, _P]
+_DW_ARGS = _DIMS + [_P, _S, _P, _S, _P, _P, ctypes.POINTER(ctypes.c_int), _P]
 
 
 def _strides(t):
@@ -213,6 +363,37 @@ def _kernel_dims(xs, w, lpad, dilation):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device, bf16, kt, ot, threads, smem):
+    """Resident dW blocks per SM of the card, from the CUDA occupancy
+    calculator."""
+    fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dw_blocks_per_sm',
+                         [ctypes.c_int] * 5)
+    with torch.cuda.device(device):
+        blocks = fn(bf16, kt, ot, threads, smem)
+    if blocks < 1:
+        raise RuntimeError(f'no resident dW block of {threads} threads and '
+                           f'{smem} bytes of shared memory (tile {kt}x{ot})')
+    return blocks
+
+
+@functools.lru_cache(maxsize=4096)
+def _dw_launch_plan(device, *args):
+    """(workspace floats, the plan as the C entry point reads it) of
+    :func:`dw_plan` on ``device``, kept per shape, strides and pointer
+    alignment so that a train step plans each node once."""
+    esize = args[7]
+    plan = dw_plan(*args, sms=_sm_count(device), blocks_per_sm=functools.partial(
+        _blocks_per_sm, device, int(esize == 2)))
+    return plan['workspace'], (ctypes.c_int * len(DW_PLAN_FIELDS))(
+        *(plan[k] for k in DW_PLAN_FIELDS))
 
 
 def _launch_forward(xs, w, bias, lpad, dilation, out):
@@ -254,13 +435,18 @@ def _launch_dw(xs, dz, w, lpad, dilation):
     dims = _kernel_dims(xs, w, lpad, dilation)
     B, T, G, co = dims[1], dims[2], dims[3], dims[5]
     _check_operand(dz, 'dz', (B, co, T, G), xs.dtype, xs.device)
+    workspace, plan_ints = _dw_launch_plan(
+        xs.device, B, T, G, w.shape[1], co, w.shape[0], dilation,
+        xs.element_size(), xs.stride(), dz.stride(), xs.data_ptr() % 16,
+        dz.data_ptr() % 16)
     dw = torch.empty_like(w)
-    work = torch.empty((DW_CHUNKS * w.numel(),), dtype=torch.float32,
-                       device=xs.device)
+    work = torch.empty((workspace,), dtype=torch.float32,
+                       device=xs.device) if workspace else None
     fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dw', _DW_ARGS)
     with torch.cuda.device(xs.device):
         err = fn(*dims, xs.data_ptr(), _strides(xs), dz.data_ptr(),
-                 _strides(dz), dw.data_ptr(), work.data_ptr(), DW_CHUNKS,
+                 _strides(dz), dw.data_ptr(),
+                 None if work is None else work.data_ptr(), plan_ints,
                  _stream(xs))
     _build.check(err, 'grouped_conv', 'grouped conv dW')
     LAUNCHES['dw']['kernel'] += 1

@@ -128,13 +128,19 @@ class Trainer:
         return m
 
     def _update(self, lr):
-        """clip_by_global_norm, then Adam, then ×(−lr), as the optax chain;
-        a step with a non-finite gradient norm is skipped and counted."""
+        """clip_by_global_norm, then Adam, then ×(−lr), as the optax chain
+        under ``apply_if_finite``: a step with a non-finite gradient is
+        skipped and counted.  Finite gradients whose f32 norm overflows go
+        through, scaled by ``clip_norm / inf`` = 0, as optax scales them, and
+        Adam still steps.  One host read per step (the norm and the largest
+        |gradient| together)."""
         params = [p for p in self.model.parameters() if p.grad is not None]
         grads = [p.grad for p in params]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        norm_host = float(norm)
-        if not math.isfinite(norm_host):
+        # max |g| is finite iff every gradient is (NaN propagates through max)
+        peak = torch.stack(torch._foreach_norm(grads, math.inf)).max()
+        norm_host, peak_host = torch.stack([norm, peak.to(norm.dtype)]).tolist()
+        if not math.isfinite(peak_host):
             self.nonfinite_steps += 1
             for p in params:
                 p.grad = None

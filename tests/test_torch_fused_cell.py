@@ -148,12 +148,12 @@ def _cell_inputs(spec, zero_rows, C=24, seed=0):
     return x, ws, ln, dy
 
 
-def _vjp_pair(arch, rate, zero_rows, dtype):
+def _vjp_pair(arch, rate, zero_rows, dtype, C=24, groups=4):
     """(JAX y and VJP, port y and grads) of one training cell on the same
     numpy inputs and seed; JAX's expand_chunked sits inside the function
     under jax.vjp, so its dW comes back compact."""
-    spec = SearchCell(24, arch, groups=4, dropout_rate=rate).train_spec
-    x, ws, ln, dy = _cell_inputs(spec, zero_rows)
+    spec = SearchCell(C, arch, groups=groups, dropout_rate=rate).train_spec
+    x, ws, ln, dy = _cell_inputs(spec, zero_rows, C=C)
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     jspec = _jax_spec(spec, rate)
 
@@ -206,6 +206,17 @@ def test_cell_vjp_bf16_matches_jax(arch):
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=BF16_ULP * np.abs(w).max())
+
+
+@pytest.mark.parametrize('arch', ARCHS[:2], ids=ARCH_IDS[:2])
+def test_cell_vjp_wide_groups_matches_jax(arch):
+    """Groups of 24 input channels (C=48, 2 groups), wider than the 16 a
+    dW thread of the backward kernel sums at once, so the kernel takes
+    them in slices; the plain version against JAX within 1e-5 of each
+    tensor's scale in f32, as the narrow groups."""
+    want, got = _vjp_pair(arch, 0.5, False, torch.float32, C=48, groups=2)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL * np.abs(w).max())
 
 
 def test_tie_gradient_matches_jax():

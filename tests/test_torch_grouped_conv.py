@@ -183,6 +183,103 @@ def test_cpu_runs_the_plain_versions():
                                      'dw': {'kernel': 0, 'plain': 1}}
 
 
+# (B, T, G, ci, co, K, d): the flagship's dW nodes at the train step's B=32,
+# and the edge shapes the card checks (ci = 24, ci = 1, T shorter than the
+# halo, B=1, T not a multiple of the row tile, taps and outputs past the
+# register tile)
+PLAN_SHAPES = [
+    (32, 300, 100, 6, 6, 5, 1), (32, 300, 100, 8, 8, 5, 1),
+    (32, 150, 100, 10, 10, 5, 1), (32, 75, 100, 12, 12, 5, 1),
+    (4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
+    (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
+    (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1),
+]
+
+
+def _plan_strides(B, T, G, ci, co, layout):
+    if layout == 'dense':       # [B, T, C] seen as the split view
+        return (T * G * ci, 1, G * ci, ci), (T * G * co, 1, G * co, co)
+    if layout == 'strided':     # [B, G, T, c] seen as [B, c, T, G]
+        return (G * T * ci, 1, ci, T * ci), (G * T * co, 1, co, T * co)
+    return (ci * T * G, T * G, G, 1), (co * T * G, T * G, G, 1)
+
+
+@pytest.mark.parametrize('esize', [2, 4], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('layout', ['dense', 'split', 'strided'])
+@pytest.mark.parametrize('B,T,G,ci,co,K,d', PLAN_SHAPES)
+def test_dw_plan_covers_every_row_once(B, T, G, ci, co, K, d, layout, esize):
+    """The weight gradient's launch plan: every (b, t) row in exactly one
+    chunk and one time tile of its utterance; every (group, channel, tap,
+    output) in one item; shared memory within Hopper's 227 KB and enough
+    for both stages and the lanes' sums; the workspace sized to the chunks;
+    the grid and block within CUDA's limits; a staged vector aligned to
+    every address it copies."""
+    xst, zst = _plan_strides(B, T, G, ci, co, layout)
+    p = grouped_conv.dw_plan(B, T, G, ci, co, K, d, esize, xst, zst, 256,
+                             512, sms=132)
+    assert set(grouped_conv.DW_PLAN_FIELDS) <= p.keys()
+    units = B * p['tiles']
+    seen = np.zeros((B, T), np.int64)
+    for y in range(p['chunks']):
+        for u in range(units * y // p['chunks'], units * (y + 1) // p['chunks']):
+            b, i = divmod(u, p['tiles'])
+            t0 = i * p['rows']
+            seen[b, t0:min(T, t0 + p['rows'])] += 1
+            assert t0 < T
+    assert (seen == 1).all()
+    assert p['items'] * p['item_chunks'] >= p['gs'] * ci * p['nk'] * p['no']
+    assert p['nk'] * p['kt'] >= K and p['no'] * p['ot'] >= co
+    if esize == 4:
+        assert (p['kt'], p['ot']) == grouped_conv.DW_F32_TILE
+    else:
+        assert p['kt'] in grouped_conv.DW_TAP_TILES
+        assert p['ot'] in grouped_conv.DW_OUT_TILES
+    assert p['x_rows'] == p['rows'] + (K - 1) * d
+    assert p['x_buf'] >= ci * p['x_rows'] * p['gs']
+    assert p['z_buf'] >= co * p['rows'] * p['gs']
+    stages = 2 * (p['x_buf'] + p['z_buf']) * esize
+    lanes = (p['lanes'] - 1) * p['items'] * p['kt'] * p['ot'] * 4
+    assert max(stages, lanes) <= p['smem'] <= grouped_conv.SMEM_LIMIT
+    assert p['x_buf'] * esize % 16 == 0 and p['z_buf'] * esize % 16 == 0
+    assert 1 <= p['threads'] == p['items'] * p['lanes'] <= 1024
+    gx, gy = p['grid']
+    assert gx == -(-G // p['gs']) * p['item_chunks'] <= 2 ** 31 - 1
+    assert gy == p['chunks'] <= 65535
+    n = K * ci * G * co
+    assert p['workspace'] == (p['chunks'] * n if p['chunks'] > 1 else 0)
+    # partials: a small share of the activation bytes
+    assert p['workspace'] * 4 <= max(
+        grouped_conv.DW_PARTIAL_SHARE * B * T * G * (ci + co) * esize, 4 * n)
+    for (mode, vec), strides, ptr, nch in (
+            ((p['x_mode'], p['x_vec']), xst, 256, ci),
+            ((p['z_mode'], p['z_vec']), zst, 512, co)):
+        assert vec == esize or (vec in (4, 8, 16) and vec > esize)
+        s_b, s_c, s_t, s_g = strides
+        if vec > esize:
+            assert (ptr % vec, s_b * esize % vec, s_t * esize % vec) == (0, 0, 0)
+            assert p['gs'] * s_g * esize % vec == 0
+        assert mode == int(layout == 'dense' or (layout == 'split' and nch == 1))
+        if layout == 'strided' and nch > 1:     # g strided: element by element
+            assert vec == esize
+    if layout == 'dense' and esize == 2 and (ci, co) == (6, 6):
+        assert (p['x_vec'], p['z_vec']) == (16, 16)   # the flagship's block 0
+
+
+def test_dw_plan_fills_the_card_and_bounds_the_partials():
+    """At the flagship's block 0 (B=32, T=300, C=600, bf16) and block 3
+    (T=75, C=1200): enough blocks for the 132 SMs, and partial sums within
+    a quarter of the activation bytes (the old kernel's 64 chunks wrote
+    1.2x the activation bytes at block 3)."""
+    for B, T, G, ci, co, K, d in PLAN_SHAPES[:4]:
+        xst, zst = _plan_strides(B, T, G, ci, co, 'dense')
+        p = grouped_conv.dw_plan(B, T, G, ci, co, K, d, 2, xst, zst)
+        gx, gy = p['grid']
+        act = B * T * G * (ci + co) * 2
+        assert 4 * p['workspace'] <= 0.25 * act
+        assert gx * gy >= 100
+        assert p['smem'] <= grouped_conv.DW_SMEM_TARGET
+
+
 def test_refuses_other_devices_and_bad_padding():
     w = torch.zeros((5, 3, 12))
     with pytest.raises(ValueError, match='cuda or cpu'):

@@ -349,6 +349,69 @@ def test_nonfinite_step_is_skipped_and_counted():
                for k, v in model.state_dict().items())
 
 
+def _optax_chain(clip_norm, eps):
+    """The JAX Trainer's optimizer (nbasr_tpu/training/trainer.py:302-307)."""
+    import optax
+    return optax.apply_if_finite(optax.chain(
+        optax.clip_by_global_norm(clip_norm), optax.scale_by_adam(eps=eps),
+        optax.scale(-1.0)), max_consecutive_errors=1 << 30)
+
+
+@pytest.mark.parametrize('case', ['overflowing_norm', 'nan'])
+def test_update_skips_as_apply_if_finite(case):
+    """``Trainer._update`` against the optax chain on hand-set gradients.
+    A first ordinary step gives Adam momentum.  Then: finite gradients
+    whose f32 global norm overflows (four entries of 3e19, three of 1) go
+    through, clipped by 5/inf to zero, and Adam steps on its momentum; one
+    NaN gradient skips the step in both, nothing moves.  Params and the
+    moments within 1e-6 relative (the two Adam formulas round apart)."""
+    import optax
+    rng = np.random.RandomState(0)
+    init = [rng.randn(4).astype(np.float32), rng.randn(3).astype(np.float32)]
+    first = [rng.randn(4).astype(np.float32), rng.randn(3).astype(np.float32)]
+    second = [np.full(4, 3e19, np.float32), np.ones(3, np.float32)]
+    if case == 'nan':
+        second[1][1] = np.nan
+
+    class Params(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = torch.nn.Parameter(torch.tensor(init[0]))
+            self.b = torch.nn.Parameter(torch.tensor(init[1]))
+
+    from nbasr_torch.data.phonemes import PhonemeEncoder
+    trainer = Trainer((PhonemeEncoder(48), None, None, None), device='cpu')
+    trainer.init_state(Params(), seed=0)
+    tx = _optax_chain(trainer.clip_norm, trainer.adam_eps)
+    params = [jnp.asarray(v) for v in init]
+    state = tx.init(params)
+    for grads in (first, second):
+        for p, g in zip(trainer.model.parameters(), grads):
+            p.grad = torch.tensor(g)
+        trainer._update(LR)
+        updates, state = tx.update([jnp.asarray(g) for g in grads], state,
+                                   params)
+        params = optax.apply_updates(
+            params, jax.tree_util.tree_map(lambda u: u * LR, updates))
+    adam = state.inner_state[1]
+    assert int(state.total_notfinite) == (case == 'nan')
+    assert trainer.nonfinite_steps == (case == 'nan')
+    for i, p in enumerate(trainer.model.parameters()):
+        s = trainer.optimizer.state[p]
+        assert int(s['step']) == int(adam.count) == 2 - (case == 'nan')
+        for got, want in ((p, params[i]), (s['exp_avg'], adam.mu[i]),
+                          (s['exp_avg_sq'], adam.nu[i])):
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-12)
+    if case == 'nan':           # the first step's params, unchanged
+        after_first = [v - LR * np.sign(g) for v, g in zip(init, first)]
+        for p, want in zip(trainer.model.parameters(), after_first):
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6)
+    else:                       # moved by the momentum alone
+        assert all(not np.allclose(np.asarray(p), v - LR * np.sign(g))
+                   for p, v, g in zip(params, init, first))
+
+
 def test_save_load_round_trip(tmp_path):
     model = get_model(ARCH, use_rnn=True, device='cpu', **KW)
     loaders = get_dataloaders('synthetic:8', batch_size=4, curriculum=())
