@@ -44,9 +44,12 @@ prints no result):
    the forward (with and without its bias + clip-ReLU epilogue), dx and dW
    kernels against their plain versions at the four train-step widths
    (B=4), K/d 5/1, 5/2, 7/1, 7/2, on a dense tensor seen as a strided split
-   view and on a contiguous split tensor, f32 and bf16; then at B=32 with
-   conv5, checked and timed beside their bounds, plain versions and the
-   cuDNN call that computes the same function;
+   view and on a contiguous split tensor, f32 and bf16; the forward and dW
+   also at edge shapes (groups of 24 and of 1, T below the halo, B=1,
+   K=9, one group of 800) on a third, g-strided view, two calls bit-equal; NaN and inf
+   inputs through the forward; then at B=32 with conv5, checked and timed
+   beside their bounds, plain versions and the cuDNN call that computes
+   the same function, on CUDA events and as device time;
 10. grouped forward: the flagship's f32 logits with 'pallas' and
    'pallas_split' against 'fused' on the card, same weights, one B=4
    batch; 54 forward kernel launches per model forward, no plain call;
@@ -600,7 +603,7 @@ BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
                'nbasr_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
                'nbasr_convert')
 FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
-               'nbasr_layer_norm', 'nbasr_gconv_forward')
+               'nbasr_layer_norm', 'nbasr_gconv_fwd')
 GCONV_BWD_KERNELS = ('nbasr_gconv_dx', 'nbasr_gconv_dw')  # dw and dw_reduce
 
 
@@ -817,16 +820,30 @@ GCONV_CHECKED_AT = ('B=4 at (C, T) = (600, 300), (800, 300), (1000, 150), '
                     'a dense tensor as a strided split view and a contiguous '
                     'split tensor; forward without and with the bias + '
                     'clip-ReLU epilogue; f32 and bf16')
-# dW beyond the flagship's shapes, (B, T, G, ci, co, K, d): groups of 24
-# (G=50 at C=1200), of one channel, T shorter than the halo, B=1, T not a
-# multiple of the row tile, taps and outputs past the register tile
-GCONV_DW_EDGES = ((4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
-                  (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
-                  (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1))
-GCONV_DW_CHECKED_AT = (GCONV_CHECKED_AT + '; dW also at (B, T, G, ci, co, K, '
-                       f'd) = {", ".join(map(str, GCONV_DW_EDGES))} on both '
-                       'layouts and a [B, G, T, c] view (g strided); two '
-                       'calls bit-equal at every shape')
+# The forward and dW beyond the flagship's shapes, (B, T, G, ci, co, K, d):
+# groups of 24 (G=50 at C=1200), of one channel, T shorter than the halo,
+# B=1, T not a multiple of the row tile, taps and outputs past the register
+# tile, and one group of 800 (cell_groups=1 at C=800, d=2: more output
+# tiles than a forward block has threads for at once)
+GCONV_EDGES = ((4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
+               (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
+               (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1),
+               (2, 20, 1, 800, 800, 5, 2))
+GCONV_EDGES_CHECKED_AT = (
+    f'; also at (B, T, G, ci, co, K, d) = {", ".join(map(str, GCONV_EDGES))} '
+    'on both layouts and a [B, G, T, c] view (g strided); two calls '
+    'bit-equal at every shape')
+GCONV_DW_CHECKED_AT = GCONV_CHECKED_AT + GCONV_EDGES_CHECKED_AT
+GCONV_FWD_CHECKED_AT = (
+    GCONV_CHECKED_AT + GCONV_EDGES_CHECKED_AT + ', both epilogues; NaN, '
+    '+inf and -inf inputs (B=4, C=600, T=300, K/d 5/1 and 7/2, both '
+    'layouts, both epilogues) give NaN and +-inf where the plain version '
+    'does')
+# The non-finite check at (B, C, T) = NONFINITE_SHAPE: (b, t, channel,
+# value) planted in x, in three utterances, so no window holds two of them.
+NONFINITE_SHAPE = (4, 600, 300)
+NONFINITE = ((1, 10, 7, float('nan')), (2, 100, 250, float('inf')),
+             (3, 200, 433, float('-inf')))
 # The flagship's logits with the grouped conv kernels against the fused cell
 # kernels, both f32 on the card, as a share of max|fused|: the two sum each
 # conv node in another order and round at other points (the fused cell in
@@ -889,8 +906,9 @@ def _gconv_compare(calls, plain, errors, label):
     the error within TOL (forward) or GRAD_TOL (dx, dW) of max|plain|."""
     for name in calls:
         got = calls[name]().float().clone()
-        if name == 'dw':        # no atomics, every sum in a fixed order
-            assert torch.equal(calls[name]().float(), got), (label, 'dW bits')
+        if name != 'dx':        # one owner per sum, each in a fixed order
+            assert torch.equal(calls[name]().float(), got), (label, name,
+                                                             'bits')
         want = plain[name]().float()
         torch.cuda.synchronize()
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
@@ -934,36 +952,99 @@ def _library_calls(x, dz, w, lpad, d):
                 xp, wt.shape, zt, dilation=d, groups=GROUPS)}
 
 
-def check_dw_edges(device, errors):
-    """The dW kernel against its plain version, and two calls bit-equal,
-    at GCONV_DW_EDGES on both layouts and on a view whose groups are not
-    contiguous ([B, G, T, c] memory: staged element by element), in f32
-    and bf16."""
-    for Bn, T, G, ci, co, K, d in GCONV_DW_EDGES:
+def _layout_view(t, G, layout):
+    """The [B, c, T, G] view of a dense [B, T, G*c] tensor in ``layout``:
+    the tensor itself, a contiguous split copy, or a copy in [B, G, T, c]
+    memory (g not contiguous: staged element by element)."""
+    if layout == 'dense':
+        return to_split(t, G)
+    if layout == 'split':
+        return to_split(t, G).contiguous()
+    Bn, T, C = t.shape
+    return t.reshape(Bn, T, G, C // G).permute(0, 2, 1, 3).contiguous(
+        ).permute(0, 3, 2, 1)
+
+
+def check_edges(device, errors):
+    """The forward (both epilogues) and dW kernels against their plain
+    versions, and two calls bit-equal, at GCONV_EDGES on both layouts and
+    on a view whose groups are not contiguous, in f32 and bf16."""
+    for Bn, T, G, ci, co, K, d in GCONV_EDGES:
         lpad, _ = conv_padding(K, d, 1)
         g = torch.Generator().manual_seed(SEED + Bn + T + ci)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((Bn, T, G * ci), generator=g).to(device, dtype)
             dz = torch.randn((Bn, T, G * co), generator=g).to(device, dtype)
-            w = torch.empty((K, ci, G * co), device=device, dtype=dtype)
+            w = (torch.randn((K, ci, G * co), generator=g) / (K * ci) ** 0.5
+                 ).to(device, dtype)
+            b = (0.1 * torch.randn((G * co,), generator=g)).to(device, dtype)
             for layout in GCONV_LAYOUTS + ('strided',):
-                xs, zs = to_split(x, G), to_split(dz, G)
-                if layout == 'split':
-                    xs, zs = xs.contiguous(), zs.contiguous()
-                elif layout == 'strided':   # g not contiguous: by element
-                    xs = x.reshape(Bn, T, G, ci).permute(0, 2, 1, 3).contiguous(
-                        ).permute(0, 3, 2, 1)
-                    zs = dz.reshape(Bn, T, G, co).permute(0, 2, 1, 3).contiguous(
-                        ).permute(0, 3, 2, 1)
-                calls = {'dw': lambda: grouped_conv._launch_dw(xs, zs, w, lpad, d)}
-                plain = {'dw': lambda: grouped_conv.conv_dw_reference(
-                    xs, zs, w, lpad, d)}
+                xs, zs = _layout_view(x, G, layout), _layout_view(dz, G, layout)
+                y = _layout_view(torch.empty_like(dz), G, layout)
+                yp = y.clone()
+                calls = {'forward': lambda: grouped_conv._launch_forward(
+                             xs, w, None, lpad, d, y),
+                         'forward+bias': lambda: grouped_conv._launch_forward(
+                             xs, w, b, lpad, d, y),
+                         'dw': lambda: grouped_conv._launch_dw(xs, zs, w, lpad, d)}
+                plain = {'forward': lambda: grouped_conv.conv_forward_reference(
+                             xs, w, None, lpad, d, yp),
+                         'forward+bias': lambda: grouped_conv.conv_forward_reference(
+                             xs, w, b, lpad, d, yp),
+                         'dw': lambda: grouped_conv.conv_dw_reference(
+                             xs, zs, w, lpad, d)}
                 _gconv_compare(calls, plain, errors,
                                (Bn, T, G, ci, co, K, d, layout, dtype))
-    e = errors['dw']
-    print(f'grouped conv dw       kernel vs plain and bit-equal across two '
-          f'calls at {len(GCONV_DW_EDGES)} edge shapes too: f32 share '
-          f'{e[torch.float32][1]:.2e}, bf16 {e[torch.bfloat16][1]:.2e}')
+    for k in ('forward', 'dw'):
+        e = errors[k]
+        print(f'grouped conv {k:8s} kernel vs plain and bit-equal across two '
+              f'calls at {len(GCONV_EDGES)} edge shapes too: f32 share '
+              f'{e[torch.float32][1]:.2e}, bf16 {e[torch.bfloat16][1]:.2e}')
+
+
+def check_forward_nonfinite(device):
+    """NaN, +inf and -inf planted in x (NONFINITE): the forward kernel's
+    outputs are NaN, +inf and -inf exactly where the plain version's are
+    (run on the CPU, whose direct convolution puts them only where a
+    window holds one), its finite outputs within TOL; both layouts, both
+    epilogues, f32 and bf16.  Returns how many outputs were NaN and inf."""
+    Bn, C, T = NONFINITE_SHAPE
+    counts = {'nan': 0, 'inf': 0}
+    for K, d in ((5, 1), (7, 2)):
+        lpad, _ = conv_padding(K, d, 1)
+        g = torch.Generator().manual_seed(SEED + 13 * K + d)
+        x, _, w, b = _gconv_operands(C, T, Bn, K, d, torch.float32, 'cpu', g)
+        for bi, t, c, v in NONFINITE:
+            x[bi, t, c] = v
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in GCONV_LAYOUTS:
+                for bias in (None, b):
+                    xc, wc = x.to(dtype), w.to(dtype)
+                    bc = None if bias is None else bias.to(dtype)
+                    want = grouped_conv.conv_forward_reference(
+                        to_split(xc, GROUPS), wc, bc, lpad, d,
+                        torch.empty((Bn, C // GROUPS, T, GROUPS),
+                                    dtype=dtype)).float()
+                    xs = _layout_view(xc.to(device), GROUPS, layout)
+                    y = _layout_view(torch.empty_like(xc, device=device),
+                                     GROUPS, layout)
+                    got = grouped_conv._launch_forward(
+                        xs, wc.to(device), None if bc is None else bc.to(device),
+                        lpad, d, y).float().cpu()
+                    label = (K, d, dtype, layout, bias is not None)
+                    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                        assert torch.equal(test(got), test(want)), (label, test)
+                    finite = torch.isfinite(want)
+                    err = float((got[finite] - want[finite]).abs().max())
+                    scale = float(want[finite].abs().max())
+                    assert err <= TOL[dtype] * scale, (label, err, scale)
+                    counts['nan'] += int(torch.isnan(want).sum())
+                    counts['inf'] += int(torch.isinf(want).sum())
+    assert counts['nan'] > 0 and counts['inf'] > 0, counts
+    print(f'grouped conv forward  NaN/inf inputs: outputs NaN and +-inf '
+          f'where the plain version\'s are ({counts["nan"]} NaN, '
+          f'{counts["inf"]} inf over 16 runs), finite ones within TOL')
+    return counts
 
 
 # Cycles of torch.cuda._sleep before a queued timing (~10 ms on an H100):
@@ -971,33 +1052,40 @@ def check_dw_edges(device, errors):
 QUEUE_SPIN_CYCLES = 20_000_000
 
 
-def device_ms(kernel, library, runs=20):
-    """(kernel ms, library ms): device time per call of ``runs`` calls of
-    each, back to back, CUDA events around them.  The calls are queued
-    behind a spin kernel, so the card runs them one after another without
-    waiting for the host; unlike ``time_ms`` this leaves out the wrappers'
-    host time, which a lone call on an idle card waits for."""
-    out = []
-    for fn in (kernel, library):
-        fn()
-        torch.cuda.synchronize()
+def device_ms(fn, runs=20):
+    """Device time per call of ``runs`` calls of ``fn``, back to back, CUDA
+    events around them.  The calls are queued behind a spin kernel, so the
+    card runs them one after another without waiting for the host; unlike
+    ``time_ms`` this leaves out the wrappers' host time, which a lone call
+    on an idle card waits for.  Where the card finished before the host had
+    queued every call, the run is repeated behind a spin four times as
+    long."""
+    fn()
+    torch.cuda.synchronize()
+    spin = QUEUE_SPIN_CYCLES
+    while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(runs):
             fn()
         end.record()
-        assert not end.query(), 'the host did not queue the run in time'
+        queued = not end.query()
         end.synchronize()
-        out.append(start.elapsed_time(end) / runs)
-    return tuple(out)
+        if queued:
+            return start.elapsed_time(end) / runs
+        spin *= 4
+        assert spin <= 64 * QUEUE_SPIN_CYCLES, \
+            'the host did not queue the run in time'
+
 
 
 @torch.no_grad()
 def check_gconv_kernels(device):
     """Phase 9.  Returns ({kernel: {dtype: [max abs err, max share]}},
-    timing rows at the train step's B=32)."""
+    timing rows at the train step's B=32, the non-finite check's
+    counts)."""
     errors = {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
               for k in GCONV_KERNELS}
     for C, T in TRAIN_WIDTHS:
@@ -1019,7 +1107,8 @@ def check_gconv_kernels(device):
               f'layouts: f32 max_abs_err {e[torch.float32][0]:.3e} '
               f'(share {e[torch.float32][1]:.2e}), bf16 '
               f'{e[torch.bfloat16][0]:.3e} (share {e[torch.bfloat16][1]:.2e})')
-    check_dw_edges(device, errors)
+    check_edges(device, errors)
+    nonfinite = check_forward_nonfinite(device)
 
     rows = []
     K, d = 5, 1                         # the flagship's conv5 nodes
@@ -1050,9 +1139,9 @@ def check_gconv_kernels(device):
                                library_ms=time_ms(library[key]),
                                bound_ms=bound_ms, bound_by=bound_by)
                     note = ''
-                    if key == 'dw' and dtype == torch.bfloat16:
-                        row['device_ms'], row['library_device_ms'] = \
-                            device_ms(calls[name], library[key])
+                    if dtype == torch.bfloat16:
+                        row['device_ms'] = device_ms(calls[name])
+                        row['library_device_ms'] = device_ms(library[key])
                         note = (f'; device time {row["device_ms"]:.4f}, '
                                   f'cuDNN {row["library_device_ms"]:.4f}')
                     rows.append(row)
@@ -1062,15 +1151,20 @@ def check_gconv_kernels(device):
                           f'cuDNN {row["library_ms"]:.4f}  bound '
                           f'{bound_ms:.4f} ({bound_by}){note}')
     keys = ('ms', 'library_ms', 'device_ms', 'library_device_ms', 'bound_ms')
-    for layout in GCONV_LAYOUTS:
-        step = gconv_step_sums(rows, 'dw', layout, keys)
-        print(f'grouped conv dw per train step, {layout}: the 9/12/15/18 bf16 '
-              f'nodes of the four widths: kernel {step["ms"]:.3f} ms, cuDNN '
-              f'{step["library_ms"]:.3f} ms (one call each, CUDA events); '
-              f'device time {step["device_ms"]:.3f} ms, cuDNN '
-              f'{step["library_device_ms"]:.3f} ms (queued runs); bound '
-              f'{step["bound_ms"]:.4f} ms')
-    return errors, rows
+    for name in GCONV_KERNELS:
+        for layout in GCONV_LAYOUTS:
+            step = gconv_step_sums(rows, name, layout, keys)
+            print(f'grouped conv {name} per train step, {layout}: the '
+                  f'9/12/15/18 bf16 nodes of the four widths: kernel '
+                  f'{step["ms"]:.3f} ms, cuDNN {step["library_ms"]:.3f} ms '
+                  f'(one call each, CUDA events); device time '
+                  f'{step["device_ms"]:.3f} ms, cuDNN '
+                  f'{step["library_device_ms"]:.3f} ms (queued runs); bound '
+                  f'{step["bound_ms"]:.4f} ms; events minus device time '
+                  f'{1e3 * (step["ms"] - step["device_ms"]) / 54:.1f} us a '
+                  f'call, cuDNN '
+                  f'{1e3 * (step["library_ms"] - step["library_device_ms"]) / 54:.1f}')
+    return errors, rows, nonfinite
 
 
 def _flagship_features(Bn, frames, seed):
@@ -1515,7 +1609,7 @@ def gconv_step_sums(rows, name, layout, keys):
             for k in keys}
 
 
-def gconv_entry(name, errors, rows, train, logits, grads):
+def gconv_entry(name, errors, rows, train, logits, grads, nonfinite):
     """The kernels line's entry for one grouped conv kernel: times summed
     over the 54 bf16 conv5 nodes of one flagship train step, the 'pallas'
     layout (dense) as ms and the 'pallas_split' layout as split_*."""
@@ -1544,23 +1638,23 @@ def gconv_entry(name, errors, rows, train, logits, grads):
                     "'pallas' layout (dense [B, T, C]), split_* in the "
                     "'pallas_split' layout; library_ms one cuDNN call per "
                     'node on inputs in its own layout',
-        checked_at=GCONV_DW_CHECKED_AT if name == 'dw' else GCONV_CHECKED_AT,
-        per_width=[r for r in rows if r['kernel'] == name])
-    if name == 'dw':
-        entry.update(
-            device_ms=step('dense', 'device_ms'),
-            library_device_ms=step('dense', 'library_device_ms'),
-            split_device_ms=step('split', 'device_ms'),
-            split_library_device_ms=step('split', 'library_device_ms'),
-            device_times_cover='the same nodes, device time per call of 20 '
-                               'calls queued back to back behind a spin '
-                               "kernel (no wrapper host time), the kernel's "
-                               "and cuDNN's alike")
+        checked_at={'forward': GCONV_FWD_CHECKED_AT,
+                    'dw': GCONV_DW_CHECKED_AT}.get(name, GCONV_CHECKED_AT),
+        per_width=[r for r in rows if r['kernel'] == name],
+        device_ms=step('dense', 'device_ms'),
+        library_device_ms=step('dense', 'library_device_ms'),
+        split_device_ms=step('split', 'device_ms'),
+        split_library_device_ms=step('split', 'library_device_ms'),
+        device_times_cover='the same nodes, device time per call of 20 '
+                           'calls queued back to back behind a spin '
+                           "kernel (no wrapper host time), the kernel's "
+                           "and cuDNN's alike")
     if name == 'forward':
         entry['launches_per_model_forward'] = {
             impl: n for impl, (_, n) in logits.items()}
         entry['logits_vs_fused_share'] = {
             impl: share for impl, (share, _) in logits.items()}
+        entry['nonfinite_outputs_checked'] = nonfinite
     else:
         entry['step_gradient_worst_share'] = grads
     return entry
@@ -1602,7 +1696,8 @@ def main():
     fwd_train = fused_launches['fused_forward']
     bwd_train = fused_launches['fused_backward']
     train_grads = timed('phase 8', check_train_cpu, device)
-    gconv_errors, gconv_rows = timed('phase 9', check_gconv_kernels, device)
+    gconv_errors, gconv_rows, nonfinite = timed('phase 9', check_gconv_kernels,
+                                                device)
     grouped_logits = timed('phase 10', check_grouped_forward, device)
     grouped_train = {impl: timed(f'phase 11 {impl}', check_train_step, device,
                                  impl) for impl in ('pallas', 'pallas_split')}
@@ -1666,7 +1761,7 @@ def main():
         per_width=train_rows),
     ]
     kernels += [gconv_entry(name, gconv_errors, gconv_rows, grouped_train,
-                            grouped_logits, grouped_grads)
+                            grouped_logits, grouped_grads, nonfinite)
                 for name in GCONV_KERNELS]
     all_train = {'auto': (fused_launches, train), **grouped_train}
     kernels += [ctc_entry(name, ctc_errors, ctc_rows, ctc_readings, all_train,

@@ -33,10 +33,55 @@
 // per element moved, under the card's rate even without the tensor cores.
 //
 // Design:
-//   forward, dx (simple first): one thread per (b, t, g), g fastest,
-//     holding up to kOut outputs of its group (co for the forward, ci for
-//     dx) in registers; the K*ci (K*co) activations of its window and the
-//     weights are read through L1, where the threads of a warp share them.
+//   forward: K*ci = 30-60 FMAs per output, so on the CUDA cores alone (67
+//     TFLOP/s f32) the operations take 0.75-1.5 times the byte time (0.357
+//     against 0.321 ms for a flagship bf16 train step's 54 nodes), if the
+//     FMAs keep the issue slots.  The launch plan (fwd_plan in
+//     nbasr_torch/ops/grouped_conv.py, checked again here) cuts the output
+//     into slabs of gs groups and units of `rows` time steps of one
+//     utterance; a block walks `span` units of one slab:
+//     - staging: each unit's x tile, with the (K-1)*d halo, zero outside
+//       [0, T) of its own utterance (never the next row of the batch), goes
+//       to shared memory by the dW's loader (stage_tile): cp.async along
+//       whichever axis has stride 1, 16-byte vectors of the dense slab's
+//       (g, c) run per time step, 8-byte vectors of the split layout's g
+//       run, any other view element by element; the next unit's tile is in
+//       flight while this one is summed.  The slab's weights are converted
+//       to f32 once per block into [K][cc][gs][wstride] (chunks of cc input
+//       channels where a group's weights do not fit at once), their loads
+//       batched so that L2's latency is paid per tap, not per element;
+//     - register blocking: a thread owns RT = 7 times of one dilation phase
+//       (t, t+d, ...) by OT outputs of one group, OT instantiated for the
+//       search space's co (6, 8, 10; co = 12 and larger take further output
+//       tiles, which the block's threads walk in passes where they are more
+//       than it holds at once), so no FMA slot is dead on the flagship.  Per input channel
+//       it reads the RT+KT-1 x values of its window once and reuses them
+//       across the taps, with the K*OT weights read as float2: K*RT*OT FMAs
+//       (210-350) for 26-36 shared loads (11 of x, 15-25 float2 of
+//       weights at K=5), where one thread per output row made one load
+//       per FMA;
+//     - warp mapping: g fastest, then the time tiles, then the output
+//       tiles.  Lanes on neighbouring groups read neighbouring weight rows
+//       (a row is an odd number of float2, so a half-warp's 8-byte reads
+//       fall in distinct banks) and neighbouring x elements; lanes on the
+//       same group read one address (a broadcast).  A warp's time tiles lie
+//       RT*d rows apart: with RT odd they fall on other banks (RT = 8 put
+//       them all on the same ones, up to 4-way conflicts); the plan counts
+//       the conflicts its slab leaves (fwd_candidates; resident blocks from
+//       the CUDA occupancy calculator, nbasr_grouped_conv_fwd_blocks_per_sm);
+//     - the output tile goes back through shared memory (over the x tile,
+//       or a tile of its own where the output tiles take several passes)
+//       and out in the widest vectors along the contiguous axis (the dense
+//       (g, o) run per time step, the split g run per (o, t)), so both
+//       layouts' stores are coalesced; the epilogue (the sum starts at the
+//       bias; clip by comparisons, so NaN passes as in jnp.clip) is applied
+//       in f32 before the one rounding;
+//     - each output has one owner and a fixed order of summation, so two
+//       calls give the same bits.
+//   dx (simple first): one thread per (b, t, g), g fastest, holding up to
+//     kOut input channels of its group in registers; the K*co values of dz
+//     in its window and the weights are read through L1, where the threads
+//     of a warp share them.
 //   dW: per group a product [K*ci, rows] x [rows, co] over the B*T rows, so
 //     it is bound by how often each activation is read and by how many
 //     partial sums go back to memory.  The launch plan (dw_plan in
@@ -63,7 +108,8 @@
 //       same bits.
 //     Any ci, co, K, d, lpad, B, T run: taps past the instantiated tile
 //     (KT 7, else chunks of 5) and outputs past OT (6, 8, 10, 12) take
-//     further items of the same kernel, whose overhanging sums are dropped.
+//     further items of the same kernel, whose overhanging sums are dropped
+//     (the forward likewise, with its own tiles).
 // Each entry point returns the first cudaError_t of its launches.
 
 #include <cuda_bf16.h>
@@ -75,7 +121,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kOut = 16;  // outputs a thread holds at once (search space: <= 12)
+constexpr int kOut = 16;  // dx: input channels a thread holds at once
 
 struct View {
   long long b, c, t, g;
@@ -100,50 +146,6 @@ __device__ __forceinline__ bool thread_btg(long long items, int t_len, int group
   *t = static_cast<int>(bt % t_len);
   *b = bt / t_len;
   return true;
-}
-
-template <typename T, bool kBiasRelu>
-__global__ void __launch_bounds__(kThreads)
-    nbasr_gconv_forward(const T* __restrict__ x, View xv, const T* __restrict__ w,
-                        const T* __restrict__ bias, T* __restrict__ y, View yv, long long items,
-                        int t_len, int groups, int ci, int co, int K, int d, int lpad) {
-  long long b;
-  int t, g;
-  if (!thread_btg(items, t_len, groups, &b, &t, &g)) return;
-  const long long c_out = static_cast<long long>(groups) * co;
-  const T* xb = x + b * xv.b + g * xv.g;
-  T* yb = y + b * yv.b + t * yv.t + g * yv.g;
-  const T* wg = w + static_cast<long long>(g) * co;
-  for (int o0 = 0; o0 < co; o0 += kOut) {
-    float acc[kOut];
-#pragma unroll
-    for (int j = 0; j < kOut; ++j)
-      acc[j] = (kBiasRelu && o0 + j < co) ? load(bias, static_cast<long long>(g) * co + o0 + j)
-                                          : 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int ts = t + k * d - lpad;
-      if (ts < 0 || ts >= t_len) continue;
-      const T* xs = xb + ts * xv.t;
-      for (int c = 0; c < ci; ++c) {
-        const float xval = load(xs, c * xv.c);
-        const T* wk = wg + (static_cast<long long>(k) * ci + c) * c_out + o0;
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          if (o0 + j < co) acc[j] += xval * load(wk, j);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      if (o0 + j < co) {
-        float v = acc[j];
-        if (kBiasRelu) {
-          v = v < 0.0f ? 0.0f : v;
-          v = v > 20.0f ? 20.0f : v;
-        }
-        store(yb, (o0 + j) * yv.c, v);
-      }
-    }
-  }
 }
 
 template <typename T>
@@ -240,6 +242,48 @@ __device__ __forceinline__ void zero_fill(void* dst, int vec) {
     *static_cast<unsigned short*>(dst) = 0;
 }
 
+// Calls f(soff, goff, trow, v) for the vectors of a tile of nrows times
+// that this thread copies: run (mode 0: one per (channel, time), mode 1:
+// one per time) at shared offset soff and channel offset goff in device
+// memory, time row trow, vector v of the run.  Consecutive threads take
+// consecutive vectors of a run and the runs after it; a thread steps over
+// the runs with no division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_each_vector(const Stage& st, int nrows, int gs, int vpr,
+                                                F&& f) {
+  const int runs = st.mode == 0 ? st.nch * nrows : nrows;
+  const auto offsets = [&](int c, int trow, int* soff, long long* goff) {
+    *soff = st.mode == 0 ? (trow * st.nch + c) * gs : trow * gs * st.nch;
+    *goff = st.mode == 0 ? c * st.v.c : 0;
+  };
+  int soff;
+  long long goff;
+  if (vpr <= static_cast<int>(blockDim.x)) {
+    const int per = blockDim.x / vpr;  // runs in flight at a time
+    const int first = threadIdx.x / vpr;
+    if (first >= per) return;
+    const int v = threadIdx.x - first * vpr;
+    int c = st.mode == 0 ? first / nrows : 0;
+    int trow = first - c * nrows;
+    for (int r = first; r < runs; r += per) {
+      offsets(c, trow, &soff, &goff);
+      f(soff, goff, trow, v);
+      trow += per;
+      while (st.mode == 0 && trow >= nrows) {
+        trow -= nrows;
+        ++c;
+      }
+    }
+  } else {  // runs longer than the block: all threads on one run at a time
+    for (int r = 0; r < runs; ++r) {
+      const int c = st.mode == 0 ? r / nrows : 0;
+      const int trow = r - c * nrows;
+      offsets(c, trow, &soff, &goff);
+      for (int v = threadIdx.x; v < vpr; v += blockDim.x) f(soff, goff, trow, v);
+    }
+  }
+}
+
 // Copies the times [ts0, ts0 + nrows) of `geff` groups of one operand (src
 // at its (b, c = 0, t = 0, g0)) into `sm`, laid out for its mode with `gs`
 // groups; a time outside [0, T) of this utterance reads zero.  Vectors of
@@ -249,38 +293,45 @@ template <typename T>
 __device__ __noinline__ void stage_tile(T* sm, const T* src, Stage st, int ts0, int nrows,
                                         int gs, int geff, int t_len) {
   // 32-bit index arithmetic: a tile fits shared memory
-  const int runs = st.mode == 0 ? st.nch * nrows : nrows;
   const int run_len = st.mode == 0 ? geff : geff * st.nch;
   const int per_vec = st.vec / static_cast<int>(sizeof(T));
-  const int vpr = run_len / per_vec;
   const long long step = st.mode == 0 ? st.v.g : 1;  // element stride within a run
-  for (int i = threadIdx.x; i < runs * vpr; i += blockDim.x) {
-    const int r = i / vpr;
-    const int v = i - r * vpr;
-    int trow, soff;
-    long long goff;
-    if (st.mode == 0) {
-      const int c = r / nrows;
-      trow = r - c * nrows;
-      soff = (trow * st.nch + c) * gs;
-      goff = c * st.v.c;
-    } else {
-      trow = r;
-      soff = trow * gs * st.nch;
-      goff = 0;
-    }
+  for_each_vector(st, nrows, gs, run_len / per_vec, [&](int soff, long long goff, int trow, int v) {
     const int ts = ts0 + trow;
     T* dst = sm + soff + v * per_vec;
     if (ts < 0 || ts >= t_len) {
       zero_fill(dst, st.vec);
-      continue;
+      return;
     }
     const T* s = src + goff + ts * st.v.t + v * per_vec * step;
     if (st.vec >= 4)
       cp_async(dst, s, st.vec);
     else
       *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(s);
-  }
+  });
+}
+
+// The reverse of stage_tile: copies the times [0, nrows) of `geff` groups of
+// a tile laid out for st's mode from `sm` to dst (the operand at its (b,
+// c = 0, t0, g0)), in vectors of st.vec bytes.
+template <typename T>
+__device__ __noinline__ void store_tile(T* dst, const T* sm, Stage st, int nrows, int gs,
+                                        int geff) {
+  const int run_len = st.mode == 0 ? geff : geff * st.nch;
+  const int per_vec = st.vec / static_cast<int>(sizeof(T));
+  const long long step = st.mode == 0 ? st.v.g : 1;
+  for_each_vector(st, nrows, gs, run_len / per_vec, [&](int soff, long long goff, int trow, int v) {
+    const T* s = sm + soff + v * per_vec;
+    T* g = dst + goff + trow * st.v.t + v * per_vec * step;
+    if (st.vec == 16)
+      *reinterpret_cast<uint4*>(g) = *reinterpret_cast<const uint4*>(s);
+    else if (st.vec == 8)
+      *reinterpret_cast<uint2*>(g) = *reinterpret_cast<const uint2*>(s);
+    else if (st.vec == 4)
+      *reinterpret_cast<unsigned*>(g) = *reinterpret_cast<const unsigned*>(s);
+    else
+      *reinterpret_cast<unsigned short*>(g) = *reinterpret_cast<const unsigned short*>(s);
+  });
 }
 
 // acc[a][b] += sum over the tile's rows j = j0, j0 + lanes, ... < rt of
@@ -451,6 +502,206 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: staged x tile and weights, register tile along time and output
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdRt = 7;  // times a thread holds (odd: a warp's time tiles on other banks)
+constexpr int kFwdPlanInts = 21;
+
+// How nbasr_grouped_conv_forward cuts the work, in the order of
+// nbasr_torch/ops/grouped_conv.py FWD_PLAN_FIELDS (fwd_plan says what each
+// is).
+struct FwdPlan {
+  int gs, slabs, rows, tiles, span, rt, kt, ot, nk, no, wstride, cc, x_mode, x_vec, y_mode, y_vec,
+      x_buf, y_buf, w_buf, smem, threads;
+};
+
+// wsm[((k*cc + c)*gs + g)*wstride + o] = w[k, c0 + c, (g0 + g)*co + o] in
+// f32 for the cn channels from c0; one division per (g, o), and per tap
+// the loads of up to 8 channels in flight before their stores (the weights
+// come from L2, whose latency a load-store loop would pay per element).
+template <typename T>
+__device__ __forceinline__ void stage_weights(float* wsm, const T* __restrict__ w, int c0, int cn,
+                                              const FwdPlan& p, int geff, int g0, int ci, int co,
+                                              int K, long long c_out) {
+  constexpr int kBatch = 8;
+  const T* const wg = w + static_cast<long long>(c0) * c_out + static_cast<long long>(g0) * co;
+  const int tap = p.cc * p.gs * p.wstride;
+  const int chan = p.gs * p.wstride;
+  for (int j = threadIdx.x; j < geff * co; j += blockDim.x) {
+    const int g = j / co;
+    float* const dst = wsm + g * p.wstride + (j - g * co);
+    for (int k = 0; k < K; ++k) {
+      for (int cb = 0; cb < cn; cb += kBatch) {
+        const T* const src = wg + (static_cast<long long>(k) * ci + cb) * c_out + j;
+        float v[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) v[i] = cb + i < cn ? to_f(src[i * c_out]) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          if (cb + i < cn) dst[k * tap + (cb + i) * chan] = v[i];
+      }
+    }
+  }
+}
+
+// acc[j][o] += sum over the cn staged channels c and the K taps k of
+// x[c, row r0 + d*(j + k)] * w[k, c, o0 + o] for this thread's group gl:
+// per channel and chunk of KT taps, the RT + KT - 1 window values are read
+// once, the weights as float2.
+template <typename T, int KT, int RT, int OT>
+__device__ __forceinline__ void sum_channels(float (&acc)[RT][OT], const T* tile, const float* wsm,
+                                             int c0, int cn, SmemView sx, int gl, int r0,
+                                             int xstep, int wtap, int gs, int wstride, int o0,
+                                             int K) {
+  for (int c = 0; c < cn; ++c) {
+    const T* const xc = tile + (c0 + c) * sx.c + gl * sx.g + r0 * sx.t;
+    const float* const wc = wsm + (c * gs + gl) * wstride + o0;
+    for (int k0 = 0; k0 < K; k0 += KT) {
+      const int kn = min(KT, K - k0);
+      const T* const xk = xc + k0 * xstep;
+      float xw[RT + KT - 1];
+#pragma unroll
+      for (int m = 0; m < RT + KT - 1; ++m) xw[m] = m < RT + kn - 1 ? to_f(xk[m * xstep]) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        if (k >= kn) break;
+        const float* const wk = wc + (k0 + k) * wtap;
+        float wv[OT];
+#pragma unroll
+        for (int o = 0; o < OT; o += 2) {
+          const float2 v = *reinterpret_cast<const float2*>(wk + o);
+          wv[o] = v.x;
+          wv[o + 1] = v.y;
+        }
+#pragma unroll
+        for (int j = 0; j < RT; ++j)
+#pragma unroll
+          for (int o = 0; o < OT; ++o) acc[j][o] = fmaf(xw[j + k], wv[o], acc[j][o]);
+      }
+    }
+  }
+}
+
+// grid slabs * ceil(B * tiles / span), p.threads threads.  Block (slab, q)
+// owns the groups [g0, g0 + gs) and walks the units u = q*span, ... (unit
+// u: the times [t0, t0 + rows) of utterance b = u / tiles); with more than
+// one unit the next unit's x tile is in flight while this one is summed,
+// and the weights are staged once where one chunk holds every input
+// channel.  Thread (gl, tt, oq), gl fastest, owns the outputs [o0, o0 +
+// OT) of group g0 + gl at the RT times t0 + r0 + d*j, r0 = tt%d +
+// d*RT*(tt/d): one dilation phase, so tap k of time j reads window element
+// j + k.  The block holds ow = threads / (gs * rows/RT) output tiles at a
+// time, and its threads walk the no tiles in passes of ow; with more than
+// one pass the output goes to a tile of its own (y_buf elements), else it
+// takes the x tile's place.  Taps come in chunks of KT (a last, shorter
+// chunk skips its missing taps), input channels in chunks of cc whose
+// weights are staged in turn.  Outputs past co and times past T are summed
+// and dropped.
+template <typename T, int KT, int RT, int OT, bool kBiasRelu>
+__global__ void __launch_bounds__(kFwdThreads)
+    nbasr_gconv_fwd(const T* __restrict__ x, Stage xs, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ y, Stage ys, FwdPlan p, int batch,
+                    int t_len, int groups, int ci, int co, int K, int d, int lpad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the x tiles (two where a block walks more than one unit), the output
+  // tile where the threads make more than one pass, then the weights
+  T* const tile0 = reinterpret_cast<T*>(smem_raw);
+  T* const tile1 = tile0 + (p.span > 1 ? p.x_buf : 0);
+  T* const out_tile = tile0 + (p.span > 1 ? 2 : 1) * p.x_buf;
+  float* const wsm = reinterpret_cast<float*>(out_tile + p.y_buf);
+  const int slab = blockIdx.x % p.slabs;
+  const int u0 = (blockIdx.x / p.slabs) * p.span;
+  const int u1 = min(batch * p.tiles, u0 + p.span);
+  const int g0 = slab * p.gs;
+  const int geff = min(p.gs, groups - g0);
+  const int halo = (K - 1) * d;
+  const T* const xg = x + g0 * xs.v.g;
+  {
+    const int b = u0 / p.tiles;
+    stage_tile(tile0, xg + b * xs.v.b, xs, (u0 - b * p.tiles) * p.rows - lpad, p.rows + halo,
+               p.gs, geff, t_len);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  const int ntt = p.rows / RT;
+  const int ow = p.threads / (p.gs * ntt);  // output tiles a pass holds
+  const int gl = threadIdx.x % p.gs;
+  const int rest = threadIdx.x / p.gs;
+  const int tt = rest % ntt;
+  const int oq = rest / ntt;
+  const int r0 = tt % d + d * RT * (tt / d);
+  const bool live = gl < geff;
+  const long long c_out = static_cast<long long>(groups) * co;
+  const SmemView sx = smem_view(xs.mode, ci, p.gs);
+  const SmemView sy = smem_view(ys.mode, co, p.gs);
+  const int xstep = d * sx.t;  // one window element
+  const int wtap = p.cc * p.gs * p.wstride;
+  const bool restage = p.cc < ci;  // the weights of a chunk at a time
+
+  for (int u = u0; u < u1; ++u) {
+    const bool odd = (u - u0) & 1;
+    T* const tile = odd ? tile1 : tile0;
+    T* const yt = p.y_buf ? out_tile : tile;
+    const int b = u / p.tiles;
+    const int t0 = (u - b * p.tiles) * p.rows;
+    if (u + 1 < u1) {  // the next unit into the other tile
+      const int bn = (u + 1) / p.tiles;
+      stage_tile(odd ? tile0 : tile1, xg + bn * xs.v.b, xs, (u + 1 - bn * p.tiles) * p.rows - lpad,
+                 p.rows + halo, p.gs, geff, t_len);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int q0 = 0; q0 < p.no; q0 += ow) {
+      const int o0 = (q0 + oq) * OT;
+      const bool on = live && q0 + oq < p.no;
+      float acc[RT][OT];
+#pragma unroll
+      for (int o = 0; o < OT; ++o) {
+        const float b0 = kBiasRelu && on && o0 + o < co
+                             ? to_f(bias[static_cast<long long>(g0 + gl) * co + o0 + o])
+                             : 0.0f;
+#pragma unroll
+        for (int j = 0; j < RT; ++j) acc[j][o] = b0;
+      }
+      for (int c0 = 0; c0 < ci; c0 += p.cc) {
+        const int cn = min(p.cc, ci - c0);
+        if (restage || (u == u0 && q0 == 0)) {
+          if (c0 > 0 || q0 > 0) __syncthreads();  // the chunk before is no longer read
+          stage_weights(wsm, w, c0, cn, p, geff, g0, ci, co, K, c_out);
+        }
+        if (c0 == 0 && q0 == 0)
+          asm volatile("cp.async.wait_group 1;\n" ::);  // this unit's tile is in
+        __syncthreads();
+        if (!on) continue;
+        sum_channels<T, KT, RT, OT>(acc, tile, wsm, c0, cn, sx, gl, r0, xstep, wtap, p.gs,
+                                    p.wstride, o0, K);
+      }
+      if (!p.y_buf) __syncthreads();  // the x tile is read; the output tile takes its place
+      if (on) {
+#pragma unroll
+        for (int o = 0; o < OT; ++o) {
+          if (o0 + o >= co) break;
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            float v = acc[j][o];
+            if (kBiasRelu) {  // comparisons, not fmaxf/fminf: NaN passes
+              v = v < 0.0f ? 0.0f : v;
+              v = v > 20.0f ? 20.0f : v;
+            }
+            store(yt, (r0 + d * j) * sy.t + (o0 + o) * sy.c + gl * sy.g, v);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    store_tile(y + b * ys.v.b + g0 * ys.v.g + t0 * ys.v.t, yt, ys, min(p.rows, t_len - t0), p.gs,
+               geff);
+    __syncthreads();  // the tiles are free for the unit after next
+  }
+}
+
 View view(const long long* s) { return View{s[0], s[1], s[2], s[3]}; }
 
 unsigned blocks_for(long long n) {
@@ -461,20 +712,6 @@ unsigned blocks_for(long long n) {
 bool bad_dims(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad) {
   return batch < 0 || t_len < 0 || groups < 1 || ci < 1 || co < 1 || K < 1 || d < 1 ||
          lpad < 0 || lpad > (K - 1) * d;
-}
-
-template <typename T>
-int forward(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad, const T* x,
-            View xv, const T* w, const T* bias, T* y, View yv, cudaStream_t s) {
-  const long long items = static_cast<long long>(batch) * t_len * groups;
-  if (items == 0) return cudaSuccess;
-  if (bias)
-    nbasr_gconv_forward<T, true><<<blocks_for(items), kThreads, 0, s>>>(
-        x, xv, w, bias, y, yv, items, t_len, groups, ci, co, K, d, lpad);
-  else
-    nbasr_gconv_forward<T, false><<<blocks_for(items), kThreads, 0, s>>>(
-        x, xv, w, nullptr, y, yv, items, t_len, groups, ci, co, K, d, lpad);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -533,9 +770,11 @@ int launch_dw(const DwPlan& p, int batch, int t_len, int groups, int ci, int co,
   return cudaGetLastError();
 }
 
-template <typename T, int KT, int OT>
-int dw_occupancy(int threads, int smem) {
-  const auto kernel = nbasr_gconv_dw<T, KT, OT>;
+// Resident blocks per SM of `kernel` with `threads` threads and `smem` bytes
+// of dynamic shared memory, from the CUDA occupancy calculator; -1 on an
+// error.
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem) {
   if (smem > 48 * 1024 &&
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
           cudaSuccess)
@@ -596,29 +835,149 @@ int weight_grad(int batch, int t_len, int groups, int ci, int co, int K, int d, 
   return cudaGetLastError();
 }
 
+// A forward plan the kernel can run: what fwd_plan makes, checked again.
+bool bad_fwd_plan(const FwdPlan& p, int esize, int batch, int t_len, int groups, int ci, int co,
+                  int K, int d) {
+  const auto bad_vec = [esize](int v) {
+    return !(v == esize || ((v == 4 || v == 8 || v == 16) && v > esize));
+  };
+  if (p.gs < 1 || p.rt != kFwdRt || p.rows < 1 || p.rows % (p.rt * d) != 0 || p.no < 1)
+    return true;
+  const int per_pass = p.gs * (p.rows / p.rt);  // threads of one output tile
+  const int ow = p.threads / per_pass;          // output tiles a pass holds
+  const long long halo = static_cast<long long>(K - 1) * d;
+  const long long x_need = static_cast<long long>(ci) * (p.rows + halo) * p.gs;
+  const long long y_need = static_cast<long long>(co) * p.rows * p.gs;
+  const long long w_need = static_cast<long long>(K) * p.cc * p.gs * p.wstride;
+  const long long units = static_cast<long long>(batch) * p.tiles;
+  const long long x_bytes = (p.span > 1 ? 2LL : 1LL) * p.x_buf * esize;
+  return p.gs > groups || p.slabs != (groups + p.gs - 1) / p.gs || p.tiles < 1 ||
+         static_cast<long long>(p.rows) * p.tiles < t_len ||
+         static_cast<long long>(p.rows) * (p.tiles - 1) >= t_len || p.span < 1 ||
+         units > 2147483647LL || p.nk * p.kt < K || p.no * p.ot < co ||
+         p.wstride < p.no * p.ot || p.wstride % 2 != 0 || p.cc < 1 || p.cc > ci ||
+         p.threads % per_pass != 0 || ow < 1 || ow > p.no || p.threads > kFwdThreads ||
+         p.x_mode < 0 || p.x_mode > 1 || p.y_mode < 0 || p.y_mode > 1 || bad_vec(p.x_vec) ||
+         bad_vec(p.y_vec) || p.x_buf < x_need || (p.y_buf == 0 && (ow < p.no || p.x_buf < y_need)) ||
+         (p.y_buf != 0 && p.y_buf < y_need) || p.y_buf < 0 ||
+         (static_cast<long long>(p.x_buf) * esize) % 16 != 0 ||
+         (static_cast<long long>(p.y_buf) * esize) % 16 != 0 || p.w_buf < w_need ||
+         p.smem < x_bytes + static_cast<long long>(p.y_buf) * esize + 4LL * p.w_buf ||
+         p.smem > 232448 || p.slabs * ((units + p.span - 1) / p.span) > 2147483647LL;
+}
+
+// f(KT, OT) as integral constants for the register tile (kt, ot) of kFwdRt
+// times when it is instantiated, else -1: in bf16, the train step's dtype,
+// taps 5 and 7 by outputs 6, 8, 10 (co = 12 as two tiles of 6: a 7 x 12
+// tile took 174 registers, or 128 and spills with the epilogue); in f32, the
+// checks' dtype, one tile (fewer kernels to build).
+template <typename T, typename F>
+int with_fwd_tile(int kt, int ot, F&& f) {
+#define NBASR_FWD_TILE(KT, OT) \
+  if (kt == KT && ot == OT)    \
+    return f(std::integral_constant<int, KT>{}, std::integral_constant<int, OT>{});
+  if constexpr (std::is_same_v<T, float>) {
+    NBASR_FWD_TILE(7, 6)
+  } else {
+    NBASR_FWD_TILE(5, 6)
+    NBASR_FWD_TILE(5, 8)
+    NBASR_FWD_TILE(5, 10)
+    NBASR_FWD_TILE(7, 6)
+    NBASR_FWD_TILE(7, 8)
+    NBASR_FWD_TILE(7, 10)
+  }
+#undef NBASR_FWD_TILE
+  return -1;
+}
+
+template <typename T, int KT, int OT, bool kBiasRelu>
+int launch_fwd(const FwdPlan& p, int batch, int t_len, int groups, int ci, int co, int K, int d,
+               int lpad, const T* x, const Stage& xs, const T* w, const T* bias, T* y,
+               const Stage& ys, cudaStream_t s) {
+  const auto kernel = nbasr_gconv_fwd<T, KT, kFwdRt, OT, kBiasRelu>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long units = static_cast<long long>(batch) * p.tiles;
+  const long long blocks = p.slabs * ((units + p.span - 1) / p.span);
+  kernel<<<static_cast<unsigned>(blocks), p.threads, p.smem, s>>>(x, xs, w, bias, y, ys, p, batch,
+                                                                  t_len, groups, ci, co, K, d,
+                                                                  lpad);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int forward(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad, const T* x,
+            View xv, const T* w, const T* bias, T* y, View yv, const FwdPlan& p,
+            cudaStream_t s) {
+  if (static_cast<long long>(batch) * t_len == 0) return cudaSuccess;
+  if (bad_fwd_plan(p, sizeof(T), batch, t_len, groups, ci, co, K, d)) return cudaErrorInvalidValue;
+  const Stage xs{xv, ci, p.x_mode, p.x_vec}, ys{yv, co, p.y_mode, p.y_vec};
+  if (!stage_fits(xs, sizeof(T)) || !stage_fits(ys, sizeof(T))) return cudaErrorInvalidValue;
+  const int err = with_fwd_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
+    constexpr int KT = decltype(kt)::value, OT = decltype(ot)::value;
+    if (bias)
+      return launch_fwd<T, KT, OT, true>(p, batch, t_len, groups, ci, co, K, d, lpad, x, xs, w,
+                                         bias, y, ys, s);
+    return launch_fwd<T, KT, OT, false>(p, batch, t_len, groups, ci, co, K, d, lpad, x, xs, w,
+                                        nullptr, y, ys, s);
+  });
+  return err < 0 ? cudaErrorInvalidValue : err;
+}
+
+// The fewer resident blocks per SM of the forward's two epilogues.
+template <typename T, int KT, int OT>
+int fwd_occupancy(int threads, int smem) {
+  const int plain = occupancy(nbasr_gconv_fwd<T, KT, kFwdRt, OT, false>, threads, smem);
+  const int relu = occupancy(nbasr_gconv_fwd<T, KT, kFwdRt, OT, true>, threads, smem);
+  return plain < relu ? plain : relu;
+}
+
 }  // namespace
 
 // y (a [B, co, T, G] view) = the grouped conv of x (a [B, ci, T, G] view)
 // with w [K, ci, G*co]; with bias [G*co] (non-null) the bias + clip-ReLU
-// epilogue.  Strides are four elements each, [b, c, t, g] order.  Returns a
-// cudaError_t, 0 on success.
+// epilogue.  Strides are four elements each, [b, c, t, g] order; the launch
+// is cut as plan says (kFwdPlanInts ints, fwd_plan's FWD_PLAN_FIELDS).
+// Returns a cudaError_t, 0 on success.
 extern "C" int nbasr_grouped_conv_forward(int bf16, int batch, int t_len, int groups, int ci,
                                           int co, int K, int d, int lpad, const void* x,
                                           const long long* x_strides, const void* w,
                                           const void* bias, void* y, const long long* y_strides,
-                                          void* stream) {
-  if (bad_dims(batch, t_len, groups, ci, co, K, d, lpad)) return cudaErrorInvalidValue;
+                                          const int* plan, void* stream) {
+  if (bad_dims(batch, t_len, groups, ci, co, K, d, lpad) || !plan) return cudaErrorInvalidValue;
+  static_assert(sizeof(FwdPlan) == kFwdPlanInts * sizeof(int), "FwdPlan is kFwdPlanInts ints");
+  FwdPlan p;
+  std::memcpy(&p, plan, sizeof(p));
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
     return forward<T>(batch, t_len, groups, ci, co, K, d, lpad, static_cast<const T*>(x),
                       view(x_strides), static_cast<const T*>(w), static_cast<const T*>(bias),
-                      static_cast<T*>(y), view(y_strides), s);
+                      static_cast<T*>(y), view(y_strides), p, s);
   }
   return forward<float>(batch, t_len, groups, ci, co, K, d, lpad, static_cast<const float*>(x),
                         view(x_strides), static_cast<const float*>(w),
                         static_cast<const float*>(bias), static_cast<float*>(y), view(y_strides),
-                        s);
+                        p, s);
+}
+
+// Resident blocks per SM of the forward kernel with a plan's register tile
+// (kt, ot), threads and shared memory bytes (the fewer of its two
+// epilogues), from the CUDA occupancy calculator; -1 for a tile that is not
+// instantiated or an error.
+extern "C" int nbasr_grouped_conv_fwd_blocks_per_sm(int bf16, int kt, int ot, int threads,
+                                                    int smem) {
+  if (threads < 1 || threads > kFwdThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return with_fwd_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      return fwd_occupancy<__nv_bfloat16, decltype(a)::value, decltype(b)::value>(threads, smem);
+    });
+  return with_fwd_tile<float>(kt, ot, [&](auto a, auto b) {
+    return fwd_occupancy<float, decltype(a)::value, decltype(b)::value>(threads, smem);
+  });
 }
 
 // dx (a [B, ci, T, G] view) = the input gradient for dz (a [B, co, T, G]
@@ -677,10 +1036,11 @@ extern "C" int nbasr_grouped_conv_dw_blocks_per_sm(int bf16, int kt, int ot, int
   if (threads < 1 || threads > kDwThreads || smem < 0 || smem > 232448) return -1;
   if (bf16)
     return with_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
-      return dw_occupancy<__nv_bfloat16, decltype(a)::value, decltype(b)::value>(threads, smem);
+      return occupancy(nbasr_gconv_dw<__nv_bfloat16, decltype(a)::value, decltype(b)::value>,
+                       threads, smem);
     });
   return with_tile<float>(kt, ot, [&](auto a, auto b) {
-    return dw_occupancy<float, decltype(a)::value, decltype(b)::value>(threads, smem);
+    return occupancy(nbasr_gconv_dw<float, decltype(a)::value, decltype(b)::value>, threads, smem);
   });
 }
 

@@ -59,6 +59,19 @@ DW_PARTIAL_SHARE = 0.25
 DW_PLAN_FIELDS = ('gs', 'items', 'lanes', 'rows', 'x_rows', 'tiles',
                   'chunks', 'item_chunks', 'kt', 'ot', 'nk', 'no', 'x_mode',
                   'x_vec', 'z_mode', 'z_vec', 'x_buf', 'z_buf', 'smem')
+#: The forward's launch plan (:func:`fwd_plan`): threads per block, the
+#: times a thread holds (RT, the kernel's kFwdRt), the tap and output tiles
+#: of the bf16 instantiations and f32's one tile (the checks' dtype).
+FWD_THREADS = 256
+FWD_RT = 7                      # odd: time tiles of a warp on other banks
+FWD_TAP_TILES = (5, 7)          # any other K: chunks of the first
+FWD_OUT_TILES = (6, 8, 10)      # a larger co: further output tiles
+FWD_F32_TILE = (7, 6)
+FWD_SPANS = (1, 2, 3, 4, 6, 8)  # units of (utterance, time tile) a block walks
+#: Ints of a plan in the order ``nbasr_grouped_conv_forward`` reads them.
+FWD_PLAN_FIELDS = ('gs', 'slabs', 'rows', 'tiles', 'span', 'rt', 'kt', 'ot',
+                   'nk', 'no', 'wstride', 'cc', 'x_mode', 'x_vec', 'y_mode',
+                   'y_vec', 'x_buf', 'y_buf', 'w_buf', 'smem', 'threads')
 
 
 def reset_launches():
@@ -229,10 +242,10 @@ def _stage(strides, nch, gs, groups, esize, ptr):
 
 
 def estimated_blocks_per_sm(kt, ot, threads, smem):
-    """Resident blocks of the dW kernel per SM, as the CPU can guess it:
-    2048 threads, 228 KB of shared memory and 64 K registers at 128 per
-    thread (what ptxas gives the bf16 instantiations).  On the card the
-    wrapper asks the CUDA occupancy calculator."""
+    """Resident blocks of the dW or forward kernel per SM, as the CPU can
+    guess it: 2048 threads, 228 KB of shared memory and 64 K registers at
+    128 per thread (about what ptxas gives the bf16 instantiations).  On
+    the card the wrapper asks the CUDA occupancy calculator."""
     return max(1, min(2048 // threads, (228 * 1024) // max(smem + 1024, 1),
                       65536 // (128 * threads)))
 
@@ -322,6 +335,178 @@ def dw_plan(B, T, G, ci, co, K, d, esize, x_strides, z_strides, x_ptr=0,
     return min(plans, key=lambda p: p[0])[1]
 
 
+@functools.lru_cache(maxsize=65536)
+def _fwd_wavefronts(mode, ci, gs, rt, d, esize, ntt, threads):
+    """Shared-memory wavefronts of one warp-wide read, the worst warp of a
+    forward block: (x window element, one float2 of weights).  An x read
+    takes as many wavefronts as the most distinct 4-byte words that fall in
+    one of the 32 banks (for two neighbouring channels, as the element
+    offset moves the bf16 pairs); a weight read one per 128 bytes of
+    distinct groups' rows (lanes on one group share an address)."""
+    s_c, s_t, s_g = (gs, ci * gs, 1) if mode == 0 else (1, gs * ci, ci)
+    x_worst = w_worst = 1
+    for w0 in range(0, min(threads, 128), 32):     # the pattern repeats
+        lanes = range(w0, min(threads, w0 + 32))
+        groups = {lane % gs for lane in lanes}
+        w_worst = max(w_worst, _ceil(8 * len(groups), 128))
+        for c in range(min(ci, 2)):
+            banks = {}
+            for lane in lanes:
+                gl, tt = lane % gs, lane // gs % ntt
+                e = c * s_c + gl * s_g + (tt % d + d * rt * (tt // d)) * s_t
+                word = e * esize // 4
+                banks.setdefault(word % 32, set()).add(word)
+            x_worst = max(x_worst, max(map(len, banks.values())))
+    return x_worst, w_worst
+
+
+def _copy_lines(run_bytes, vec):
+    """L1 lines one warp-wide copy of ``vec``-byte vectors touches, runs
+    of ``run_bytes`` lying apart."""
+    return max(_ceil(32 * vec, 128), _ceil(32, _ceil(run_bytes, vec)))
+
+
+def _fwd_tiles(K, co, esize):
+    """(kt, nk, ot, no): the register tile's taps and outputs and how many
+    of each cover K and co, in bf16 the narrowest output tile that covers
+    co in the fewest tiles."""
+    if esize == 4:
+        kt, ot = FWD_F32_TILE
+        no = _ceil(co, ot)
+    else:
+        kt = K if K in FWD_TAP_TILES else FWD_TAP_TILES[0]
+        no = _ceil(co, FWD_OUT_TILES[-1])
+        ot = next(t for t in FWD_OUT_TILES if t >= _ceil(co, no))
+    return kt, _ceil(K, kt), ot, no
+
+
+def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
+                   x_ptr=0, y_ptr=0, sms=132,
+                   blocks_per_sm=estimated_blocks_per_sm):
+    """Every launch plan ``nbasr_grouped_conv_forward`` can run for this
+    shape, as ``(cost, plan)`` pairs; :func:`fwd_plan` takes the cheapest.
+
+    A block owns a slab of ``gs`` groups and walks ``span`` units of
+    ``rows`` time steps of one utterance each (``tiles`` balanced tiles
+    cover T; ``rows`` a multiple of ``RT * d``, the times of one thread in
+    one dilation phase).  Its ``gs * rows / RT`` threads of one output
+    tile hold as many of the ``no`` output tiles at a time as
+    ``FWD_THREADS`` allows, and walk them in passes; with more than one
+    pass the output has a tile of its own (``y_buf`` elements), else it
+    reuses the x tile's room.  It stages each unit's x tile with the
+    ``(K-1)*d`` halo (:func:`_stage`'s mode and vector; two tiles where it
+    walks more than one unit, the next in flight) and the weights of ``cc``
+    input channels at a time in f32, ``wstride`` floats per group (an odd
+    number of float2, so that a half-warp's 8-byte reads fall in distinct
+    banks).
+
+    The cost is an estimate of one SM's issue cycles: per thread and unit
+    the FMAs, the window's loads and conversions and the weights' float2
+    loads, plus its share of staging and storing (more for narrow
+    vectors), and of staging the weights (once a block where one chunk
+    holds them all); blocks are spread over ``sms`` SMs in rounds of
+    ``blocks_per_sm(kt, ot, threads, smem)``, and a round costs its warps'
+    instructions over four schedulers, or its shared-memory and L1
+    wavefronts one a cycle (:func:`_fwd_wavefronts`: bank conflicts
+    count), or at least four cycles an instruction where too few warps
+    hide the latency, plus one wait for a first tile."""
+    halo, rt = (K - 1) * d, FWD_RT
+    step = rt * d
+    kt, nk, ot, no = _fwd_tiles(K, co, esize)
+    wstride = no * ot + 2 * ((no * ot // 2) % 2 == 0)
+    # per thread, unit, output tile and input channel: FMAs, window loads
+    # and conversions, the weights' float2 loads
+    per_c = K * rt * ot + 2 * nk * (rt + kt - 1) + K * ot // 2
+    out = []
+    for gs in range(1, min(G, FWD_THREADS // d) + 1):
+        slabs = _ceil(G, gs)
+        x_mode, x_vec = _stage(x_strides, ci, gs, G, esize, x_ptr)
+        y_mode, y_vec = _stage(y_strides, co, gs, G, esize, y_ptr)
+        for nq in range(1, FWD_THREADS // (gs * d) + 1):
+            rows = step * nq
+            tiles = max(1, _ceil(T, rows))
+            if step * _ceil(max(T, 1), tiles * step) != rows:
+                continue            # balanced tiles only, never longer
+            units = B * tiles
+            per_pass = gs * nq * d
+            passes = _ceil(no, FWD_THREADS // per_pass)
+            threads = per_pass * _ceil(no, passes)
+            warps = _ceil(threads, 32)
+            y_elems = rows * gs * co
+            x_buf = _align16(max((rows + halo) * gs * ci,
+                                 y_elems if passes == 1 else 0) * esize) // esize
+            y_buf = 0 if passes == 1 else _align16(y_elems * esize) // esize
+            x_vecs = (rows + halo) * gs * ci * esize // x_vec
+            y_vecs = y_elems * esize // y_vec
+            per_channel = K * gs * wstride * 4
+            # shared-memory and L1 wavefronts per unit and warp: the
+            # window and weight reads, the output tile's writes, and the
+            # vector copies (a warp's copy touches a line per run it spans)
+            x_wf, w_wf = _fwd_wavefronts(x_mode, ci, gs, rt, d, esize, nq * d,
+                                         threads)
+            x_lines = _copy_lines(gs * (ci if x_mode else 1) * esize, x_vec)
+            y_lines = _copy_lines(gs * (co if y_mode else 1) * esize, y_vec)
+            mio = (passes * (ci * (nk * (rt + kt - 1) * x_wf
+                                   + K * (ot // 2) * w_wf) + rt * ot * x_wf)
+                   + (x_vecs * x_lines + y_vecs * y_lines) / 32 / warps)
+            for span in FWD_SPANS:
+                if span > max(1, units):
+                    break
+                x_bytes = (2 if span > 1 else 1) * x_buf * esize + y_buf * esize
+                room = (SMEM_LIMIT - x_bytes) // per_channel
+                for cc in sorted({min(ci, room), _ceil(ci, 2), _ceil(ci, 4)}):
+                    if cc > room or cc < 1:
+                        continue
+                    w_buf = K * cc * gs * wstride
+                    smem = x_bytes + 4 * w_buf
+                    occ = blocks_per_sm(kt, ot, threads, smem)
+                    if occ < 1:
+                        continue
+                    unit = (passes * (ci * per_c + 40 * _ceil(ci, cc)) + 200
+                            + 25 * (x_vecs + y_vecs) / threads)
+                    weights = 4 * K * ci * gs * co / threads
+                    block = span * unit + weights * (
+                        span * passes if cc < ci else 1)
+                    blocks = slabs * _ceil(units, span)
+                    rounds, rem = divmod(_ceil(blocks, sms), occ)
+
+                    def round_cost(n):
+                        return max(n * warps * block / 4,
+                                   n * warps * span * mio, 4 * block) + 1000
+
+                    cost = rounds * round_cost(occ) + (round_cost(rem) if rem
+                                                       else 0)
+                    plan = dict(gs=gs, slabs=slabs, rows=rows, tiles=tiles,
+                                span=span, rt=rt, kt=kt, ot=ot, nk=nk, no=no,
+                                wstride=wstride, cc=cc, x_mode=x_mode,
+                                x_vec=x_vec, y_mode=y_mode, y_vec=y_vec,
+                                x_buf=x_buf, y_buf=y_buf, w_buf=w_buf,
+                                smem=smem, threads=threads)
+                    plan.update(grid=blocks, blocks_per_sm=occ)
+                    out.append((cost, plan))
+    return out
+
+
+def fwd_plan(B, T, G, ci, co, K, d, esize, x_strides, y_strides, x_ptr=0,
+             y_ptr=0, sms=132, blocks_per_sm=estimated_blocks_per_sm):
+    """How ``nbasr_grouped_conv_forward`` cuts the forward: a dict of
+    :data:`FWD_PLAN_FIELDS` plus the grid (blocks) and the resident blocks
+    per SM: of :func:`fwd_candidates` with a block for every one of the
+    ``sms`` SMs (all of them where none has), the cheapest (ties: the
+    larger slab, then the shorter tile).  Raises ``ValueError`` only where
+    one time step of one group with its halo does not fit shared memory."""
+    plans = fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
+                           x_ptr, y_ptr, sms, blocks_per_sm)
+    if not plans:
+        raise ValueError(
+            f'the forward kernel cannot stage one time step of a group: '
+            f'B={B}, T={T}, G={G}, ci={ci}, co={co}, K={K}, d={d} in '
+            f'{esize}-byte elements need more than {SMEM_LIMIT} bytes of '
+            f'shared memory')
+    return min(plans, key=lambda p: (p[1]['grid'] < sms, p[0], -p[1]['gs'],
+                                     p[1]['rows']))[1]
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -329,13 +514,19 @@ def dw_plan(B, T, G, ci, co, K, d, esize, x_strides, z_strides, x_ptr=0,
 _P = ctypes.c_void_p
 _S = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = [ctypes.c_int] * 9          # bf16, B, T, G, ci, co, K, d, lpad
-_FWD_ARGS = _DIMS + [_P, _S, _P, _P, _P, _S, _P]
+_PLAN = ctypes.POINTER(ctypes.c_int)
+_FWD_ARGS = _DIMS + [_P, _S, _P, _P, _P, _S, _PLAN, _P]
 _DX_ARGS = _DIMS + [_P, _S, _P, _P, _S, _P]
 _DW_ARGS = _DIMS + [_P, _S, _P, _S, _P, _P, ctypes.POINTER(ctypes.c_int), _P]
 
 
+@functools.lru_cache(maxsize=4096)
+def _c_strides(strides):
+    return (ctypes.c_longlong * 4)(*strides)
+
+
 def _strides(t):
-    return (ctypes.c_longlong * 4)(*t.stride())
+    return _c_strides(t.stride())
 
 
 def _check_operand(t, name, shape, dtype, device, contiguous=False):
@@ -365,50 +556,66 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _run(fn, device, *args):
+    """``fn(*args)`` with ``device`` current, switching only where it is
+    not."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device, bf16, kt, ot, threads, smem):
-    """Resident dW blocks per SM of the card, from the CUDA occupancy
-    calculator."""
-    fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dw_blocks_per_sm',
+def _blocks_per_sm(device, kernel, bf16, kt, ot, threads, smem):
+    """Resident blocks per SM of the card for the ``'dw'`` or ``'fwd'``
+    kernel, from the CUDA occupancy calculator."""
+    fn = _build.function('grouped_conv',
+                         f'nbasr_grouped_conv_{kernel}_blocks_per_sm',
                          [ctypes.c_int] * 5)
-    with torch.cuda.device(device):
-        blocks = fn(bf16, kt, ot, threads, smem)
+    blocks = _run(fn, device, bf16, kt, ot, threads, smem)
     if blocks < 1:
-        raise RuntimeError(f'no resident dW block of {threads} threads and '
-                           f'{smem} bytes of shared memory (tile {kt}x{ot})')
+        raise RuntimeError(f'no resident {kernel} block of {threads} threads '
+                           f'and {smem} bytes of shared memory (tile '
+                           f'{kt}x{ot})')
     return blocks
 
 
+_PLANS = {'dw': (dw_plan, DW_PLAN_FIELDS), 'fwd': (fwd_plan, FWD_PLAN_FIELDS)}
+
+
 @functools.lru_cache(maxsize=4096)
-def _dw_launch_plan(device, *args):
-    """(workspace floats, the plan as the C entry point reads it) of
-    :func:`dw_plan` on ``device``, kept per shape, strides and pointer
-    alignment so that a train step plans each node once."""
-    esize = args[7]
-    plan = dw_plan(*args, sms=_sm_count(device), blocks_per_sm=functools.partial(
-        _blocks_per_sm, device, int(esize == 2)))
-    return plan['workspace'], (ctypes.c_int * len(DW_PLAN_FIELDS))(
-        *(plan[k] for k in DW_PLAN_FIELDS))
+def _launch_plan(device, kernel, *args):
+    """(plan, its ints as the C entry point reads them) of :func:`dw_plan`
+    or :func:`fwd_plan` (``kernel`` ``'dw'`` or ``'fwd'``) on ``device``:
+    its SMs, and its occupancy calculator on the built kernel.  Kept per
+    shape, strides and pointer alignment, so a train step plans each node
+    once."""
+    plan_fn, fields = _PLANS[kernel]
+    plan = plan_fn(*args, sms=_sm_count(device), blocks_per_sm=functools.partial(
+        _blocks_per_sm, device, kernel, int(args[7] == 2)))
+    return plan, (ctypes.c_int * len(fields))(*(plan[k] for k in fields))
 
 
 def _launch_forward(xs, w, bias, lpad, dilation, out):
     dims = _kernel_dims(xs, w, lpad, dilation)
-    B, T, G, co = dims[1], dims[2], dims[3], dims[5]
+    B, T, G, ci, co, K = dims[1:7]
     if bias is not None:
         _check_operand(bias, 'bias', (G * co,), xs.dtype, xs.device,
                        contiguous=True)
     _check_operand(out, 'out', (B, co, T, G), xs.dtype, xs.device)
+    _, plan = _launch_plan(xs.device, 'fwd', B, T, G, ci, co, K, dilation,
+                           xs.element_size(), xs.stride(), out.stride(),
+                           xs.data_ptr() % 16, out.data_ptr() % 16)
     fn = _build.function('grouped_conv', 'nbasr_grouped_conv_forward',
                          _FWD_ARGS)
-    with torch.cuda.device(xs.device):
-        err = fn(*dims, xs.data_ptr(), _strides(xs), w.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 _strides(out), _stream(xs))
+    err = _run(fn, xs.device, *dims, xs.data_ptr(), _strides(xs),
+               w.data_ptr(), None if bias is None else bias.data_ptr(),
+               out.data_ptr(), _strides(out), plan, _stream(xs))
     _build.check(err, 'grouped_conv', 'grouped conv forward')
     LAUNCHES['forward']['kernel'] += 1
     return out
@@ -423,9 +630,8 @@ def _launch_dx(dz, w, lpad, dilation, out):
         raise ValueError(f'dz has {co} channels per group, the weight '
                          f'{dims[5]}')
     fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dx', _DX_ARGS)
-    with torch.cuda.device(dz.device):
-        err = fn(*dims, dz.data_ptr(), _strides(dz), w.data_ptr(),
-                 out.data_ptr(), _strides(out), _stream(dz))
+    err = _run(fn, dz.device, *dims, dz.data_ptr(), _strides(dz),
+               w.data_ptr(), out.data_ptr(), _strides(out), _stream(dz))
     _build.check(err, 'grouped_conv', 'grouped conv dx')
     LAUNCHES['dx']['kernel'] += 1
     return out
@@ -435,19 +641,18 @@ def _launch_dw(xs, dz, w, lpad, dilation):
     dims = _kernel_dims(xs, w, lpad, dilation)
     B, T, G, co = dims[1], dims[2], dims[3], dims[5]
     _check_operand(dz, 'dz', (B, co, T, G), xs.dtype, xs.device)
-    workspace, plan_ints = _dw_launch_plan(
-        xs.device, B, T, G, w.shape[1], co, w.shape[0], dilation,
+    plan, plan_ints = _launch_plan(
+        xs.device, 'dw', B, T, G, w.shape[1], co, w.shape[0], dilation,
         xs.element_size(), xs.stride(), dz.stride(), xs.data_ptr() % 16,
         dz.data_ptr() % 16)
     dw = torch.empty_like(w)
-    work = torch.empty((workspace,), dtype=torch.float32,
-                       device=xs.device) if workspace else None
+    work = torch.empty((plan['workspace'],), dtype=torch.float32,
+                       device=xs.device) if plan['workspace'] else None
     fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dw', _DW_ARGS)
-    with torch.cuda.device(xs.device):
-        err = fn(*dims, xs.data_ptr(), _strides(xs), dz.data_ptr(),
-                 _strides(dz), dw.data_ptr(),
-                 None if work is None else work.data_ptr(), plan_ints,
-                 _stream(xs))
+    err = _run(fn, xs.device, *dims, xs.data_ptr(), _strides(xs),
+               dz.data_ptr(), _strides(dz), dw.data_ptr(),
+               None if work is None else work.data_ptr(), plan_ints,
+               _stream(xs))
     _build.check(err, 'grouped_conv', 'grouped conv dW')
     LAUNCHES['dw']['kernel'] += 1
     return dw

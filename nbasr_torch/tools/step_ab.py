@@ -1,6 +1,7 @@
-"""A/B of the flagship train step between checkouts, on one card.
+"""A/B of the flagship train step, or of its grouped conv kernels, between
+checkouts, on one card.
 
-    python3 nbasr_torch/tools/step_ab.py [--impl auto] ROOT_A ROOT_B ROOT_B ROOT_A ...
+    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv] ROOT_A ROOT_B ROOT_B ROOT_A ...
 
 For each root in the order given (alternate them: host time drifts between
 processes), a fresh process imports ``nbasr_torch`` from that root, builds
@@ -15,11 +16,22 @@ STEPS steps on the host clock, each ended by ``torch.cuda.synchronize()``:
 - ``kernel_ms``: the device time of every kernel in a ``torch.profiler``
   trace of STEPS steps, per step.
 
+With ``--gconv`` it times instead the grouped conv's forward and dx at the
+flagship's conv5 nodes as phase 9 of this checkout's ``chip_smoke.py`` does
+(its operands, calls and timers, on the root's kernels): bf16, B=32, the
+dense layout with the epilogue-free forward ('pallas') and a contiguous
+split tensor with the bias + clip-ReLU forward ('pallas_split'); per train
+step (9/12/15/18 nodes at the four widths) ``*_events_ms``, the CUDA-event
+median of single calls, and ``*_device_ms``, calls queued behind a spin
+kernel; per node under ``per_node``.
+
 Only the API that every version of the port has is used (``get_model``,
-``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``).  One
-JSON line per root, then a summary line.
+``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``, the
+grouped conv's ``_launch_*`` wrappers).  One JSON line per root, then a
+summary line.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -28,10 +40,44 @@ import time
 
 STEPS = 10
 BLOCKS = 3
+SMOKE = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..',
+                     'chip_smoke.py')
+
+
+def gconv_times():
+    """Forward and dx times of the root's grouped conv kernels, by this
+    checkout's chip_smoke.py (imported with the root's nbasr_torch)."""
+    import torch
+    spec = importlib.util.spec_from_file_location('chip_smoke', SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device('cuda')
+    out = {'per_node': []}
+    with torch.no_grad():
+        for (C, T), cells in zip(smoke.TRAIN_WIDTHS, smoke.CELLS_PER_BLOCK):
+            g = torch.Generator().manual_seed(C)
+            x, dz, w, b = smoke._gconv_operands(C, T, smoke.TRAIN_B, 5, 1,
+                                                torch.bfloat16, dev, g)
+            for layout in smoke.GCONV_LAYOUTS:
+                xs, zs, y, dx = smoke._gconv_args(x, dz, layout)
+                calls = smoke._gconv_calls(xs, zs, w, b, 2, 1, y, dx,
+                                           smoke.KERNEL_FNS)
+                fwd = 'forward' if layout == 'dense' else 'forward+bias'
+                for name in (fwd, 'dx'):
+                    key = name.split('+')[0]
+                    row = dict(kernel=key, layout=layout, C=C, T=T,
+                               events_ms=smoke.time_ms(calls[name]),
+                               device_ms=smoke.device_ms(calls[name]))
+                    out['per_node'].append(row)
+                    for k in ('events_ms', 'device_ms'):
+                        total = f'{key}_{layout}_{k}'
+                        out[total] = out.get(total, 0.0) + 3 * cells * row[k]
+    return out
 
 
 def measure(root, impl):
-    """The timings of one root, in this process."""
+    """The timings of one root, in this process (``impl`` a grouped_impl,
+    or ``'gconv'`` for the grouped conv kernels alone)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -46,6 +92,8 @@ def measure(root, impl):
     assert nbasr_torch.__file__.startswith(os.path.abspath(root)), \
         nbasr_torch.__file__
     _build.build()
+    if impl == 'gconv':
+        return {'root': root, 'impl': impl, **gconv_times()}
     dev = torch.device('cuda')
     model = get_model([[1, 0], [1, 0, 0], [1, 0, 0, 0]], use_rnn=True,
                       dropout_rate=0.2, data_norm=True,
@@ -85,6 +133,8 @@ def main(argv):
     impl = 'auto'
     if argv[:1] == ['--impl']:
         impl, argv = argv[1], argv[2:]
+    elif argv[:1] == ['--gconv']:
+        impl, argv = 'gconv', argv[1:]
     if not argv:
         raise SystemExit(__doc__)
     rows = []
@@ -99,8 +149,9 @@ def main(argv):
         print(json.dumps(rows[-1]), flush=True)
     summary = {}
     for row in rows:
-        for k in ('step_ms', 'kernel_ms'):
-            summary.setdefault(row['root'], {}).setdefault(k, []).append(row[k])
+        for k, v in row.items():
+            if k not in ('root', 'impl', 'step_ms_blocks', 'per_node'):
+                summary.setdefault(row['root'], {}).setdefault(k, []).append(v)
     print(json.dumps({'summary': summary}))
 
 

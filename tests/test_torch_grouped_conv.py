@@ -193,6 +193,7 @@ PLAN_SHAPES = [
     (4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
     (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
     (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1),
+    (2, 20, 1, 800, 800, 5, 2),
 ]
 
 
@@ -278,6 +279,375 @@ def test_dw_plan_fills_the_card_and_bounds_the_partials():
         assert 4 * p['workspace'] <= 0.25 * act
         assert gx * gy >= 100
         assert p['smem'] <= grouped_conv.DW_SMEM_TARGET
+
+
+def _fwd_units(p, B):
+    """(block, slab, unit) of every unit a forward block walks: block
+    (slab, q), units q*span, ... below B * tiles."""
+    blk = np.arange(p['grid'])
+    slab, u0 = blk % p['slabs'], (blk // p['slabs']) * p['span']
+    blk, slab, unit = (np.repeat(a, p['span']) for a in (blk, slab, u0))
+    unit = unit + np.tile(np.arange(p['span']), p['grid'])
+    keep = unit < B * p['tiles']
+    return blk[keep], slab[keep], unit[keep]
+
+
+def _fwd_owners(p, B, T, G, co, d):
+    """(b, t, g, o) of every sum the forward kernel's threads hold, and
+    whether the kernel writes it, by the kernel's index math: block (slab,
+    q) walking units (b, tile), thread (gl, tt, oq) with gl fastest, RT
+    times of one dilation phase, OT outputs of output tile q0 + oq in the
+    pass that starts at tile q0."""
+    gs, rows, rt, ot = p['gs'], p['rows'], p['rt'], p['ot']
+    ntt = rows // rt
+    ow = p['threads'] // (gs * ntt)
+    blk, slab, unit = _fwd_units(p, B)
+    b, t0 = unit // p['tiles'], (unit % p['tiles']) * rows
+    tid = np.arange(p['threads'])
+    gl, rest = tid % gs, tid // gs
+    tt = rest % ntt
+    oq = np.arange(0, p['no'], ow)[:, None] + rest // ntt    # [pass, thread]
+    r0 = tt % d + d * rt * (tt // d)
+    shape = (len(blk),) + oq.shape + (rt, ot)
+    t = (t0[:, None, None, None, None] + r0[None, None, :, None, None]
+         + d * np.arange(rt)[None, None, None, :, None])
+    g = slab[:, None, None, None, None] * gs + gl[None, None, :, None, None]
+    o = (oq * ot)[None, :, :, None, None] + np.arange(ot)
+    b = np.broadcast_to(b[:, None, None, None, None], shape)
+    t, g, o = (np.broadcast_to(a, shape) for a in (t, g, o))
+    on = np.broadcast_to((oq < p['no'])[None, :, :, None, None], shape)
+    written = (t < T) & (g < G) & (o < co) & on
+    return b, t, g, o, written
+
+
+@pytest.mark.parametrize('esize', [2, 4], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('layout', ['dense', 'split', 'strided'])
+@pytest.mark.parametrize('B,T,G,ci,co,K,d', PLAN_SHAPES)
+def test_fwd_plan_covers_every_output_once(B, T, G, ci, co, K, d, layout,
+                                           esize):
+    """The forward's launch plan: every (b, t, g, o) in exactly one
+    thread's register tile; each block's staged rows [t0 - lpad, t0 + rows
+    + halo - lpad) of its own utterance hold every row its windows read;
+    shared memory within Hopper's 227 KB and enough for the x tile, the
+    output tile (over the x tile, or its own where the threads walk the
+    output tiles in passes) and the weights; the grid and block within
+    CUDA's limits; a staged vector aligned to every address it copies."""
+    xst, yst = _plan_strides(B, T, G, ci, co, layout)
+    p = grouped_conv.fwd_plan(B, T, G, ci, co, K, d, esize, xst, yst, 256,
+                              512, sms=132)
+    assert set(grouped_conv.FWD_PLAN_FIELDS) <= p.keys()
+    b, t, g, o, written = _fwd_owners(p, B, T, G, co, d)
+    idx = ((b * T + t) * G + g) * co + o
+    seen = np.bincount(idx[written], minlength=B * T * G * co)
+    assert seen.shape == (B * T * G * co,) and (seen == 1).all()
+    # every block walks at least one unit, a block's units in one slab
+    blk, _, unit = _fwd_units(p, B)
+    assert (np.bincount(blk, minlength=p['grid']) >= 1).all()
+    assert 1 <= p['span'] and unit.max() < B * p['tiles'] or T * B == 0
+    rt, rows, kt = p['rt'], p['rows'], p['kt']
+    halo = (K - 1) * d
+    assert p['nk'] * kt >= K and p['no'] * p['ot'] >= co
+    if esize == 4:
+        assert (kt, p['ot']) == grouped_conv.FWD_F32_TILE
+    else:
+        assert kt in grouped_conv.FWD_TAP_TILES
+        assert p['ot'] in grouped_conv.FWD_OUT_TILES
+    # the windows: tap chunk k0 of thread tile tt reads rows r0 + d*(k0 + m),
+    # m < RT + kn - 1, of the staged rows + halo
+    assert rows % (rt * d) == 0
+    for tt in range(rows // rt):
+        r0 = tt % d + d * rt * (tt // d)
+        for k0 in range(0, K, kt):
+            kn = min(kt, K - k0)
+            assert 0 <= r0 + d * (k0 + rt + kn - 2) < rows + halo
+    assert p['tiles'] * rows >= T > (p['tiles'] - 1) * rows or T == 0
+    per_pass = p['gs'] * rows // rt
+    ow = p['threads'] // per_pass
+    assert p['threads'] % per_pass == 0 and 1 <= ow <= p['no']
+    assert p['x_buf'] >= (rows + halo) * p['gs'] * ci
+    y_need = rows * p['gs'] * co
+    if p['y_buf'] == 0:                 # one pass: the output over the x tile
+        assert ow == p['no'] and p['x_buf'] >= y_need
+    else:
+        assert p['y_buf'] >= y_need
+    assert p['x_buf'] * esize % 16 == 0 and p['y_buf'] * esize % 16 == 0
+    assert p['wstride'] >= p['no'] * p['ot'] and (p['wstride'] // 2) % 2 == 1
+    assert 1 <= p['cc'] <= ci
+    assert p['w_buf'] >= K * p['cc'] * p['gs'] * p['wstride']
+    bufs = 2 if p['span'] > 1 else 1
+    assert (bufs * p['x_buf'] * esize + p['y_buf'] * esize + 4 * p['w_buf']
+            <= p['smem'] <= grouped_conv.SMEM_LIMIT)
+    assert 1 <= p['threads'] <= grouped_conv.FWD_THREADS
+    assert p['grid'] == p['slabs'] * -(-B * p['tiles'] // p['span'])
+    assert p['grid'] <= 2 ** 31 - 1
+    assert p['slabs'] == -(-G // p['gs'])
+    last = G - (p['slabs'] - 1) * p['gs']
+    for (mode, vec), strides, ptr, nch in (
+            ((p['x_mode'], p['x_vec']), xst, 256, ci),
+            ((p['y_mode'], p['y_vec']), yst, 512, co)):
+        assert vec == esize or (vec in (4, 8, 16) and vec > esize)
+        s_b, s_c, s_t, s_g = strides
+        if vec > esize:
+            assert (ptr % vec, s_b * esize % vec, s_t * esize % vec) == (0, 0, 0)
+            run = p['gs'] * nch if mode == 1 else p['gs']
+            tail = last * nch if mode == 1 else last
+            assert run * esize % vec == 0 and tail * esize % vec == 0
+            if mode == 0:
+                assert s_g == 1 and s_c * esize % vec == 0
+        assert mode == int(layout == 'dense' or (layout == 'split' and nch == 1))
+        if layout == 'strided' and nch > 1:     # g strided: element by element
+            assert vec == esize
+    if layout == 'dense' and esize == 2 and (T, ci) == (300, 6) and B == 32:
+        assert (p['x_vec'], p['y_vec']) == (16, 16)   # the flagship's block 0
+
+
+def test_fwd_plan_fills_the_card():
+    """At the flagship's four widths (B=32, bf16 and f32, both layouts):
+    at least one block for each of the 132 SMs (block 3 has only B*T =
+    2,400 rows), each block small enough to be resident."""
+    for B, T, G, ci, co, K, d in PLAN_SHAPES[:4]:
+        for layout in ('dense', 'split'):
+            for esize in (2, 4):
+                xst, yst = _plan_strides(B, T, G, ci, co, layout)
+                p = grouped_conv.fwd_plan(B, T, G, ci, co, K, d, esize, xst,
+                                          yst)
+                assert p['grid'] >= 132, (T, ci, layout, esize, p['grid'])
+                assert p['blocks_per_sm'] >= 1
+
+
+def _tile_run(r, mode, nch, nrows, gs, s_c):
+    """Run r of a tile as the kernel's for_each_vector addresses it: (time
+    row, shared offset, channel offset)."""
+    if mode == 0:
+        c, trow = divmod(r, nrows)
+        return trow, (trow * nch + c) * gs, c * s_c
+    return r, r * gs * nch, 0
+
+
+def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
+                  gs, geff, T, stage, bounds=True):
+    """stage_tile (``stage``: device memory ``mem`` -> shared ``sm``, a time
+    outside [0, T) reads zero unless ``bounds`` is off) or store_tile (the
+    reverse, times [0, nrows)), run by run and element by element, with
+    the kernel's alignment: each vector's shared and device addresses are
+    multiples of its bytes (the base pointer counts as aligned)."""
+    s_b, s_c, s_t, s_g = strides
+    per_vec = vec // esize
+    run_len = geff if mode == 0 else geff * nch
+    assert run_len % per_vec == 0
+    vpr = run_len // per_vec
+    step = s_g if mode == 0 else 1
+    for i in range((nch * nrows if mode == 0 else nrows) * vpr):
+        r, v = divmod(i, vpr)
+        trow, soff, goff = _tile_run(r, mode, nch, nrows, gs, s_c)
+        s = soff + v * per_vec
+        a = base + goff + (ts0 + trow) * s_t + v * per_vec * step
+        assert s >= 0 and s * esize % vec == 0 and a * esize % vec == 0
+        for e in range(per_vec):
+            if not stage:
+                assert 0 <= a + e < len(mem)
+                mem[a + e] = sm[s + e]
+            elif ((bounds and not 0 <= ts0 + trow < T)
+                  or not 0 <= a + e < len(mem)):
+                sm[s + e] = 0.0
+            else:
+                sm[s + e] = mem[a + e]
+
+
+def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
+                     esize, bounds=True):
+    """The forward kernel's loader, weight staging, register tiles and
+    store in numpy (f64 sums), on flat memory addressed by the strides;
+    shared memory starts as NaN, so a read of what was never staged shows
+    in an output.  Unwritten outputs stay NaN."""
+    gs, rows, x_buf, y_buf = p['gs'], p['rows'], p['x_buf'], p['y_buf']
+    y = np.full(B * co * T * G, np.nan)
+    units = B * p['tiles']
+    for blk in range(p['grid']):
+        slab, u0 = blk % p['slabs'], (blk // p['slabs']) * p['span']
+        g0 = slab * gs
+        geff = min(gs, G - g0)
+        # one x tile, or two where the block walks more than one unit
+        smem = np.full((2 if p['span'] > 1 else 1) * x_buf, np.nan)
+        out_tile = np.full(y_buf, np.nan)
+        wsm = np.full(p['w_buf'], np.nan)
+
+        def tile(u):
+            return smem[(u - u0) % 2 * x_buf:][:x_buf]
+
+        def stage(u):
+            _emulate_copy(x, xst, tile(u), ci, p['x_mode'], p['x_vec'], esize,
+                          u // p['tiles'] * xst[0] + g0 * xst[3],
+                          u % p['tiles'] * rows - lpad, rows + (K - 1) * d,
+                          gs, geff, T, True, bounds)
+
+        stage(u0)
+        u1 = min(units, u0 + p['span'])
+        for u in range(u0, u1):
+            if u + 1 < u1:          # the next unit into the other tile
+                stage(u + 1)
+            yt = out_tile if y_buf else tile(u)
+            _emulate_unit(tile(u), yt, wsm, w, bias, p, ci, co, K, d, g0,
+                          geff, first=u == u0)
+            t0 = u % p['tiles'] * rows
+            _emulate_copy(y, yst, yt, co, p['y_mode'], p['y_vec'], esize,
+                          u // p['tiles'] * yst[0] + g0 * yst[3] + t0 * yst[2],
+                          0, min(rows, T - t0), gs, geff, T, False)
+    return y
+
+
+def _emulate_unit(tile, yt, wsm, w, bias, p, ci, co, K, d, g0, geff, first):
+    """One unit of a forward block: per pass over the output tiles, its
+    threads' register tiles summed over the channel chunks (each chunk's
+    weights staged first where they are staged a chunk at a time, or on
+    the block's ``first`` unit and pass), then written into ``yt``."""
+    gs, rows, rt, kt, ot, ws, cc = (p[k] for k in ('gs', 'rows', 'rt', 'kt',
+                                                   'ot', 'wstride', 'cc'))
+    ntt, tap = rows // rt, cc * gs * ws
+    ow = p['threads'] // (gs * ntt)
+
+    def view(mode, nch):            # smem_view: (c, t, g) strides
+        return (gs, nch * gs, 1) if mode == 0 else (1, gs * nch, nch)
+
+    sx_c, sx_t, sx_g = view(p['x_mode'], ci)
+    sy_c, sy_t, sy_g = view(p['y_mode'], co)
+    for q0 in range(0, p['no'], ow):
+        threads = []                # (gl, r0, o0, sums) of the live threads
+        for tid in range(p['threads']):
+            gl, rest = tid % gs, tid // gs
+            tt, oq = rest % ntt, rest // ntt
+            if gl < geff and q0 + oq < p['no']:
+                o0 = (q0 + oq) * ot
+                b0 = np.zeros(ot)
+                if bias is not None:
+                    n = min(ot, co - o0)
+                    b0[:n] = bias[(g0 + gl) * co + o0:][:n]
+                threads.append((gl, tt % d + d * rt * (tt // d), o0,
+                                np.tile(b0, (rt, 1))))
+        for c0 in range(0, ci, cc):
+            cn = min(cc, ci - c0)
+            if cc < ci or (first and q0 == 0):
+                for j in range(geff * co):
+                    g, o = divmod(j, co)
+                    for k in range(K):
+                        for c in range(cn):
+                            wsm[k * tap + c * gs * ws + g * ws + o] = w[
+                                k, c0 + c, (g0 + g) * co + o]
+            for gl, r0, o0, acc in threads:
+                for c in range(cn):
+                    xc = (c0 + c) * sx_c + gl * sx_g + r0 * sx_t
+                    wc = (c * gs + gl) * ws + o0
+                    for k0 in range(0, K, kt):
+                        kn = min(kt, K - k0)
+                        xk = xc + k0 * d * sx_t
+                        xw = np.array([tile[xk + m * d * sx_t]
+                                       if m < rt + kn - 1 else 0.0
+                                       for m in range(rt + kt - 1)])
+                        for k in range(kn):
+                            acc += np.outer(xw[k:k + rt],
+                                            wsm[wc + (k0 + k) * tap:][:ot])
+        for gl, r0, o0, acc in threads:   # the pass's outputs into yt
+            for o in range(min(ot, co - o0)):
+                v = acc[:, o]
+                if bias is not None:
+                    v = np.where(v < 0, 0.0, np.where(v > 20, 20.0, v))
+                for j in range(rt):
+                    yt[(r0 + d * j) * sy_t + (o0 + o) * sy_c + gl * sy_g] = v[j]
+
+
+def _flat(a, layout, G):
+    """A [B, T, G*c] array as flat memory of ``layout`` and its strides."""
+    B, T, C = a.shape
+    c = C // G
+    if layout == 'dense':
+        return a.reshape(-1), (T * C, 1, C, c)
+    if layout == 'strided':
+        return (a.reshape(B, T, G, c).transpose(0, 2, 1, 3).reshape(-1),
+                (G * T * c, 1, c, T * c))
+    return a.reshape(B, T, G, c).transpose(0, 3, 1, 2).reshape(-1), (
+        c * T * G, T * G, G, 1)
+
+
+def _unflat(y, strides, B, co, T, G):
+    s_b, s_c, s_t, s_g = strides
+    b, c, t, g = np.meshgrid(np.arange(B), np.arange(co), np.arange(T),
+                             np.arange(G), indexing='ij')
+    return y[b * s_b + c * s_c + t * s_t + g * s_g]        # [B, co, T, G]
+
+
+# (B, T, G, ci, co, K, d, layout, esize, plan choice): shapes small enough
+# for an element-by-element emulation that still cut the work several
+# ways: partial slabs, several time tiles and the last one short, T below
+# the halo, dilation phases, tap chunks (K=9 in bf16's taps of 5), channel
+# chunks, further output tiles (co=14), blocks that walk several units
+# (the last block fewer), and output tiles walked in passes (here with a
+# block of at most 8 threads, so that co=14 needs them)
+EMULATED = [
+    (2, 19, 6, 3, 3, 5, 2, 'dense', 4, 'plan'),
+    (2, 13, 5, 2, 4, 7, 1, 'split', 2, 'chunks'),
+    (3, 3, 4, 2, 2, 7, 2, 'strided', 2, 'plan'),
+    (2, 11, 3, 4, 14, 9, 1, 'dense', 2, 'chunks'),
+    (3, 40, 5, 2, 2, 5, 1, 'split', 4, 'span'),
+    (3, 21, 4, 3, 3, 7, 2, 'dense', 2, 'span'),
+    (2, 11, 3, 2, 14, 5, 2, 'split', 4, 'passes'),
+    (3, 20, 2, 3, 14, 5, 1, 'dense', 2, 'passes'),
+]
+
+
+def _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice):
+    if choice == 'plan':
+        return grouped_conv.fwd_plan(B, T, G, ci, co, K, d, esize, xst, yst)
+    plans = [p for _, p in grouped_conv.fwd_candidates(
+        B, T, G, ci, co, K, d, esize, xst, yst)]
+    if choice == 'passes':  # output tiles in passes, blocks of several units
+        return max(plans, key=lambda p: (p['y_buf'] > 0, p['span'] > 1,
+                                         G % p['gs'] > 0, p['cc'] < ci))
+    if choice == 'span':    # blocks of several units, the last one short
+        return max(plans, key=lambda p: (
+            p['span'] > 1 and B * p['tiles'] % p['span'] > 0, p['tiles'] > 1,
+            G % p['gs'] > 0, p['span']))
+    # several tiles, a partial slab and input channels in chunks
+    return max(plans, key=lambda p: (p['cc'] < ci, G % p['gs'] > 0,
+                                     p['tiles'] > 1, -p['rows']))
+
+
+@pytest.mark.parametrize('epilogue', [False, True], ids=['plain', 'bias_relu'])
+@pytest.mark.parametrize('B,T,G,ci,co,K,d,layout,esize,choice', EMULATED)
+def test_fwd_emulation_matches_reference(B, T, G, ci, co, K, d, layout,
+                                         esize, choice, epilogue, monkeypatch):
+    """The forward kernel's index math, emulated in numpy on flat memory
+    with its plan, equals conv_forward_reference; with the loader's bound
+    on the utterance switched off, a halo that reads the neighbouring
+    utterance (or past the end) shows."""
+    if choice == 'passes':
+        monkeypatch.setattr(grouped_conv, 'FWD_THREADS', 8)
+    rng = np.random.RandomState(B * T + ci)
+    x = rng.randn(B, T, G * ci)
+    w = rng.randn(K, ci, G * co) * 0.3
+    bias = rng.randn(G * co) * 3 if epilogue else None
+    lpad = conv_padding(K, d, 1)[0]
+    xf, xst = _flat(x, layout, G)
+    _, yst = _flat(np.zeros((B, T, G * co)), layout, G)
+    p = _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice)
+    if choice == 'chunks':
+        assert p['cc'] < ci or p['no'] > 1
+    if choice == 'span':
+        assert p['span'] > 1 and B * p['tiles'] % p['span'] > 0
+    if choice == 'passes':
+        assert p['y_buf'] > 0 and p['threads'] <= 8
+    want = grouped_conv.conv_forward_reference(
+        to_split(torch.from_numpy(x), G), torch.from_numpy(w),
+        None if bias is None else torch.from_numpy(bias), lpad, d,
+        torch.empty((B, co, T, G), dtype=torch.float64)).numpy()
+    got = _unflat(_emulate_forward(xf, xst, w, bias, yst, p, B, T, G, ci, co,
+                                   K, d, lpad, esize), yst, B, co, T, G)
+    scale = np.abs(want).max()
+    # the plain version sums in f32, the emulation in f64
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    leaky = _unflat(_emulate_forward(xf, xst, w, bias, yst, p, B, T, G, ci,
+                                     co, K, d, lpad, esize, bounds=False),
+                    yst, B, co, T, G)
+    assert np.abs(leaky - want).max() > 1e-2 * scale
 
 
 def test_refuses_other_devices_and_bad_padding():
