@@ -44,10 +44,12 @@ prints no result):
    the forward (with and without its bias + clip-ReLU epilogue), dx and dW
    kernels against their plain versions at the four train-step widths
    (B=4), K/d 5/1, 5/2, 7/1, 7/2, on a dense tensor seen as a strided split
-   view and on a contiguous split tensor, f32 and bf16; the forward and dW
-   also at edge shapes (groups of 24 and of 1, T below the halo, B=1,
-   K=9, one group of 800) on a third, g-strided view, two calls bit-equal; NaN and inf
-   inputs through the forward; then at B=32 with conv5, checked and timed
+   view and on a contiguous split tensor, f32 and bf16, two calls
+   bit-equal; all three also at edge shapes (groups of 24 and of 1, T
+   below the halo, B=1, K=9, one group of 800, ci != co) on a third,
+   g-strided view, dx also on a dz expanded along T; NaN and inf inputs
+   through the forward (in x) and dx (in dz); then at B=32 with conv5,
+   checked and timed
    beside their bounds, plain versions and the cuDNN call that computes
    the same function, on CUDA events and as device time;
 10. grouped forward: the flagship's f32 logits with 'pallas' and
@@ -820,27 +822,34 @@ GCONV_CHECKED_AT = ('B=4 at (C, T) = (600, 300), (800, 300), (1000, 150), '
                     'a dense tensor as a strided split view and a contiguous '
                     'split tensor; forward without and with the bias + '
                     'clip-ReLU epilogue; f32 and bf16')
-# The forward and dW beyond the flagship's shapes, (B, T, G, ci, co, K, d):
-# groups of 24 (G=50 at C=1200), of one channel, T shorter than the halo,
-# B=1, T not a multiple of the row tile, taps and outputs past the register
-# tile, and one group of 800 (cell_groups=1 at C=800, d=2: more output
-# tiles than a forward block has threads for at once)
+# The kernels beyond the flagship's shapes, (B, T, G, ci, co, K, d): groups
+# of 24 (G=50 at C=1200), of one channel, T shorter than the halo, B=1, T
+# not a multiple of the row tile, taps and outputs past the register tile,
+# one group of 800 (cell_groups=1 at C=800, d=2: more output tiles than a
+# forward or dx block has threads for at once), and ci != co (the dx's
+# staged dz and its output differ in width, its weights transposed)
 GCONV_EDGES = ((4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
                (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
                (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1),
-               (2, 20, 1, 800, 800, 5, 2))
+               (2, 20, 1, 800, 800, 5, 2), (4, 75, 100, 6, 12, 5, 1))
 GCONV_EDGES_CHECKED_AT = (
     f'; also at (B, T, G, ci, co, K, d) = {", ".join(map(str, GCONV_EDGES))} '
     'on both layouts and a [B, G, T, c] view (g strided); two calls '
     'bit-equal at every shape')
+GCONV_NONFINITE_AT = (
+    ' (B=4, C=600, T=300, K/d 5/1 and 7/2, both layouts) give NaN and +-inf '
+    'where the plain version does')
 GCONV_DW_CHECKED_AT = GCONV_CHECKED_AT + GCONV_EDGES_CHECKED_AT
 GCONV_FWD_CHECKED_AT = (
     GCONV_CHECKED_AT + GCONV_EDGES_CHECKED_AT + ', both epilogues; NaN, '
-    '+inf and -inf inputs (B=4, C=600, T=300, K/d 5/1 and 7/2, both '
-    'layouts, both epilogues) give NaN and +-inf where the plain version '
-    'does')
-# The non-finite check at (B, C, T) = NONFINITE_SHAPE: (b, t, channel,
-# value) planted in x, in three utterances, so no window holds two of them.
+    '+inf and -inf inputs' + GCONV_NONFINITE_AT + ', both epilogues')
+GCONV_DX_CHECKED_AT = (
+    GCONV_CHECKED_AT + GCONV_EDGES_CHECKED_AT + ', and at each edge shape '
+    'on a dz expanded along T (stride 0); NaN, +inf and -inf in dz'
+    + GCONV_NONFINITE_AT)
+# The non-finite checks at (B, C, T) = NONFINITE_SHAPE: (b, t, channel,
+# value) planted in x (the forward) or dz (dx), in three utterances, so no
+# window holds two of them.
 NONFINITE_SHAPE = (4, 600, 300)
 NONFINITE = ((1, 10, 7, float('nan')), (2, 100, 250, float('inf')),
              (3, 200, 433, float('-inf')))
@@ -906,9 +915,8 @@ def _gconv_compare(calls, plain, errors, label):
     the error within TOL (forward) or GRAD_TOL (dx, dW) of max|plain|."""
     for name in calls:
         got = calls[name]().float().clone()
-        if name != 'dx':        # one owner per sum, each in a fixed order
-            assert torch.equal(calls[name]().float(), got), (label, name,
-                                                             'bits')
+        # one owner per sum, each in a fixed order
+        assert torch.equal(calls[name]().float(), got), (label, name, 'bits')
         want = plain[name]().float()
         torch.cuda.synchronize()
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
@@ -966,9 +974,10 @@ def _layout_view(t, G, layout):
 
 
 def check_edges(device, errors):
-    """The forward (both epilogues) and dW kernels against their plain
+    """The forward (both epilogues), dx and dW kernels against their plain
     versions, and two calls bit-equal, at GCONV_EDGES on both layouts and
-    on a view whose groups are not contiguous, in f32 and bf16."""
+    on a view whose groups are not contiguous, and dx on a dz expanded
+    along T (autograd's gradient of a sum, stride 0), in f32 and bf16."""
     for Bn, T, G, ci, co, K, d in GCONV_EDGES:
         lpad, _ = conv_padding(K, d, 1)
         g = torch.Generator().manual_seed(SEED + Bn + T + ci)
@@ -981,69 +990,84 @@ def check_edges(device, errors):
             for layout in GCONV_LAYOUTS + ('strided',):
                 xs, zs = _layout_view(x, G, layout), _layout_view(dz, G, layout)
                 y = _layout_view(torch.empty_like(dz), G, layout)
-                yp = y.clone()
-                calls = {'forward': lambda: grouped_conv._launch_forward(
-                             xs, w, None, lpad, d, y),
-                         'forward+bias': lambda: grouped_conv._launch_forward(
-                             xs, w, b, lpad, d, y),
-                         'dw': lambda: grouped_conv._launch_dw(xs, zs, w, lpad, d)}
-                plain = {'forward': lambda: grouped_conv.conv_forward_reference(
-                             xs, w, None, lpad, d, yp),
-                         'forward+bias': lambda: grouped_conv.conv_forward_reference(
-                             xs, w, b, lpad, d, yp),
-                         'dw': lambda: grouped_conv.conv_dw_reference(
-                             xs, zs, w, lpad, d)}
+                dx = _layout_view(torch.empty_like(x), G, layout)
+                calls = _gconv_calls(xs, zs, w, b, lpad, d, y, dx, KERNEL_FNS)
+                plain = _gconv_calls(xs, zs, w, b, lpad, d, y.clone(),
+                                     dx.clone(), PLAIN_FNS)
                 _gconv_compare(calls, plain, errors,
                                (Bn, T, G, ci, co, K, d, layout, dtype))
-    for k in ('forward', 'dw'):
+            zs = to_split(dz[:, :1].expand(dz.shape), G)     # stride 0 along T
+            dx = to_split(torch.empty_like(x), G)
+            _gconv_compare(
+                {'dx': lambda: grouped_conv._launch_dx(zs, w, lpad, d, dx)},
+                {'dx': lambda: grouped_conv.conv_dx_reference(
+                    zs, w, lpad, d, dx.clone())},
+                errors, (Bn, T, G, ci, co, K, d, 'expanded', dtype))
+    for k in GCONV_KERNELS:
         e = errors[k]
         print(f'grouped conv {k:8s} kernel vs plain and bit-equal across two '
               f'calls at {len(GCONV_EDGES)} edge shapes too: f32 share '
               f'{e[torch.float32][1]:.2e}, bf16 {e[torch.bfloat16][1]:.2e}')
 
 
-def check_forward_nonfinite(device):
-    """NaN, +inf and -inf planted in x (NONFINITE): the forward kernel's
-    outputs are NaN, +inf and -inf exactly where the plain version's are
-    (run on the CPU, whose direct convolution puts them only where a
-    window holds one), its finite outputs within TOL; both layouts, both
-    epilogues, f32 and bf16.  Returns how many outputs were NaN and inf."""
+def check_nonfinite(device):
+    """NaN, +inf and -inf planted in x (NONFINITE) for the forward and in
+    dz for dx: the kernels' outputs are NaN, +inf and -inf exactly where
+    the plain version's are (run on the CPU, whose direct convolution puts
+    them only where a window holds one), their finite outputs within TOL
+    (the forward) or GRAD_TOL (dx); both layouts, the forward's two
+    epilogues, f32 and bf16.  Returns {kernel: how many outputs were NaN
+    and inf}."""
     Bn, C, T = NONFINITE_SHAPE
-    counts = {'nan': 0, 'inf': 0}
+    counts = {k: {'nan': 0, 'inf': 0} for k in ('forward', 'dx')}
+    runs = dict.fromkeys(counts, 0)
     for K, d in ((5, 1), (7, 2)):
         lpad, _ = conv_padding(K, d, 1)
         g = torch.Generator().manual_seed(SEED + 13 * K + d)
-        x, _, w, b = _gconv_operands(C, T, Bn, K, d, torch.float32, 'cpu', g)
+        x, dz, w, b = _gconv_operands(C, T, Bn, K, d, torch.float32, 'cpu', g)
         for bi, t, c, v in NONFINITE:
             x[bi, t, c] = v
+            dz[bi, t, c] = v
         for dtype in (torch.float32, torch.bfloat16):
+            wc = w.to(dtype)
             for layout in GCONV_LAYOUTS:
-                for bias in (None, b):
-                    xc, wc = x.to(dtype), w.to(dtype)
+                cases = [('forward', x, bias) for bias in (None, b)]
+                cases.append(('dx', dz, None))
+                for name, src, bias in cases:
+                    sc = src.to(dtype)
                     bc = None if bias is None else bias.to(dtype)
-                    want = grouped_conv.conv_forward_reference(
-                        to_split(xc, GROUPS), wc, bc, lpad, d,
-                        torch.empty((Bn, C // GROUPS, T, GROUPS),
-                                    dtype=dtype)).float()
-                    xs = _layout_view(xc.to(device), GROUPS, layout)
-                    y = _layout_view(torch.empty_like(xc, device=device),
+                    out = torch.empty((Bn, C // GROUPS, T, GROUPS), dtype=dtype)
+                    ss = _layout_view(sc.to(device), GROUPS, layout)
+                    o = _layout_view(torch.empty_like(sc, device=device),
                                      GROUPS, layout)
-                    got = grouped_conv._launch_forward(
-                        xs, wc.to(device), None if bc is None else bc.to(device),
-                        lpad, d, y).float().cpu()
-                    label = (K, d, dtype, layout, bias is not None)
+                    if name == 'forward':
+                        want = grouped_conv.conv_forward_reference(
+                            to_split(sc, GROUPS), wc, bc, lpad, d, out)
+                        got = grouped_conv._launch_forward(
+                            ss, wc.to(device),
+                            None if bc is None else bc.to(device), lpad, d, o)
+                    else:
+                        want = grouped_conv.conv_dx_reference(
+                            to_split(sc, GROUPS), wc, lpad, d, out)
+                        got = grouped_conv._launch_dx(ss, wc.to(device), lpad,
+                                                      d, o)
+                    got, want = got.float().cpu(), want.float()
+                    label = (name, K, d, dtype, layout, bias is not None)
                     for test in (torch.isnan, torch.isposinf, torch.isneginf):
                         assert torch.equal(test(got), test(want)), (label, test)
                     finite = torch.isfinite(want)
                     err = float((got[finite] - want[finite]).abs().max())
                     scale = float(want[finite].abs().max())
-                    assert err <= TOL[dtype] * scale, (label, err, scale)
-                    counts['nan'] += int(torch.isnan(want).sum())
-                    counts['inf'] += int(torch.isinf(want).sum())
-    assert counts['nan'] > 0 and counts['inf'] > 0, counts
-    print(f'grouped conv forward  NaN/inf inputs: outputs NaN and +-inf '
-          f'where the plain version\'s are ({counts["nan"]} NaN, '
-          f'{counts["inf"]} inf over 16 runs), finite ones within TOL')
+                    tol = (TOL if name == 'forward' else GRAD_TOL)[dtype]
+                    assert err <= tol * scale, (label, err, scale)
+                    counts[name]['nan'] += int(torch.isnan(want).sum())
+                    counts[name]['inf'] += int(torch.isinf(want).sum())
+                    runs[name] += 1
+    for name, n in counts.items():
+        assert n['nan'] > 0 and n['inf'] > 0, (name, n)
+        print(f'grouped conv {name:8s} NaN/inf inputs: outputs NaN and +-inf '
+              f'where the plain version\'s are ({n["nan"]} NaN, {n["inf"]} '
+              f'inf over {runs[name]} runs), finite ones within tolerance')
     return counts
 
 
@@ -1108,7 +1132,7 @@ def check_gconv_kernels(device):
               f'(share {e[torch.float32][1]:.2e}), bf16 '
               f'{e[torch.bfloat16][0]:.3e} (share {e[torch.bfloat16][1]:.2e})')
     check_edges(device, errors)
-    nonfinite = check_forward_nonfinite(device)
+    nonfinite = check_nonfinite(device)
 
     rows = []
     K, d = 5, 1                         # the flagship's conv5 nodes
@@ -1638,8 +1662,8 @@ def gconv_entry(name, errors, rows, train, logits, grads, nonfinite):
                     "'pallas' layout (dense [B, T, C]), split_* in the "
                     "'pallas_split' layout; library_ms one cuDNN call per "
                     'node on inputs in its own layout',
-        checked_at={'forward': GCONV_FWD_CHECKED_AT,
-                    'dw': GCONV_DW_CHECKED_AT}.get(name, GCONV_CHECKED_AT),
+        checked_at={'forward': GCONV_FWD_CHECKED_AT, 'dx': GCONV_DX_CHECKED_AT,
+                    'dw': GCONV_DW_CHECKED_AT}[name],
         per_width=[r for r in rows if r['kernel'] == name],
         device_ms=step('dense', 'device_ms'),
         library_device_ms=step('dense', 'library_device_ms'),
@@ -1654,9 +1678,10 @@ def gconv_entry(name, errors, rows, train, logits, grads, nonfinite):
             impl: n for impl, (_, n) in logits.items()}
         entry['logits_vs_fused_share'] = {
             impl: share for impl, (share, _) in logits.items()}
-        entry['nonfinite_outputs_checked'] = nonfinite
     else:
         entry['step_gradient_worst_share'] = grads
+    if name in nonfinite:
+        entry['nonfinite_outputs_checked'] = nonfinite[name]
     return entry
 
 

@@ -6,7 +6,10 @@
 // (_fwd_kernel, _dx_kernel and _dw_kernel, which grouped_conv1d and its
 // custom VJP reach: grouped_impl='pallas') and of nbasr_tpu/ops/cell_ops.py
 // (_fwd_kernel with its bias and clip-ReLU, _dx_kernel, and grouped_conv's
-// _dw_kernel again: grouped_impl='pallas_split').
+// _dw_kernel again: grouped_impl='pallas_split').  The input gradient,
+// nbasr_gconv_dx, replaces both _dx_kernel bodies:
+// nbasr_tpu/ops/grouped_conv.py:56 (pallas_call :182) and
+// nbasr_tpu/ops/cell_ops.py:78 (pallas_call :171).
 //
 // Layouts.  Every activation is addressed as the view [B, c, T, G] through
 // the four strides the caller gives, in elements.  A dense [B, T, C] tensor
@@ -78,10 +81,26 @@
 //       in f32 before the one rounding;
 //     - each output has one owner and a fixed order of summation, so two
 //       calls give the same bits.
-//   dx (simple first): one thread per (b, t, g), g fastest, holding up to
-//     kOut input channels of its group in registers; the K*co values of dz
-//     in its window and the weights are read through L1, where the threads
-//     of a warp share them.
+//   dx: the forward above, run on dz with the weights transposed and their
+//     taps reversed (the identity the JAX wrappers use when they pad dz by
+//     (span - lpad, lpad) and transpose the weights):
+//       dx[b,c,t,g] = sum_{k',o} dz[b,o,t+k'*d-rpad,g] * w'[k',o,g*ci+c],
+//       k' = K-1-k, rpad = (K-1)*d - lpad, w'[k',o,g*ci+c] = w[K-1-k',c,g*co+o],
+//     so its "input" has co channels a group, its "output" ci, and its
+//     halo is mirrored (rpad on the left: the cells pad asymmetrically).
+//     The same bound, 0.3214 ms of bytes for a flagship bf16 train step's
+//     54 nodes, and the same 11.95 G FMAs.  nbasr_gconv_dx shares the
+//     forward's body (conv_units) and differs only where it stages the
+//     weights: per block or per chunk, off the inner loop, into the same
+//     f32 [K][cc][gs][wstride] layout, wsm[k'][o][g][c] = w[K-1-k', c,
+//     g*co+o], read along w's contiguous (g, o) run, per tap the loads of
+//     up to 8 of its channels c in flight; chunks of cc then run over o
+//     and wstride follows ci, so the register tile, the loader (dz staged
+//     with the mirrored halo, zero outside its own utterance, any strides)
+//     and the output tile (the identity epilogue, one rounding, wide
+//     vectors) are the forward's.  Its own launch plan (fwd_plan with the dims swapped)
+//     and occupancy entry point; each dx element has one owner and a fixed
+//     order of summation, so two calls give the same bits.
 //   dW: per group a product [K*ci, rows] x [rows, co] over the B*T rows, so
 //     it is bound by how often each activation is read and by how many
 //     partial sums go back to memory.  The launch plan (dw_plan in
@@ -109,7 +128,7 @@
 //     Any ci, co, K, d, lpad, B, T run: taps past the instantiated tile
 //     (KT 7, else chunks of 5) and outputs past OT (6, 8, 10, 12) take
 //     further items of the same kernel, whose overhanging sums are dropped
-//     (the forward likewise, with its own tiles).
+//     (the forward and dx likewise, with their own tiles).
 // Each entry point returns the first cudaError_t of its launches.
 
 #include <cuda_bf16.h>
@@ -121,65 +140,14 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kOut = 16;  // dx: input channels a thread holds at once
 
 struct View {
   long long b, c, t, g;
 };
 
-__device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);
-}
-
-// Thread i of `items` = B*T*G as (b, t, g), g fastest.
-__device__ __forceinline__ bool thread_btg(long long items, int t_len, int groups, long long* b,
-                                           int* t, int* g) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= items) return false;
-  *g = static_cast<int>(i % groups);
-  const long long bt = i / groups;
-  *t = static_cast<int>(bt % t_len);
-  *b = bt / t_len;
-  return true;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    nbasr_gconv_dx(const T* __restrict__ dz, View zv, const T* __restrict__ w, T* __restrict__ dx,
-                   View xv, long long items, int t_len, int groups, int ci, int co, int K, int d,
-                   int lpad) {
-  long long b;
-  int t, g;
-  if (!thread_btg(items, t_len, groups, &b, &t, &g)) return;
-  const long long c_out = static_cast<long long>(groups) * co;
-  const T* zb = dz + b * zv.b + g * zv.g;
-  T* xb = dx + b * xv.b + t * xv.t + g * xv.g;
-  const T* wg = w + static_cast<long long>(g) * co;
-  for (int c0 = 0; c0 < ci; c0 += kOut) {
-    float acc[kOut];
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int tz = t + lpad - k * d;
-      if (tz < 0 || tz >= t_len) continue;
-      const T* zs = zb + tz * zv.t;
-      const T* wk = wg + (static_cast<long long>(k) * ci + c0) * c_out;
-      for (int o = 0; o < co; ++o) {
-        const float zval = load(zs, o * zv.c);
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          if (c0 + j < ci) acc[j] += zval * load(wk, j * c_out + o);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kOut; ++j)
-      if (c0 + j < ci) store(xb, (c0 + j) * xv.c, acc[j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -510,7 +478,8 @@ constexpr int kFwdThreads = 256;
 constexpr int kFwdRt = 7;  // times a thread holds (odd: a warp's time tiles on other banks)
 constexpr int kFwdPlanInts = 21;
 
-// How nbasr_grouped_conv_forward cuts the work, in the order of
+// How nbasr_grouped_conv_forward (and nbasr_grouped_conv_dx, as the
+// forward on dz) cuts the work, in the order of
 // nbasr_torch/ops/grouped_conv.py FWD_PLAN_FIELDS (fwd_plan says what each
 // is).
 struct FwdPlan {
@@ -518,30 +487,63 @@ struct FwdPlan {
       x_buf, y_buf, w_buf, smem, threads;
 };
 
-// wsm[((k*cc + c)*gs + g)*wstride + o] = w[k, c0 + c, (g0 + g)*co + o] in
-// f32 for the cn channels from c0; one division per (g, o), and per tap
-// the loads of up to 8 channels in flight before their stores (the weights
-// come from L2, whose latency a load-store loop would pay per element).
-template <typename T>
+// The weights of the cn input channels from c0, in f32: for the forward
+// (kDx false) wsm[((k*cc + c)*gs + g)*wstride + o] = w[k, c0 + c, (g0 +
+// g)*co + o]; for the input gradient (kDx true, ci the channels of dz and
+// co those of dx, w [K, co, G*ci]) the same layout transposed and with its
+// taps reversed, wsm[((k*cc + c)*gs + g)*wstride + o] = w[K-1-k, o, (g0 +
+// g)*ci + c0 + c].  Either way consecutive threads read along w's
+// contiguous run (the slab's (g, o) in the forward, its (g, c) in dx), one
+// division per element of the run, and per tap the loads of up to 8 of
+// w's rows are in flight before their stores (the weights come from L2,
+// whose latency a load-store loop would pay per element).  Two loops, not
+// one with the roles as variables: with that form ptxas gave the forward's
+// bf16 5 x 6 tile 80 registers and spills, and the forward slowed
+// (nbasr_torch/tools/step_ab.py --gconv reports both).
+template <bool kDx, typename T>
 __device__ __forceinline__ void stage_weights(float* wsm, const T* __restrict__ w, int c0, int cn,
-                                              const FwdPlan& p, int geff, int g0, int ci, int co,
-                                              int K, long long c_out) {
+                                              const FwdPlan& p, int geff, int g0, int groups,
+                                              int ci, int co, int K) {
   constexpr int kBatch = 8;
-  const T* const wg = w + static_cast<long long>(c0) * c_out + static_cast<long long>(g0) * co;
   const int tap = p.cc * p.gs * p.wstride;
   const int chan = p.gs * p.wstride;
-  for (int j = threadIdx.x; j < geff * co; j += blockDim.x) {
-    const int g = j / co;
-    float* const dst = wsm + g * p.wstride + (j - g * co);
-    for (int k = 0; k < K; ++k) {
-      for (int cb = 0; cb < cn; cb += kBatch) {
-        const T* const src = wg + (static_cast<long long>(k) * ci + cb) * c_out + j;
-        float v[kBatch];
+  if constexpr (!kDx) {
+    const long long c_out = static_cast<long long>(groups) * co;
+    const T* const wg = w + static_cast<long long>(c0) * c_out + static_cast<long long>(g0) * co;
+    for (int j = threadIdx.x; j < geff * co; j += blockDim.x) {
+      const int g = j / co;
+      float* const dst = wsm + g * p.wstride + (j - g * co);
+      for (int k = 0; k < K; ++k) {
+        for (int cb = 0; cb < cn; cb += kBatch) {
+          const T* const src = wg + (static_cast<long long>(k) * ci + cb) * c_out + j;
+          float v[kBatch];
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i) v[i] = cb + i < cn ? to_f(src[i * c_out]) : 0.0f;
+          for (int i = 0; i < kBatch; ++i) v[i] = cb + i < cn ? to_f(src[i * c_out]) : 0.0f;
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i)
-          if (cb + i < cn) dst[k * tap + (cb + i) * chan] = v[i];
+          for (int i = 0; i < kBatch; ++i)
+            if (cb + i < cn) dst[k * tap + (cb + i) * chan] = v[i];
+        }
+      }
+    }
+  } else {
+    const long long row = static_cast<long long>(groups) * ci;  // w's [K, co, G*ci] rows
+    const T* const wg = w + static_cast<long long>(g0) * ci + c0;
+    for (int j = threadIdx.x; j < geff * cn; j += blockDim.x) {
+      const int g = j / cn;
+      const int c = j - g * cn;
+      float* const dst = wsm + g * p.wstride + c * chan;
+      const T* const src0 = wg + static_cast<long long>(g) * ci + c;
+      for (int k = 0; k < K; ++k) {
+        const T* const src = src0 + static_cast<long long>(K - 1 - k) * co * row;
+        float* const dk = dst + k * tap;
+        for (int ob = 0; ob < co; ob += kBatch) {
+          float v[kBatch];
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) v[i] = ob + i < co ? to_f(src[(ob + i) * row]) : 0.0f;
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i)
+            if (ob + i < co) dk[ob + i] = v[i];
+        }
       }
     }
   }
@@ -599,12 +601,14 @@ __device__ __forceinline__ void sum_channels(float (&acc)[RT][OT], const T* tile
 // takes the x tile's place.  Taps come in chunks of KT (a last, shorter
 // chunk skips its missing taps), input channels in chunks of cc whose
 // weights are staged in turn.  Outputs past co and times past T are summed
-// and dropped.
-template <typename T, int KT, int RT, int OT, bool kBiasRelu>
-__global__ void __launch_bounds__(kFwdThreads)
-    nbasr_gconv_fwd(const T* __restrict__ x, Stage xs, const T* __restrict__ w,
-                    const T* __restrict__ bias, T* __restrict__ y, Stage ys, FwdPlan p, int batch,
-                    int t_len, int groups, int ci, int co, int K, int d, int lpad) {
+// and dropped.  kDx: the weights are the input gradient's, staged
+// transposed and tap-reversed (stage_weights), x is dz and y is dx.
+template <typename T, int KT, int RT, int OT, bool kBiasRelu, bool kDx>
+__device__ __forceinline__ void conv_units(const T* __restrict__ x, Stage xs,
+                                           const T* __restrict__ w, const T* __restrict__ bias,
+                                           T* __restrict__ y, Stage ys, FwdPlan p, int batch,
+                                           int t_len, int groups, int ci, int co, int K, int d,
+                                           int lpad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the x tiles (two where a block walks more than one unit), the output
   // tile where the threads make more than one pass, then the weights
@@ -634,7 +638,6 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int oq = rest / ntt;
   const int r0 = tt % d + d * RT * (tt / d);
   const bool live = gl < geff;
-  const long long c_out = static_cast<long long>(groups) * co;
   const SmemView sx = smem_view(xs.mode, ci, p.gs);
   const SmemView sy = smem_view(ys.mode, co, p.gs);
   const int xstep = d * sx.t;  // one window element
@@ -669,7 +672,7 @@ __global__ void __launch_bounds__(kFwdThreads)
         const int cn = min(p.cc, ci - c0);
         if (restage || (u == u0 && q0 == 0)) {
           if (c0 > 0 || q0 > 0) __syncthreads();  // the chunk before is no longer read
-          stage_weights(wsm, w, c0, cn, p, geff, g0, ci, co, K, c_out);
+          stage_weights<kDx>(wsm, w, c0, cn, p, geff, g0, groups, ci, co, K);
         }
         if (c0 == 0 && q0 == 0)
           asm volatile("cp.async.wait_group 1;\n" ::);  // this unit's tile is in
@@ -702,26 +705,35 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-View view(const long long* s) { return View{s[0], s[1], s[2], s[3]}; }
-
-unsigned blocks_for(long long n) {
-  const long long b = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < 2147483647LL ? b : 2147483647LL);
+// The forward: y (co channels) = the grouped conv of x (ci channels) with
+// w [K, ci, G*co], with or without the bias + clip-ReLU epilogue.
+template <typename T, int KT, int RT, int OT, bool kBiasRelu>
+__global__ void __launch_bounds__(kFwdThreads)
+    nbasr_gconv_fwd(const T* __restrict__ x, Stage xs, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ y, Stage ys, FwdPlan p, int batch,
+                    int t_len, int groups, int ci, int co, int K, int d, int lpad) {
+  conv_units<T, KT, RT, OT, kBiasRelu, false>(x, xs, w, bias, y, ys, p, batch, t_len, groups, ci,
+                                              co, K, d, lpad);
 }
+
+// The input gradient: dx (ci channels) for dz (co channels) through w [K,
+// ci, G*co] of a conv padded lpad on the left, as the forward on dz with
+// the weights transposed, the taps reversed and the halo mirrored (rpad =
+// (K-1)*d - lpad on the left); no epilogue.
+template <typename T, int KT, int RT, int OT>
+__global__ void __launch_bounds__(kFwdThreads)
+    nbasr_gconv_dx(const T* __restrict__ dz, Stage zs, const T* __restrict__ w,
+                   T* __restrict__ dx, Stage xs, FwdPlan p, int batch, int t_len, int groups,
+                   int ci, int co, int K, int d, int rpad) {
+  conv_units<T, KT, RT, OT, false, true>(dz, zs, w, nullptr, dx, xs, p, batch, t_len, groups, co,
+                                         ci, K, d, rpad);
+}
+
+View view(const long long* s) { return View{s[0], s[1], s[2], s[3]}; }
 
 bool bad_dims(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad) {
   return batch < 0 || t_len < 0 || groups < 1 || ci < 1 || co < 1 || K < 1 || d < 1 ||
          lpad < 0 || lpad > (K - 1) * d;
-}
-
-template <typename T>
-int input_grad(int batch, int t_len, int groups, int ci, int co, int K, int d, int lpad,
-               const T* dz, View zv, const T* w, T* dx, View xv, cudaStream_t s) {
-  const long long items = static_cast<long long>(batch) * t_len * groups;
-  if (items == 0) return cudaSuccess;
-  nbasr_gconv_dx<T><<<blocks_for(items), kThreads, 0, s>>>(dz, zv, w, dx, xv, items, t_len,
-                                                           groups, ci, co, K, d, lpad);
-  return cudaGetLastError();
 }
 
 // A plan the kernel can run: what dw_plan makes, checked again here.
@@ -890,11 +902,10 @@ int with_fwd_tile(int kt, int ot, F&& f) {
   return -1;
 }
 
-template <typename T, int KT, int OT, bool kBiasRelu>
-int launch_fwd(const FwdPlan& p, int batch, int t_len, int groups, int ci, int co, int K, int d,
-               int lpad, const T* x, const Stage& xs, const T* w, const T* bias, T* y,
-               const Stage& ys, cudaStream_t s) {
-  const auto kernel = nbasr_gconv_fwd<T, KT, kFwdRt, OT, kBiasRelu>;
+// Launches one of the plan's kernels (the forward or dx) on its grid:
+// slabs * ceil(B * tiles / span) blocks of p.threads threads.
+template <typename Kernel, typename... Args>
+int launch_units(Kernel kernel, const FwdPlan& p, int batch, cudaStream_t s, Args... args) {
   if (p.smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -902,9 +913,7 @@ int launch_fwd(const FwdPlan& p, int batch, int t_len, int groups, int ci, int c
   }
   const long long units = static_cast<long long>(batch) * p.tiles;
   const long long blocks = p.slabs * ((units + p.span - 1) / p.span);
-  kernel<<<static_cast<unsigned>(blocks), p.threads, p.smem, s>>>(x, xs, w, bias, y, ys, p, batch,
-                                                                  t_len, groups, ci, co, K, d,
-                                                                  lpad);
+  kernel<<<static_cast<unsigned>(blocks), p.threads, p.smem, s>>>(args...);
   return cudaGetLastError();
 }
 
@@ -919,10 +928,28 @@ int forward(int batch, int t_len, int groups, int ci, int co, int K, int d, int 
   const int err = with_fwd_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
     constexpr int KT = decltype(kt)::value, OT = decltype(ot)::value;
     if (bias)
-      return launch_fwd<T, KT, OT, true>(p, batch, t_len, groups, ci, co, K, d, lpad, x, xs, w,
-                                         bias, y, ys, s);
-    return launch_fwd<T, KT, OT, false>(p, batch, t_len, groups, ci, co, K, d, lpad, x, xs, w,
-                                        nullptr, y, ys, s);
+      return launch_units(nbasr_gconv_fwd<T, KT, kFwdRt, OT, true>, p, batch, s, x, xs, w, bias,
+                          y, ys, p, batch, t_len, groups, ci, co, K, d, lpad);
+    return launch_units(nbasr_gconv_fwd<T, KT, kFwdRt, OT, false>, p, batch, s, x, xs, w,
+                        static_cast<const T*>(nullptr), y, ys, p, batch, t_len, groups, ci, co,
+                        K, d, lpad);
+  });
+  return err < 0 ? cudaErrorInvalidValue : err;
+}
+
+// The plan is the forward's for the conv on dz: co input channels, ci
+// outputs, rpad = (K-1)*d - lpad on the left.
+template <typename T>
+int dx_as_forward(int batch, int t_len, int groups, int ci, int co, int K, int d, int rpad,
+                  const T* dz, View zv, const T* w, T* dx, View xv, const FwdPlan& p,
+                  cudaStream_t s) {
+  if (static_cast<long long>(batch) * t_len == 0) return cudaSuccess;
+  if (bad_fwd_plan(p, sizeof(T), batch, t_len, groups, co, ci, K, d)) return cudaErrorInvalidValue;
+  const Stage zs{zv, co, p.x_mode, p.x_vec}, xs{xv, ci, p.y_mode, p.y_vec};
+  if (!stage_fits(zs, sizeof(T)) || !stage_fits(xs, sizeof(T))) return cudaErrorInvalidValue;
+  const int err = with_fwd_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
+    return launch_units(nbasr_gconv_dx<T, decltype(kt)::value, kFwdRt, decltype(ot)::value>, p,
+                        batch, s, dz, zs, w, dx, xs, p, batch, t_len, groups, ci, co, K, d, rpad);
   });
   return err < 0 ? cudaErrorInvalidValue : err;
 }
@@ -981,23 +1008,45 @@ extern "C" int nbasr_grouped_conv_fwd_blocks_per_sm(int bf16, int kt, int ot, in
 }
 
 // dx (a [B, ci, T, G] view) = the input gradient for dz (a [B, co, T, G]
-// view) through w [K, ci, G*co].
+// view) through w [K, ci, G*co] of a conv padded (K-1)*d - rpad on the
+// left: the forward on dz with the weights transposed and their taps
+// reversed, padded rpad on the left, cut as plan says (fwd_plan of the
+// conv on dz: G groups of co input and ci output channels).
 extern "C" int nbasr_grouped_conv_dx(int bf16, int batch, int t_len, int groups, int ci, int co,
-                                     int K, int d, int lpad, const void* dz,
+                                     int K, int d, int rpad, const void* dz,
                                      const long long* dz_strides, const void* w, void* dx,
-                                     const long long* dx_strides, void* stream) {
-  if (bad_dims(batch, t_len, groups, ci, co, K, d, lpad)) return cudaErrorInvalidValue;
+                                     const long long* dx_strides, const int* plan, void* stream) {
+  if (bad_dims(batch, t_len, groups, ci, co, K, d, rpad) || !plan) return cudaErrorInvalidValue;
+  FwdPlan p;
+  std::memcpy(&p, plan, sizeof(p));
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     using T = __nv_bfloat16;
-    return input_grad<T>(batch, t_len, groups, ci, co, K, d, lpad, static_cast<const T*>(dz),
-                         view(dz_strides), static_cast<const T*>(w), static_cast<T*>(dx),
-                         view(dx_strides), s);
+    return dx_as_forward<T>(batch, t_len, groups, ci, co, K, d, rpad, static_cast<const T*>(dz),
+                            view(dz_strides), static_cast<const T*>(w), static_cast<T*>(dx),
+                            view(dx_strides), p, s);
   }
-  return input_grad<float>(batch, t_len, groups, ci, co, K, d, lpad,
-                           static_cast<const float*>(dz), view(dz_strides),
-                           static_cast<const float*>(w), static_cast<float*>(dx),
-                           view(dx_strides), s);
+  return dx_as_forward<float>(batch, t_len, groups, ci, co, K, d, rpad,
+                              static_cast<const float*>(dz), view(dz_strides),
+                              static_cast<const float*>(w), static_cast<float*>(dx),
+                              view(dx_strides), p, s);
+}
+
+// Resident blocks per SM of the dx kernel with a plan's register tile (kt,
+// ot), threads and shared memory bytes, from the CUDA occupancy
+// calculator; -1 for a tile that is not instantiated or an error.
+extern "C" int nbasr_grouped_conv_dx_blocks_per_sm(int bf16, int kt, int ot, int threads,
+                                                   int smem) {
+  if (threads < 1 || threads > kFwdThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return with_fwd_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      constexpr int KT = decltype(a)::value, OT = decltype(b)::value;
+      return occupancy(nbasr_gconv_dx<__nv_bfloat16, KT, kFwdRt, OT>, threads, smem);
+    });
+  return with_fwd_tile<float>(kt, ot, [&](auto a, auto b) {
+    constexpr int KT = decltype(a)::value, OT = decltype(b)::value;
+    return occupancy(nbasr_gconv_dx<float, KT, kFwdRt, OT>, threads, smem);
+  });
 }
 
 // dw [K, ci, G*co] (contiguous, x's dtype) = the weight gradient for x (a

@@ -516,7 +516,7 @@ _S = ctypes.POINTER(ctypes.c_longlong)
 _DIMS = [ctypes.c_int] * 9          # bf16, B, T, G, ci, co, K, d, lpad
 _PLAN = ctypes.POINTER(ctypes.c_int)
 _FWD_ARGS = _DIMS + [_P, _S, _P, _P, _P, _S, _PLAN, _P]
-_DX_ARGS = _DIMS + [_P, _S, _P, _P, _S, _P]
+_DX_ARGS = _DIMS + [_P, _S, _P, _P, _S, _PLAN, _P]
 _DW_ARGS = _DIMS + [_P, _S, _P, _S, _P, _P, ctypes.POINTER(ctypes.c_int), _P]
 
 
@@ -572,8 +572,8 @@ def _sm_count(device):
 
 @functools.lru_cache(maxsize=None)
 def _blocks_per_sm(device, kernel, bf16, kt, ot, threads, smem):
-    """Resident blocks per SM of the card for the ``'dw'`` or ``'fwd'``
-    kernel, from the CUDA occupancy calculator."""
+    """Resident blocks per SM of the card for the ``'dw'``, ``'fwd'`` or
+    ``'dx'`` kernel, from the CUDA occupancy calculator."""
     fn = _build.function('grouped_conv',
                          f'nbasr_grouped_conv_{kernel}_blocks_per_sm',
                          [ctypes.c_int] * 5)
@@ -585,16 +585,19 @@ def _blocks_per_sm(device, kernel, bf16, kt, ot, threads, smem):
     return blocks
 
 
-_PLANS = {'dw': (dw_plan, DW_PLAN_FIELDS), 'fwd': (fwd_plan, FWD_PLAN_FIELDS)}
+#: The input gradient runs the forward's machinery on dz, so its plan is
+#: :func:`fwd_plan` of that conv: called with the dims swapped (``co``
+#: input channels, ``ci`` outputs) and dz's and dx's strides.
+_PLANS = {'dw': (dw_plan, DW_PLAN_FIELDS), 'fwd': (fwd_plan, FWD_PLAN_FIELDS),
+          'dx': (fwd_plan, FWD_PLAN_FIELDS)}
 
 
 @functools.lru_cache(maxsize=4096)
 def _launch_plan(device, kernel, *args):
-    """(plan, its ints as the C entry point reads them) of :func:`dw_plan`
-    or :func:`fwd_plan` (``kernel`` ``'dw'`` or ``'fwd'``) on ``device``:
-    its SMs, and its occupancy calculator on the built kernel.  Kept per
-    shape, strides and pointer alignment, so a train step plans each node
-    once."""
+    """(plan, its ints as the C entry point reads them) of ``_PLANS[kernel]``
+    (``'dw'``, ``'fwd'`` or ``'dx'``) on ``device``: its SMs, and its
+    occupancy calculator on the built kernel.  Kept per shape, strides and
+    pointer alignment, so a train step plans each node once."""
     plan_fn, fields = _PLANS[kernel]
     plan = plan_fn(*args, sms=_sm_count(device), blocks_per_sm=functools.partial(
         _blocks_per_sm, device, kernel, int(args[7] == 2)))
@@ -629,9 +632,14 @@ def _launch_dx(dz, w, lpad, dilation, out):
     if dims[5] != co:
         raise ValueError(f'dz has {co} channels per group, the weight '
                          f'{dims[5]}')
+    # the forward on dz with the taps reversed: the halo mirrored
+    dims[8] = _rpad(K, lpad, dilation)
+    _, plan = _launch_plan(dz.device, 'dx', B, T, G, co, ci, K, dilation,
+                           dz.element_size(), dz.stride(), out.stride(),
+                           dz.data_ptr() % 16, out.data_ptr() % 16)
     fn = _build.function('grouped_conv', 'nbasr_grouped_conv_dx', _DX_ARGS)
     err = _run(fn, dz.device, *dims, dz.data_ptr(), _strides(dz),
-               w.data_ptr(), out.data_ptr(), _strides(out), _stream(dz))
+               w.data_ptr(), out.data_ptr(), _strides(out), plan, _stream(dz))
     _build.check(err, 'grouped_conv', 'grouped conv dx')
     LAUNCHES['dx']['kernel'] += 1
     return out

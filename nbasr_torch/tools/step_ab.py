@@ -23,7 +23,11 @@ dense layout with the epilogue-free forward ('pallas') and a contiguous
 split tensor with the bias + clip-ReLU forward ('pallas_split'); per train
 step (9/12/15/18 nodes at the four widths) ``*_events_ms``, the CUDA-event
 median of single calls, and ``*_device_ms``, calls queued behind a spin
-kernel; per node under ``per_node``.
+kernel; per node under ``per_node``; and ``registers``, each grouped conv
+kernel's registers and spill-store bytes as ptxas reported them when the
+root's library was built (a root's ``grouped_conv.cu`` may be a variant
+of another's: put both in one call to see what the compiler made of
+each).
 
 Only the API that every version of the port has is used (``get_model``,
 ``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``, the
@@ -34,6 +38,7 @@ summary line.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +80,22 @@ def gconv_times():
     return out
 
 
+def registers(log):
+    """{kernel: [registers, spill-store bytes]} from ptxas's ``-v`` report
+    (kernel names mangled, from ``nbasr_`` to the template arguments' end)."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"entry function '\w*?(nbasr_\w+)'", line)
+        if m:
+            name, spill = m.group(1).split('EEv')[0], 0
+        elif name and (m := re.search(r'(\d+) bytes spill stores', line)):
+            spill = int(m.group(1))
+        elif name and (m := re.search(r'Used (\d+) registers', line)):
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
+
+
 def measure(root, impl):
     """The timings of one root, in this process (``impl`` a grouped_impl,
     or ``'gconv'`` for the grouped conv kernels alone)."""
@@ -91,9 +112,10 @@ def measure(root, impl):
     from nbasr_torch.training import Trainer
     assert nbasr_torch.__file__.startswith(os.path.abspath(root)), \
         nbasr_torch.__file__
-    _build.build()
+    built = _build.build()
     if impl == 'gconv':
-        return {'root': root, 'impl': impl, **gconv_times()}
+        return {'root': root, 'impl': impl, **gconv_times(),
+                'registers': registers(built['grouped_conv'][1])}
     dev = torch.device('cuda')
     model = get_model([[1, 0], [1, 0, 0], [1, 0, 0, 0]], use_rnn=True,
                       dropout_rate=0.2, data_norm=True,
@@ -150,7 +172,8 @@ def main(argv):
     summary = {}
     for row in rows:
         for k, v in row.items():
-            if k not in ('root', 'impl', 'step_ms_blocks', 'per_node'):
+            if k not in ('root', 'impl', 'step_ms_blocks', 'per_node',
+                         'registers'):
                 summary.setdefault(row['root'], {}).setdefault(k, []).append(v)
     print(json.dumps({'summary': summary}))
 

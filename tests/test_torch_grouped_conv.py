@@ -186,14 +186,15 @@ def test_cpu_runs_the_plain_versions():
 # (B, T, G, ci, co, K, d): the flagship's dW nodes at the train step's B=32,
 # and the edge shapes the card checks (ci = 24, ci = 1, T shorter than the
 # halo, B=1, T not a multiple of the row tile, taps and outputs past the
-# register tile)
+# register tile, one group of 800, ci != co both ways)
 PLAN_SHAPES = [
     (32, 300, 100, 6, 6, 5, 1), (32, 300, 100, 8, 8, 5, 1),
     (32, 150, 100, 10, 10, 5, 1), (32, 75, 100, 12, 12, 5, 1),
     (4, 75, 50, 24, 24, 5, 1), (4, 75, 100, 1, 1, 5, 1),
     (4, 3, 100, 6, 6, 7, 2), (1, 300, 100, 6, 6, 5, 1),
     (4, 77, 100, 12, 12, 7, 2), (2, 10, 3, 30, 30, 9, 1),
-    (2, 20, 1, 800, 800, 5, 2),
+    (2, 20, 1, 800, 800, 5, 2), (4, 75, 100, 6, 12, 5, 1),
+    (2, 13, 3, 14, 2, 5, 2),
 ]
 
 
@@ -335,6 +336,29 @@ def test_fwd_plan_covers_every_output_once(B, T, G, ci, co, K, d, layout,
     xst, yst = _plan_strides(B, T, G, ci, co, layout)
     p = grouped_conv.fwd_plan(B, T, G, ci, co, K, d, esize, xst, yst, 256,
                               512, sms=132)
+    _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst)
+
+
+@pytest.mark.parametrize('esize', [2, 4], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('layout', ['dense', 'split', 'strided'])
+@pytest.mark.parametrize('B,T,G,ci,co,K,d', PLAN_SHAPES)
+def test_dx_plan_covers_every_output_once(B, T, G, ci, co, K, d, layout,
+                                          esize):
+    """The input gradient's launch plan, ``_PLANS['dx']``: the forward's
+    plan of the conv on dz (co input channels, ci outputs, dz's and dx's
+    strides) holds every invariant of the forward's, so every (b, t, g, c)
+    of dx has exactly one owner."""
+    xst, zst = _plan_strides(B, T, G, ci, co, layout)
+    plan_fn, fields = grouped_conv._PLANS['dx']
+    assert fields == grouped_conv.FWD_PLAN_FIELDS
+    p = plan_fn(B, T, G, co, ci, K, d, esize, zst, xst, 256, 512, sms=132)
+    _check_fwd_plan(p, B, T, G, co, ci, K, d, layout, esize, zst, xst)
+
+
+def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst):
+    """The forward plan's invariants (ci, co and the strides: the staged
+    operand's and the output's, at 256 and 512 bytes from an aligned
+    base)."""
     assert set(grouped_conv.FWD_PLAN_FIELDS) <= p.keys()
     b, t, g, o, written = _fwd_owners(p, B, T, G, co, d)
     idx = ((b * T + t) * G + g) * co + o
@@ -455,11 +479,14 @@ def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
 
 
 def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
-                     esize, bounds=True):
+                     esize, bounds=True, dx=False):
     """The forward kernel's loader, weight staging, register tiles and
     store in numpy (f64 sums), on flat memory addressed by the strides;
     shared memory starts as NaN, so a read of what was never staged shows
-    in an output.  Unwritten outputs stay NaN."""
+    in an output.  Unwritten outputs stay NaN.  With ``dx`` the input
+    gradient's kernel, the same body on dz: ``x`` is dz (``ci`` its
+    channels), the output dx (``co``), ``w`` the conv's ``[K, co, G*ci]``,
+    staged transposed and tap-reversed, and ``lpad`` the mirrored pad."""
     gs, rows, x_buf, y_buf = p['gs'], p['rows'], p['x_buf'], p['y_buf']
     y = np.full(B * co * T * G, np.nan)
     units = B * p['tiles']
@@ -488,7 +515,7 @@ def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
                 stage(u + 1)
             yt = out_tile if y_buf else tile(u)
             _emulate_unit(tile(u), yt, wsm, w, bias, p, ci, co, K, d, g0,
-                          geff, first=u == u0)
+                          geff, first=u == u0, dx=dx)
             t0 = u % p['tiles'] * rows
             _emulate_copy(y, yst, yt, co, p['y_mode'], p['y_vec'], esize,
                           u // p['tiles'] * yst[0] + g0 * yst[3] + t0 * yst[2],
@@ -496,11 +523,12 @@ def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
     return y
 
 
-def _emulate_unit(tile, yt, wsm, w, bias, p, ci, co, K, d, g0, geff, first):
-    """One unit of a forward block: per pass over the output tiles, its
-    threads' register tiles summed over the channel chunks (each chunk's
-    weights staged first where they are staged a chunk at a time, or on
-    the block's ``first`` unit and pass), then written into ``yt``."""
+def _emulate_unit(tile, yt, wsm, w, bias, p, ci, co, K, d, g0, geff, first,
+                  dx=False):
+    """One unit of a forward (or ``dx``) block: per pass over the output
+    tiles, its threads' register tiles summed over the channel chunks (each
+    chunk's weights staged first where they are staged a chunk at a time,
+    or on the block's ``first`` unit and pass), then written into ``yt``."""
     gs, rows, rt, kt, ot, ws, cc = (p[k] for k in ('gs', 'rows', 'rt', 'kt',
                                                    'ot', 'wstride', 'cc'))
     ntt, tap = rows // rt, cc * gs * ws
@@ -526,7 +554,16 @@ def _emulate_unit(tile, yt, wsm, w, bias, p, ci, co, K, d, g0, geff, first):
                                 np.tile(b0, (rt, 1))))
         for c0 in range(0, ci, cc):
             cn = min(cc, ci - c0)
-            if cc < ci or (first and q0 == 0):
+            if (cc < ci or (first and q0 == 0)) and dx:
+                # stage_weights<kDx>: thread j on w's (g, c) run, its tap k
+                # from w's K-1-k, every output o
+                for j in range(geff * cn):
+                    g, c = divmod(j, cn)
+                    for k in range(K):
+                        for o in range(co):
+                            wsm[k * tap + c * gs * ws + g * ws + o] = w[
+                                K - 1 - k, o, (g0 + g) * ci + c0 + c]
+            elif cc < ci or (first and q0 == 0):
                 for j in range(geff * co):
                     g, o = divmod(j, co)
                     for k in range(K):
@@ -594,9 +631,14 @@ EMULATED = [
 ]
 
 
-def _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice):
+def _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice,
+                   kernel='fwd'):
+    """The plan of ``_PLANS[kernel]`` (``'dx'``: ci, co and the strides
+    those of the conv on dz), or the candidate that cuts the work as
+    ``choice`` says."""
     if choice == 'plan':
-        return grouped_conv.fwd_plan(B, T, G, ci, co, K, d, esize, xst, yst)
+        return grouped_conv._PLANS[kernel][0](B, T, G, ci, co, K, d, esize,
+                                              xst, yst)
     plans = [p for _, p in grouped_conv.fwd_candidates(
         B, T, G, ci, co, K, d, esize, xst, yst)]
     if choice == 'passes':  # output tiles in passes, blocks of several units
@@ -648,6 +690,73 @@ def test_fwd_emulation_matches_reference(B, T, G, ci, co, K, d, layout,
                                      co, K, d, lpad, esize, bounds=False),
                     yst, B, co, T, G)
     assert np.abs(leaky - want).max() > 1e-2 * scale
+
+
+# (B, T, G, ci, co, K, d, lpad, layout, esize, plan choice) of the conv
+# whose input gradient is emulated: ci != co both ways (dz of 14 channels
+# in chunks, dx of 14 in output tiles walked in passes), lpad 0, the whole
+# span and between (the cells' asymmetric conv_padding among them: 0 at
+# K=5/d=1, 8 at K=7/d=2, 4 at K=9), d = 2, T below the halo, tap chunks
+# (K=9 in bf16), blocks of several units, every layout, and dz expanded
+# along T (autograd's dy of a sum, stride 0)
+DX_EMULATED = [
+    (2, 13, 3, 2, 14, 5, 2, 0, 'dense', 2, 'chunks'),
+    (2, 13, 3, 2, 14, 5, 2, 3, 'strided', 4, 'chunks'),
+    (2, 11, 3, 14, 2, 5, 2, 8, 'split', 4, 'passes'),
+    (3, 20, 2, 14, 3, 5, 1, 2, 'dense', 2, 'passes'),
+    (2, 12, 3, 14, 2, 7, 2, 5, 'strided', 2, 'plan'),
+    (3, 21, 4, 3, 3, 7, 2, 8, 'dense', 2, 'span'),
+    (3, 40, 5, 2, 2, 5, 1, 0, 'split', 4, 'span'),
+    (3, 3, 4, 2, 2, 7, 2, 12, 'split', 2, 'plan'),
+    (2, 11, 3, 4, 6, 9, 1, 4, 'dense', 2, 'chunks'),
+    (2, 16, 3, 3, 5, 5, 2, 4, 'expanded', 2, 'plan'),
+]
+
+
+@pytest.mark.parametrize('B,T,G,ci,co,K,d,lpad,layout,esize,choice',
+                         DX_EMULATED)
+def test_dx_emulation_matches_reference(B, T, G, ci, co, K, d, lpad, layout,
+                                        esize, choice, monkeypatch):
+    """The input gradient's kernel, emulated in numpy on flat memory: the
+    forward's body on dz with the plan of ``_PLANS['dx']`` (the conv on dz:
+    co input channels, ci outputs), the weights staged transposed and
+    tap-reversed and the halo mirrored (rpad = span - lpad on the left),
+    equals conv_dx_reference; with the loader's bound on the utterance
+    switched off, a halo that reads the neighbouring utterance (or past
+    the end) shows."""
+    if choice == 'passes':
+        monkeypatch.setattr(grouped_conv, 'FWD_THREADS', 8)
+    rng = np.random.RandomState(B * T + ci + 7 * co)
+    dz = rng.randn(B, 1 if layout == 'expanded' else T, G * co)
+    w = rng.randn(K, ci, G * co) * 0.3
+    mem = 'dense' if layout == 'expanded' else layout
+    zf, zst = _flat(dz, mem, G)
+    if layout == 'expanded':
+        zst = (zst[0], zst[1], 0, zst[3])
+        dz = np.broadcast_to(dz, (B, T, G * co))
+    _, xst = _flat(np.zeros((B, T, G * ci)), mem, G)
+    p = _emulated_plan(B, T, G, co, ci, K, d, esize, zst, xst, choice, 'dx')
+    if choice == 'chunks':
+        assert p['cc'] < co or p['no'] > 1
+    if choice == 'span':
+        assert p['span'] > 1 and B * p['tiles'] % p['span'] > 0
+    if choice == 'passes':
+        assert p['y_buf'] > 0 and p['threads'] <= 8
+    want = grouped_conv.conv_dx_reference(
+        to_split(torch.from_numpy(np.ascontiguousarray(dz)), G),
+        torch.from_numpy(w), lpad, d,
+        torch.empty((B, ci, T, G), dtype=torch.float64)).numpy()
+
+    def emulate(bounds):
+        return _unflat(_emulate_forward(
+            zf, zst, w, None, xst, p, B, T, G, co, ci, K, d,
+            (K - 1) * d - lpad, esize, bounds=bounds, dx=True), xst, B, ci,
+            T, G)
+
+    scale = np.abs(want).max()
+    # the plain version sums in f32, the emulation in f64
+    np.testing.assert_allclose(emulate(True), want, rtol=0, atol=1e-5 * scale)
+    assert np.abs(emulate(False) - want).max() > 1e-2 * scale
 
 
 def test_refuses_other_devices_and_bad_padding():
