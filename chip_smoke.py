@@ -25,12 +25,14 @@ prints no result):
    the backward kernel against their plain versions at the four widths of
    the train-step batch (B=4), on every node kind, in f32 and bf16: output,
    saved multipliers (the dropout masks must agree exactly), dx, every dW
-   and db, dscale and dbias; three specs with 50 groups of 24 channels at
-   C=1200 (wider than a backward dW thread's 16); the same for the flagship
-   cell at the train
-   step's own shapes (B=32, dropout 0.2); the kept share of one large
+   and db, dscale and dbias, and two backward calls bit-equal; three specs
+   with 50 groups of 24 channels at C=1200; the same for the flagship
+   cell at the train step's own shapes (B=32, dropout 0.2); NaN, +inf and
+   -inf in dy, where the backward's outputs must be NaN and +-inf exactly
+   where the plain version's (on the CPU) are; the kept share of one large
    dropout draw; the forward and backward times per flagship cell at the
-   train step's shapes beside their bounds;
+   train step's shapes beside their bounds, on CUDA events and as device
+   time;
 7. train step: the flagship at full width in bf16, B=32, dropout 0.2, on
    synthetic ≤3 s utterances: 2 warm-up and 5 timed Trainer steps (ms per
    step, audio-s/s), 18 forward and 18 backward kernel launches per step
@@ -153,11 +155,21 @@ TRAIN_WIDTHS = ((600, 300), (800, 300), (1000, 150), (1200, 75))
 TRAIN_DATA = 'synthetic:64'
 DROPOUT = 0.2
 TRAIN_SEED = (1234567, 7654321)
-WIDE_GROUPS = 50          # ci = 24 at C=1200, wider than a dW thread's 16
+WIDE_GROUPS = 50          # ci = 24 at C=1200: groups wider than 16 channels
 TRAIN_CHECKED_AT = ('B=4 at T=300/300/150/75 on the four SPECS, dropout 0 '
                     'and 0.2; three SPECS with 50 groups of 24 channels at '
                     'C=1200, T=75; the flagship cell at B=32, dropout 0.2 '
-                    '(the train step\'s shapes); f32 and bf16')
+                    '(the train step\'s shapes); f32 and bf16; the backward '
+                    'bit-equal across two calls at each, and with NaN, +inf '
+                    'and -inf in dy (BWD_NONFINITE_AT)')
+# The backward with non-finite dy: three SPECS (their conv dx stored into
+# a gradient buffer, added after branch adds, rounded into dx) at B=4,
+# C=600, T=300, dropout 0.2, f32 and bf16, NONFINITE's values planted in
+# dy; the plain version runs on the CPU, as phase 9's non-finite check.
+BWD_NONFINITE_SPECS = ('flagship', 'linear+dilated', 'conv7+zero+linear')
+BWD_NONFINITE_AT = ('dy with NaN, +inf and -inf at B=4, C=600, T=300 on the '
+                    'flagship, linear+dilated and conv7+zero+linear specs, '
+                    'dropout 0.2, f32 and bf16')
 # Backward kernel against its plain version on the same saved inputs, as a
 # share of each gradient's max|plain|.  f32: both sum in f32 in other
 # orders, dW and db over B*T = 300-1200 rows, so they differ by ~1e-6 of
@@ -449,6 +461,13 @@ def check_masks(spec, got, want, seed, B, T, C):
     return flips, count
 
 
+def backward_tensors(out):
+    """The backward's outputs as one list: dx, every dW and db, dscale,
+    dbias."""
+    dx, dws, dln = out
+    return [dx, *dws, *(dln or ())]
+
+
 def grad_errors(got, want):
     """(max abs error, max error as a share of each tensor's max|plain|)
     over the backward's outputs (dx, every dW and db, dscale, dbias)."""
@@ -497,9 +516,14 @@ class TrainKernelCheck:
         del want
         got_b = fused_cell.fused_cell_backward(spec, x, outs, mults, dy,
                                                weights, ln)
+        again = fused_cell.fused_cell_backward(spec, x, outs, mults, dy,
+                                               weights, ln)
         want_b = fused_cell.fused_cell_backward_reference(spec, x, outs, mults,
                                                           dy, weights, ln)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(
+            backward_tensors(got_b), backward_tensors(again))), \
+            ('two backward calls differ', label, B, C, dtype)
         b_abs, b_rel = grad_errors(got_b, want_b)
         print(f'train kernels  {label:18s} B={B:2d} C={C:4d} T={T:3d} '
               f'p={spec.dropout_rate} {str(dtype)[6:]:8s} fwd err '
@@ -531,8 +555,8 @@ def check_train_kernels(device):
                 for dtype in (torch.float32, torch.bfloat16):
                     checker.check(name, train_spec(cell, rate), x32.to(dtype),
                                   dy32.to(dtype), *cell.operands(dtype))
-    # groups wider than the 16 channels a backward dW thread sums at once:
-    # 50 groups of 24 at C=1200, every conv kind
+    # groups wider than 16 channels: 50 groups of 24 at C=1200, every conv
+    # kind
     C, T = TRAIN_WIDTHS[-1]
     g = torch.Generator().manual_seed(SEED + WIDE_GROUPS)
     x32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
@@ -581,7 +605,11 @@ def check_train_kernels(device):
                 fwd_ms=time_ms(lambda: fused_cell.fused_cell_train_forward(*fwd)),
                 fwd_plain_ms=time_ms(lambda: fused_cell.fused_cell_reference(
                     *fwd, save=True), runs=10),
+                fwd_device_ms=device_ms(
+                    lambda: fused_cell.fused_cell_train_forward(*fwd)),
                 ms=time_ms(lambda: fused_cell.fused_cell_backward(*bwd)),
+                device_ms=device_ms(
+                    lambda: fused_cell.fused_cell_backward(*bwd)),
                 plain_ms=time_ms(
                     lambda: fused_cell.fused_cell_backward_reference(*bwd),
                     runs=10))
@@ -592,17 +620,85 @@ def check_train_kernels(device):
                 op_factor=2)
             rows.append(row)
             print(f'flagship cell train  B={TRAIN_B} C={C:4d} T={T:3d} '
-                  f'{row["dtype"]:8s} forward {row["fwd_ms"]:.4f} ms (plain '
+                  f'{row["dtype"]:8s} forward {row["fwd_ms"]:.4f} ms, device '
+                  f'{row["fwd_device_ms"]:.4f} (plain '
                   f'{row["fwd_plain_ms"]:.4f}, bound {row["fwd_bound_ms"]:.4f} '
-                  f'{row["fwd_bound_by"]}); backward {row["ms"]:.4f} ms (plain '
+                  f'{row["fwd_bound_by"]}); backward {row["ms"]:.4f} ms, '
+                  f'device {row["device_ms"]:.4f} (plain '
                   f'{row["plain_ms"]:.4f}, bound {row["bound_ms"]:.4f} '
                   f'{row["bound_by"]})')
-    return checker, kept, rows
+    for dtype in ('float32', 'bfloat16'):
+        step = train_step_sums([r for r in rows if r['dtype'] == dtype],
+                               ('ms', 'device_ms', 'bound_ms', 'fwd_ms',
+                                'fwd_device_ms'))
+        print(f'fused cell per train step, the 18 {dtype} cells at B='
+              f'{TRAIN_B}: backward {step["ms"]:.3f} ms on CUDA events, '
+              f'{step["device_ms"]:.3f} ms of device time (queued runs), '
+              f'bound {step["bound_ms"]:.4f} ms; forward {step["fwd_ms"]:.3f} '
+              f'/ {step["fwd_device_ms"]:.3f} ms')
+    nonfinite = check_backward_nonfinite(device, seed)
+    return checker, kept, rows, nonfinite
 
 
+def train_step_sums(rows, keys):
+    """{key: the sum over one train step's 18 cells} of one dtype's timing
+    rows at the four widths (3/4/5/6 cells)."""
+    return {k: sum(n * r[k] for n, r in zip(CELLS_PER_BLOCK, rows))
+            for k in keys}
+
+
+def check_backward_nonfinite(device, seed):
+    """NaN, +inf and -inf planted in dy (NONFINITE) at B=4, C=600, T=300:
+    the backward's outputs (dx, every dW and db, dscale, dbias) are NaN,
+    +inf and -inf exactly where the plain version's are, run on the CPU
+    on the same saved inputs, and its finite outputs within GRAD_TOL of
+    the finite scale; BWD_NONFINITE_SPECS at dropout 0.2, f32 and bf16.
+    Returns how many outputs were NaN and inf."""
+    Bn, C, T = NONFINITE_SHAPE
+    counts = {'nan': 0, 'inf': 0}
+    g = torch.Generator().manual_seed(SEED + 17)
+    x32 = torch.randn((Bn, T, C), generator=g)
+    dy32 = torch.randn((Bn, T, C), generator=g)
+    for bi, t, c, v in NONFINITE:
+        dy32[bi, t, c] = v
+    for name in BWD_NONFINITE_SPECS:
+        cell = make_cell(C, SPECS[name], device)
+        spec = train_spec(cell, DROPOUT)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(device, dtype), dy32.to(device, dtype)
+            weights, ln = cell.operands(dtype)
+            _, outs, mults = fused_cell.fused_cell_train_forward(
+                spec, x, weights, ln, seed)
+            got = backward_tensors(fused_cell.fused_cell_backward(
+                spec, x, outs, mults, dy, weights, ln))
+            cpu = lambda ts: [t.cpu() for t in ts]
+            want = backward_tensors(fused_cell.fused_cell_backward_reference(
+                spec, *cpu((x, outs, mults, dy)), cpu(weights), ln and cpu(ln)))
+            for i, (a, b) in enumerate(zip(got, want)):
+                a, b = a.float().cpu(), b.float()
+                for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                    assert torch.equal(test(a), test(b)), (name, dtype, i, test)
+                finite = torch.isfinite(b)
+                if bool(finite.any()):
+                    err = float((a[finite] - b[finite]).abs().max())
+                    scale = float(b[finite].abs().max())
+                    assert err <= GRAD_TOL[dtype] * max(scale, 1e-30), \
+                        (name, dtype, i, err, scale)
+                counts['nan'] += int(torch.isnan(b).sum())
+                counts['inf'] += int(torch.isinf(b).sum())
+    assert counts['nan'] > 0, counts
+    print(f'fused backward NaN/inf in dy: outputs NaN and +-inf where the '
+          f'plain version\'s are ({counts["nan"]} NaN, {counts["inf"]} inf '
+          f'over {2 * len(BWD_NONFINITE_SPECS)} runs), finite ones within '
+          f'tolerance')
+    return counts
+
+
+# the fused backward's kernels (its conv dW is the grouped conv's
+# nbasr_gconv_dw and nbasr_gconv_dw_reduce, built into its own library)
 BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
-               'nbasr_reduce_chunks', 'nbasr_node_dz', 'nbasr_conv_dw_partials',
-               'nbasr_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
+               'nbasr_reduce_chunks', 'nbasr_node_dz', 'nbasr_gconv_dw',
+               'nbasr_fused_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
                'nbasr_convert')
 FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
                'nbasr_layer_norm', 'nbasr_gconv_fwd')
@@ -1713,7 +1809,8 @@ def main():
 
     errors, rows = timed('phase 3', check_kernels, device)
     launches, serving = timed('phases 4-5', check_serving, device)
-    checker, kept, train_rows = timed('phase 6', check_train_kernels, device)
+    checker, kept, train_rows, bwd_nonfinite = timed(
+        'phase 6', check_train_kernels, device)
     train_errors = checker.errors
     at_step = {k: {str(d)[6:]: v[1] for d, v in e.items()}
                for k, e in checker.step_errors.items()}
@@ -1737,9 +1834,9 @@ def main():
             for k in ('ms', 'plain_ms', 'bound_ms')}
     # one train step's 18 bf16 cells
     bf16_rows = [r for r in train_rows if r['dtype'] == 'bfloat16']
-    tstep = {k: sum(n * r[k] for n, r in zip(CELLS_PER_BLOCK, bf16_rows))
-             for k in ('ms', 'plain_ms', 'bound_ms', 'fwd_ms', 'fwd_plain_ms',
-                       'fwd_bound_ms')}
+    tstep = train_step_sums(bf16_rows, (
+        'ms', 'device_ms', 'plain_ms', 'bound_ms', 'fwd_ms', 'fwd_device_ms',
+        'fwd_plain_ms', 'fwd_bound_ms'))
     kernels = [dict(
         name='fused_cell_forward', route='cuda',
         source='nbasr_torch/csrc/fused_cell.cu',
@@ -1760,6 +1857,7 @@ def main():
         launches_train_step=fwd_train,
         train_ms=tstep['fwd_ms'], train_plain_ms=tstep['fwd_plain_ms'],
         train_bound_ms=tstep['fwd_bound_ms'],
+        train_device_ms=tstep['fwd_device_ms'],
         train_times_cover='the 18 bf16 training forwards (dropout 0.2, '
                           'saving) of one flagship train step, B=32, '
                           'T=300/300/150/75',
@@ -1780,7 +1878,13 @@ def main():
         max_share_err_bf16=train_errors['backward'][torch.bfloat16][1],
         times_cover='the 18 bf16 cells of one flagship train step, B=32, '
                     'T=300/300/150/75',
-        checked_at=TRAIN_CHECKED_AT,
+        device_ms=tstep['device_ms'],
+        device_times_cover='the same cells, device time per call of 20 '
+                           'calls queued back to back behind a spin kernel '
+                           '(no wrapper host time)',
+        kernels=BWD_KERNELS,
+        nonfinite_outputs_checked=bwd_nonfinite,
+        checked_at=TRAIN_CHECKED_AT + '; ' + BWD_NONFINITE_AT,
         train_step_shape_max_share_err=at_step['backward'],
         step_gradient_worst_share=train_grads,
         per_width=train_rows),

@@ -30,43 +30,76 @@
 // in the activation dtype, against 2 * (2*B*T*C*K*ci) conv operations per
 // node (dW and dx).  For the flagship cell (three conv5 nodes, ci 6-12) the
 // bytes bound it.  This design also moves the f32 gradient buffers: each
-// node reads g[n+1] and adds into g[n] and its branches, about
-// (3*n_nodes + 3) passes in all counting them, and it rereads src for dW.
+// node reads g[n+1] and writes g[n] and its branches, about (3*n_nodes + 3)
+// passes in all counting them, and its dW rereads src.
 //
-// Design (simple and deterministic first; no float atomics, so two runs
-// give the same bits and a card-against-CPU check does not wander):
+// Design (deterministic: no float atomics, one owner and one order of
+// summation per output, so two runs give the same bits):
 //   LayerNorm: one warp per (b, t) row writes g[n_nodes] and the row's
-//     (mean, 1/std); dscale/dbias are partial sums over kChunks row chunks,
-//     one thread per channel, then a second pass sums the chunks in order.
-//   dz:      one thread per channel walks a row chunk: the branch adds, dz
-//            into a dzc buffer, db partial sums (then the chunk reduction).
-//   conv dW: one thread per (channel c, tap k, slice of at most kMaxCi input
-//            channels) walks a row chunk holding the slice's partial sums in
-//            registers, so a group of any width runs (ci = 24 at 50 groups
-//            of C = 1200 takes two slices); then the chunk reduction, rounded.
-//   conv dx: the gather form (taps flipped), one thread per input element,
-//            K*co FMAs read through L1, added into g[n].
+//     (mean, 1/std); dscale/dbias are a column pass's partial sums.
+//   dz:      a column pass: the branch adds, dz into a dzc buffer, db
+//            partial sums.
+//   Column passes (dz, the LayerNorm's parameters): a block spans kColVec
+//     vectors of 4 channels (where C and the operands allow, else one) by
+//     kLanes row lanes of one row chunk, up to kChunks chunks of about
+//     kChunkRows rows, so the card holds enough loads in flight; the lanes'
+//     sums meet in shared memory in lane order, the chunks' in a second
+//     pass that gives each output eight lanes of chunks in a fixed order.
+//   conv dW and dx: the grouped conv's own kernels (gconv_body.cuh), on src
+//     and dzc seen as the dense [B, ci, T, G] view (strides (T*C, 1, C,
+//     ci)), planned in Python (nbasr_torch/ops/fused_cell.py, the grouped
+//     conv's dw_plan and fwd_plan) and checked again here:
+//     - dW: nbasr_gconv_dw, staged tiles and register blocking, one f32
+//       partial set per block and a reduce in order, rounded once to the
+//       activation dtype (the JAX VJP's rounding points);
+//     - dx: the grouped conv's forward body on dzc with the weights staged
+//       transposed and tap-reversed and the halo mirrored (rpad on the
+//       left), its f32 register sums left in an f32 output tile and stored
+//       (g[n] not yet written: no later node names n among its branches)
+//       or added (g[n] holds branch adds) into g[n] unrounded, as the JAX
+//       kernel adds its f32 acc into g_ref; node 0, when nothing else wrote
+//       g[0], rounds its sums straight into dx instead (no g[0], no
+//       convert).  Only the g buffers that something adds into first are
+//       zeroed.
 //   linear:  64x64 shared-memory tiles like the forward's: dW = src^T dzc
 //            with the whole row reduction in one block per tile, and
 //            g[n] += dzc w^T.
 // Every launch is checked with cudaGetLastError(); the entry point returns
 // the first error and launches nothing after it.
 
+#include "gconv_body.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace {
 
+using gconv::DwPlan;
+using gconv::FwdPlan;
+using gconv::Stage;
+using gconv::View;
+
 constexpr int kMaxOutputs = 8;     // the cell input and up to 7 nodes
-constexpr int kDescInts = 7;       // kind, K, d, lpad, ci, co, branch mask
+// A node's descriptor: kind, K, d, lpad, ci, co, branch mask, the dx's
+// output (kDx*), then a conv node's dW plan and dx plan (zeros otherwise)
+constexpr int kDwPlanAt = 8;
+constexpr int kDxPlanAt = kDwPlanAt + gconv::kDwPlanInts;
+constexpr int kDescInts = kDxPlanAt + gconv::kFwdPlanInts;
 constexpr int kConv = 0, kLinear = 1, kZero = 2;
+// where a conv node's dx goes: rounded into dx (node 0, g[0] unwritten),
+// stored into g[n] (g[n] unwritten), or added into g[n] (branch adds there)
+constexpr int kDxOut = 0, kDxStore = 1, kDxAdd = 2;
 constexpr int kThreads = 256;
-constexpr int kDwThreads = 128;
 constexpr int kTile = 64;          // linear: output tile edge
 constexpr int kTileK = 16;         // linear: reduction slice per stage
-constexpr long kMaxGridY = 65535;
-constexpr int kChunks = 64;        // row chunks of the partial sums
-constexpr int kMaxCi = 16;         // input channels a dW thread sums at once (wider: slices)
+// Row chunks of the column passes' partial sums: up to kChunks, about
+// kChunkRows rows each; kLanes row lanes of a block split a chunk's rows.
+constexpr int kChunks = 128;
+constexpr int kChunkRows = 32;
+constexpr int kLanes = 4;
+constexpr int kColVec = 64;         // channel vectors a column block spans
 
 __device__ __forceinline__ float load(const float* p, long i) { return __ldg(p + i); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
@@ -90,16 +123,116 @@ __device__ __forceinline__ void chunk_rows(long rows, int chunk, int chunks, lon
   *last = rows * (chunk + 1) / chunks;
 }
 
-// out[e] = sum over chunks k (in order) of part[k * stride + e], rounded to OutT.
+// V consecutive values from p (16 or 8-byte vectors where V = 4) to f32.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(h[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    union {
+      __nv_bfloat16 h[4];
+      uint2 u;
+    } a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a.h[i] = __float2bfloat16_rn(v[i]);
+    *reinterpret_cast<uint2*>(p) = a.u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// grid ceil(n / 32), 256 threads: out[e] (e < split; out2[e - split]
+// beyond) = the sum over chunks k of part[k * stride + e], rounded to
+// OutT.  Lane l of an output's eight sums the chunks l, l + 8, ... in
+// order, then lane 0 sums the eight in order: one fixed order.
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads) nbasr_reduce_chunks(const float* __restrict__ part,
                                                                 int chunks, long n, long stride,
-                                                                OutT* __restrict__ out) {
-  for (long e = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; e < n;
-       e += static_cast<long>(gridDim.x) * blockDim.x) {
-    float s = 0.0f;
-    for (int k = 0; k < chunks; ++k) s += part[k * stride + e];
+                                                                OutT* __restrict__ out, long split,
+                                                                OutT* __restrict__ out2) {
+  __shared__ float red[8][33];
+  const int o = threadIdx.x % 32, lane = threadIdx.x / 32;
+  const long e = blockIdx.x * 32L + o;
+  float s = 0.0f;
+  if (e < n)
+#pragma unroll 4
+    for (int k = lane; k < chunks; k += 8) s += part[k * stride + e];
+  red[lane][o] = s;
+  __syncthreads();
+  if (lane != 0 || e >= n) return;
+  for (int l = 1; l < 8; ++l) s += red[l][o];
+  if (e < split)
     store(out, e, s);
+  else
+    store(out2, e - split, s);
+}
+
+// The chunks of a column pass over `rows` rows, and its grid for C channels
+// in vectors of V.
+int col_chunks(long rows) {
+  const long c = (rows + kChunkRows - 1) / kChunkRows;
+  return static_cast<int>(c < 1 ? 1 : c > kChunks ? kChunks : c);
+}
+dim3 col_grid(int C, int V, long rows) {
+  return dim3((C / V + kColVec - 1) / kColVec, col_chunks(rows));
+}
+
+// The kLanes row lanes' V sums of each of nsums partial sets, summed in
+// lane order through shared memory; lane 0 writes them to
+// part[(chunk * nsums + s) * C + c0 + i].
+template <int V, int S>
+__device__ __forceinline__ void write_partials(const float (&sums)[S][V], float* part, int C,
+                                               int c0, bool live) {
+  __shared__ float red[kLanes][S][kColVec * V];
+  const int tx = threadIdx.x, ly = threadIdx.y;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < V; ++i) red[ly][s][tx * V + i] = sums[s][i];
+  __syncthreads();
+  if (ly != 0 || !live) return;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      v[i] = red[0][s][tx * V + i];
+      for (int l = 1; l < kLanes; ++l) v[i] += red[l][s][tx * V + i];
+    }
+    store_vec<V>(part + (static_cast<long>(blockIdx.y) * S + s) * C + c0, v);
   }
 }
 
@@ -148,117 +281,78 @@ __global__ void __launch_bounds__(kThreads) nbasr_ln_backward_rows(
   }
 }
 
-// grid (ceil(C / kThreads), kChunks): partial sums of dy * xhat and dy over
-// a row chunk, into part[chunk][0 | 1][c].
-template <typename T>
+// col_grid(C, V, rows), (kColVec, kLanes) threads: thread (x, y) owns the
+// V channels from c0 = V * (blockIdx.x * kColVec + x) and the rows y, y +
+// kLanes, ... of row chunk blockIdx.y; partial sums of dy * xhat and dy
+// into part[chunk][0 | 1][c].
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) nbasr_ln_param_partials(
     const T* __restrict__ xn, const T* __restrict__ dy, const float* __restrict__ stats,
     float* __restrict__ part, long rows, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int c0 = V * (blockIdx.x * kColVec + threadIdx.x);
+  const bool live = c0 < C;
   long first, last;
   chunk_rows(rows, blockIdx.y, gridDim.y, &first, &last);
-  float ds = 0.0f, db = 0.0f;
-  for (long r = first; r < last; ++r) {
-    const float d = load(dy, r * C + c);
-    ds += d * ((load(xn, r * C + c) - stats[2 * r]) * stats[2 * r + 1]);
-    db += d;
+  float sums[2][V] = {};
+  if (live) {
+#pragma unroll 2
+    for (long r = first + threadIdx.y; r < last; r += kLanes) {
+      float d[V], x[V];
+      load_vec<V>(dy + r * C + c0, d);
+      load_vec<V>(xn + r * C + c0, x);
+      const float mu = stats[2 * r], inv = stats[2 * r + 1];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        sums[0][i] += d[i] * ((x[i] - mu) * inv);
+        sums[1][i] += d[i];
+      }
+    }
   }
-  part[(2L * blockIdx.y) * C + c] = ds;
-  part[(2L * blockIdx.y + 1) * C + c] = db;
+  write_partials<V, 2>(sums, part, C, c0, live);
 }
 
-// grid (ceil(C / kThreads), kChunks): node n's branch adds g[j] += g[n+1]
-// and, for a conv or linear node (mult != null), dz = g[n+1] * mult rounded
-// into dzc, with db partial sums into part[chunk][c].
-template <typename T>
+// col_grid(C, V, rows), (kColVec, kLanes) threads, as
+// nbasr_ln_param_partials: node n's branch adds g[j] += g[n+1] (buffer j at
+// g + j * gstride) and, for a conv or linear node (mult != null), dz =
+// g[n+1] * mult rounded into dzc, with db partial sums into part[chunk][c].
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) nbasr_node_dz(
     const float* __restrict__ gout, const T* __restrict__ mult, T* __restrict__ dzc,
-    float* __restrict__ part, float* __restrict__ g, long numel, unsigned branches, long rows,
+    float* __restrict__ part, float* __restrict__ g, long gstride, unsigned branches, long rows,
     int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int c0 = V * (blockIdx.x * kColVec + threadIdx.x);
+  const bool live = c0 < C;
   long first, last;
   chunk_rows(rows, blockIdx.y, gridDim.y, &first, &last);
-  float db = 0.0f;
-  for (long r = first; r < last; ++r) {
-    const long idx = r * C + c;
-    const float dt = gout[idx];
+  float db[1][V] = {};
+  if (live) {
+#pragma unroll 2
+    for (long r = first + threadIdx.y; r < last; r += kLanes) {
+      const long idx = r * C + c0;
+      float dt[V];
+      load_vec<V>(gout + idx, dt);
 #pragma unroll
-    for (int j = 0; j < kMaxOutputs; ++j)
-      if (branches >> j & 1u) g[j * numel + idx] += dt;
-    if (mult) {
-      const float dz = dt * load(mult, idx);
-      db += dz;
-      store(dzc, idx, dz);
+      for (int j = 0; j < kMaxOutputs; ++j) {
+        if (!(branches >> j & 1u)) continue;
+        float a[V];
+        load_vec<V>(g + j * gstride + idx, a);
+#pragma unroll
+        for (int i = 0; i < V; ++i) a[i] += dt[i];
+        store_vec<V>(g + j * gstride + idx, a);
+      }
+      if (mult) {
+        float m[V];
+        load_vec<V>(mult + idx, m);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          m[i] *= dt[i];
+          db[0][i] += m[i];
+        }
+        store_vec<V>(dzc + idx, m);
+      }
     }
   }
-  if (mult) part[static_cast<long>(blockIdx.y) * C + c] = db;
-}
-
-// grid (ceil(C / kDwThreads), kChunks, K * ceil(ci / kMaxCi)): thread =
-// output channel c at tap k and input slice [i0, i0 + kMaxCi) of its group
-// (blockIdx.z = k * slices + i0 / kMaxCi); partial sums over a row chunk
-// into part[chunk][k][i][c] (the [K, ci, C] layout per chunk).  A group of
-// any width runs, in slices of at most kMaxCi register sums.
-template <typename T>
-__global__ void __launch_bounds__(kDwThreads) nbasr_conv_dw_partials(
-    const T* __restrict__ src, const T* __restrict__ dzc, float* __restrict__ part, long rows,
-    int t_len, int C, int ci, int co, int K, int d, int lpad) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int slices = (ci + kMaxCi - 1) / kMaxCi;
-  const int k = blockIdx.z / slices;
-  const int i0 = (blockIdx.z % slices) * kMaxCi;
-  const int width = ci - i0 < kMaxCi ? ci - i0 : kMaxCi;
-  const int in0 = (c / co) * ci + i0;
-  long first, last;
-  chunk_rows(rows, blockIdx.y, gridDim.y, &first, &last);
-  float acc[kMaxCi];
-#pragma unroll
-  for (int i = 0; i < kMaxCi; ++i) acc[i] = 0.0f;
-  for (long r = first; r < last; ++r) {
-    const int t = static_cast<int>(r % t_len);
-    const int ts = t + k * d - lpad;
-    if (ts < 0 || ts >= t_len) continue;
-    const float dz = load(dzc, r * C + c);
-    const T* xs = src + (r - t + ts) * C + in0;
-#pragma unroll
-    for (int i = 0; i < kMaxCi; ++i)
-      if (i < width) acc[i] += load(xs, i) * dz;
-  }
-  float* out = part + ((static_cast<long>(blockIdx.y) * K + k) * ci + i0) * C + c;
-#pragma unroll
-  for (int i = 0; i < kMaxCi; ++i)
-    if (i < width) out[static_cast<long>(i) * C] = acc[i];
-}
-
-// grid (ceil(C / kThreads), min(rows, 65535)); thread = input channel, block
-// row loop: g[n] += the conv's input gradient, gathered with flipped taps.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) nbasr_conv_dx(
-    const T* __restrict__ dzc, const T* __restrict__ w, float* __restrict__ g, long rows,
-    int t_len, int C, int ci, int co, int K, int d, int lpad) {
-  const int cin = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cin >= C) return;
-  const int grp = cin / ci;
-  const int i = cin - grp * ci;
-  const int c0 = grp * co;
-  for (long r = blockIdx.y; r < rows; r += gridDim.y) {
-    const int t = static_cast<int>(r % t_len);
-    const long first = r - t;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int tz = t + lpad - k * d;
-      if (tz < 0 || tz >= t_len) continue;
-      const T* dz = dzc + (first + tz) * C + c0;
-      const T* wk = w + (static_cast<long>(k) * ci + i) * C + c0;
-      float part = 0.0f;
-      for (int o = 0; o < co; ++o) part += load(dz, o) * load(wk, o);
-      acc += part;
-    }
-    g[r * C + cin] += acc;
-  }
+  if (mult) write_partials<V, 1>(db, part, C, c0, live);
 }
 
 // grid (ceil(C / 64) over c, ceil(C / 64) over i); 256 threads as 16 x 16,
@@ -356,23 +450,89 @@ __global__ void __launch_bounds__(kThreads) nbasr_linear_dx(const T* __restrict_
   }
 }
 
+// The fused backward's conv dx: grouped_conv.cu's nbasr_gconv_dx (the
+// forward's body on dz, weights staged transposed and tap-reversed, halo
+// mirrored) with the output in Y: T rounds the f32 sums into dx, f32 stores
+// (kAdd false) or adds (kAdd true) them into a gradient buffer unrounded.
+template <typename T, int KT, int OT, typename Y, bool kAdd>
+__global__ void __launch_bounds__(gconv::kFwdThreads)
+    nbasr_fused_conv_dx(const T* __restrict__ dz, Stage zs, const T* __restrict__ w,
+                        Y* __restrict__ dx, Stage xs, FwdPlan p, int batch, int t_len, int groups,
+                        int ci, int co, int K, int d, int rpad) {
+  gconv::conv_units<T, KT, gconv::kFwdRt, OT, false, true, Y, kAdd>(
+      dz, zs, w, nullptr, dx, xs, p, batch, t_len, groups, co, ci, K, d, rpad);
+}
+
 unsigned blocks_for(long n, int threads = kThreads) {
   const long b = (n + threads - 1) / threads;
   return static_cast<unsigned>(b < 8192 ? b : 8192);
 }
 
-// Floats of workspace: g [n_nodes + 1, B, T, C], row stats [rows, 2], the
-// dzc buffer [B, T, C], db/LayerNorm partials [kChunks, 2, C] and conv dW
-// partials [kChunks, K, ci, C] for the widest conv node.
-long long workspace_floats(int batch, int t_len, int C, int n_nodes, const int* desc) {
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// The workspace, in floats from its start, every buffer on 16 bytes (the
+// plans' vectors count on it): g [n_nodes + 1] buffers of gstride floats,
+// row stats [rows, 2], the dzc buffer [B, T, C] (activation dtype), the
+// db/LayerNorm partials [kChunks, 2, C] and the conv dW partials of the
+// widest conv node's plan (chunks * K * ci * C, none for one chunk).
+struct Work {
+  long long gstride, stats, dzc, part, part_dw, total;
+};
+
+Work work_layout(int batch, int t_len, int C, int n_nodes, const int* desc) {
   const long long rows = static_cast<long long>(batch) * t_len, numel = rows * C;
-  long long kcic = 0;
+  Work w;
+  w.gstride = round4(numel);
+  w.stats = (n_nodes + 1) * w.gstride;
+  w.dzc = w.stats + round4(2 * rows);
+  w.part = w.dzc + round4(numel);
+  w.part_dw = w.part + round4(kChunks * 2LL * C);
+  long long dw = 0;
   for (int n = 0; n < n_nodes; ++n) {
     const int* nd = desc + n * kDescInts;
-    if (nd[0] == kConv && static_cast<long long>(nd[1]) * nd[4] * C > kcic)
-      kcic = static_cast<long long>(nd[1]) * nd[4] * C;
+    DwPlan p;
+    std::memcpy(&p, nd + kDwPlanAt, sizeof(p));
+    const long long need = static_cast<long long>(p.chunks) * nd[1] * nd[4] * C;
+    if (nd[0] == kConv && p.chunks > 1 && need > dw) dw = need;
   }
-  return (n_nodes + 1) * numel + 2 * rows + numel + kChunks * 2LL * C + kChunks * kcic;
+  w.total = w.part_dw + round4(dw);
+  return w;
+}
+
+// A dense [B, T, C] tensor of nch-channel groups as the [B, c, T, G] view.
+View dense(int t_len, int C, int nch) {
+  return View{static_cast<long long>(t_len) * C, 1, C, nch};
+}
+
+// g[n] (or dx) from dzc through the conv node's weights, as `mode` says,
+// on the plan Python made (fwd_plan of the conv on dz), checked again.
+template <typename T>
+int conv_dx(int mode, int batch, int t_len, int C, int ci, int K, int d, int lpad, const T* dzc,
+            const T* w, void* out, const FwdPlan& p, cudaStream_t s) {
+  const int groups = C / ci;  // a cell's conv keeps the width: co = ci
+  const int ysize = mode == kDxOut ? sizeof(T) : sizeof(float);
+  if (gconv::bad_fwd_plan(p, sizeof(T), ysize, batch, t_len, groups, ci, ci, K, d))
+    return cudaErrorInvalidValue;
+  const Stage zs{dense(t_len, C, ci), ci, p.x_mode, p.x_vec};
+  const Stage xs{dense(t_len, C, ci), ci, p.y_mode, p.y_vec};
+  if (!gconv::stage_fits(zs, sizeof(T)) || !gconv::stage_fits(xs, ysize))
+    return cudaErrorInvalidValue;
+  const int rpad = (K - 1) * d - lpad;
+  const int err = gconv::with_fwd_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
+    constexpr int KT = decltype(kt)::value, OT = decltype(ot)::value;
+    if (mode == kDxOut)
+      return gconv::launch_units(nbasr_fused_conv_dx<T, KT, OT, T, false>, p, batch, s, dzc, zs, w,
+                                 static_cast<T*>(out), xs, p, batch, t_len, groups, ci, ci, K, d,
+                                 rpad);
+    if (mode == kDxAdd)
+      return gconv::launch_units(nbasr_fused_conv_dx<T, KT, OT, float, true>, p, batch, s, dzc, zs,
+                                 w, static_cast<float*>(out), xs, p, batch, t_len, groups, ci, ci,
+                                 K, d, rpad);
+    return gconv::launch_units(nbasr_fused_conv_dx<T, KT, OT, float, false>, p, batch, s, dzc, zs,
+                               w, static_cast<float*>(out), xs, p, batch, t_len, groups, ci, ci, K,
+                               d, rpad);
+  });
+  return err < 0 ? cudaErrorInvalidValue : err;
 }
 
 template <typename T>
@@ -383,35 +543,69 @@ int run_backward(int batch, int t_len, int C, int n_nodes, const int* desc,
                  float* work, cudaStream_t stream) {
   const long rows = static_cast<long>(batch) * t_len;
   const long numel = rows * C;
-  float* g = work;
-  float* stats = g + (n_nodes + 1) * numel;
-  T* dzc = reinterpret_cast<T*>(stats + 2 * rows);
-  float* part = stats + 2 * rows + numel;
-  float* part_dw = part + kChunks * 2L * C;
+  const Work wl = work_layout(batch, t_len, C, n_nodes, desc);
+  float* const g = work;
+  const auto gbuf = [&](int k) { return g + k * wl.gstride; };
+  float* stats = work + wl.stats;
+  T* dzc = reinterpret_cast<T*>(work + wl.dzc);
+  float* part = work + wl.part;
+  float* part_dw = work + wl.part_dw;
   const T* in[kMaxOutputs];
   in[0] = x;
   for (int n = 0; n < n_nodes; ++n) in[n + 1] = outs + n * numel;
-  const dim3 col_grid((C + kThreads - 1) / kThreads, kChunks);
+  // the column passes: 4-channel vectors where C and the operands allow
+  // (the workspace's buffers lie on 16 bytes), else one channel a thread
+  const auto on = [](const void* p, unsigned long long bytes) {
+    return reinterpret_cast<unsigned long long>(p) % bytes == 0;
+  };
+  const bool v4 = C % 4 == 0 && on(outs, 4 * sizeof(T)) && on(mults, 4 * sizeof(T)) &&
+                  on(dy, 4 * sizeof(T));
+  const int chunks = col_chunks(rows);
+  const dim3 cols(kColVec, kLanes);
+  const dim3 grid_cols = col_grid(C, v4 ? 4 : 1, rows);
+
+  // The outputs some node's branch adds reach (node m names only j <= m, so
+  // they reach g[j] before node j's own dx).  Each conv node's dx output
+  // must be the one this gives; nothing launches before every node passed.
+  unsigned named = 0;
+  for (int n = 0; n < n_nodes; ++n) named |= static_cast<unsigned>(desc[n * kDescInts + 6]);
+  for (int n = 0; n < n_nodes; ++n) {
+    const int* nd = desc + n * kDescInts;
+    if (nd[0] != kConv && nd[0] != kLinear && nd[0] != kZero) return cudaErrorInvalidValue;
+    if (nd[0] != kConv) continue;
+    const int want = named >> n & 1u ? kDxAdd : n == 0 ? kDxOut : kDxStore;
+    if (nd[7] != want || nd[4] < 1 || nd[4] != nd[5] || C % nd[4] != 0)
+      return cudaErrorInvalidValue;
+  }
+  const bool dx_direct = desc[0] == kConv && desc[7] == kDxOut;
   cudaError_t err;
 #define NBASR_CHECK()                                           \
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = cudaMemsetAsync(g, 0, sizeof(float) * n_nodes * numel, stream)) != cudaSuccess)
-    return err;
-  float* g_last = g + n_nodes * numel;
+  // zero the buffers something adds into before anything stores there:
+  // branch targets, and a linear or zero node's input (its dx adds, or
+  // nothing writes it and the node before reads it)
+  for (int k = 0; k < n_nodes; ++k) {
+    if (k == 0 && dx_direct) continue;
+    if ((named >> k & 1u) || desc[k * kDescInts] != kConv)
+      if ((err = cudaMemsetAsync(gbuf(k), 0, sizeof(float) * numel, stream)) != cudaSuccess)
+        return err;
+  }
+  float* g_last = gbuf(n_nodes);
   if (use_norm) {
     const long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
     nbasr_ln_backward_rows<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         in[n_nodes], dy, ln_scale, g_last, stats, rows, C, eps);
     NBASR_CHECK();
-    nbasr_ln_param_partials<T><<<col_grid, kThreads, 0, stream>>>(in[n_nodes], dy, stats, part,
-                                                                  rows, C);
+    if (v4)
+      nbasr_ln_param_partials<T, 4><<<grid_cols, cols, 0, stream>>>(in[n_nodes], dy, stats, part,
+                                                                    rows, C);
+    else
+      nbasr_ln_param_partials<T, 1><<<grid_cols, cols, 0, stream>>>(in[n_nodes], dy, stats, part,
+                                                                    rows, C);
     NBASR_CHECK();
-    nbasr_reduce_chunks<float><<<blocks_for(C), kThreads, 0, stream>>>(part, kChunks, C, 2L * C,
-                                                                       dscale);
-    NBASR_CHECK();
-    nbasr_reduce_chunks<float><<<blocks_for(C), kThreads, 0, stream>>>(part + C, kChunks, C,
-                                                                       2L * C, dshift);
+    nbasr_reduce_chunks<float><<<static_cast<unsigned>((2L * C + 31) / 32), kThreads, 0, stream>>>(
+        part, chunks, 2L * C, 2L * C, dscale, C, dshift);
     NBASR_CHECK();
   } else {
     nbasr_convert<T, float><<<blocks_for(numel), kThreads, 0, stream>>>(dy, g_last, numel);
@@ -423,65 +617,82 @@ int run_backward(int batch, int t_len, int C, int n_nodes, const int* desc,
     const unsigned branches = static_cast<unsigned>(nd[6]);
     const bool zero = nd[0] == kZero;
     if (zero && !branches) continue;
-    if (nd[0] != kConv && nd[0] != kLinear && !zero) return cudaErrorInvalidValue;
-    nbasr_node_dz<T><<<col_grid, kThreads, 0, stream>>>(
-        g + (n + 1) * numel, zero ? nullptr : mults + n * numel, dzc, part, g, numel, branches,
-        rows, C);
+    const T* mult = zero ? nullptr : mults + n * numel;
+    if (v4)
+      nbasr_node_dz<T, 4><<<grid_cols, cols, 0, stream>>>(gbuf(n + 1), mult, dzc, part, g,
+                                                          wl.gstride, branches, rows, C);
+    else
+      nbasr_node_dz<T, 1><<<grid_cols, cols, 0, stream>>>(gbuf(n + 1), mult, dzc, part, g,
+                                                          wl.gstride, branches, rows, C);
     NBASR_CHECK();
     if (zero) continue;
-    nbasr_reduce_chunks<float><<<blocks_for(C), kThreads, 0, stream>>>(
-        part, kChunks, C, C, static_cast<float*>(dbiases[n]));
+    float* db = static_cast<float*>(dbiases[n]);
+    nbasr_reduce_chunks<float><<<static_cast<unsigned>((C + 31) / 32), kThreads, 0, stream>>>(
+        part, chunks, C, C, db, C, db);
     NBASR_CHECK();
     const T* w = static_cast<const T*>(weights[n]);
     T* dw = static_cast<T*>(dweights[n]);
     if (nd[0] == kConv) {
-      const int K = nd[1], d = nd[2], lpad = nd[3], ci = nd[4], co = nd[5];
-      if (ci < 1 || co < 1) return cudaErrorInvalidValue;
-      const long kcic = static_cast<long>(K) * ci * C;
-      const dim3 dw_grid((C + kDwThreads - 1) / kDwThreads, kChunks,
-                         K * ((ci + kMaxCi - 1) / kMaxCi));
-      nbasr_conv_dw_partials<T><<<dw_grid, kDwThreads, 0, stream>>>(
-          in[n], dzc, part_dw, rows, t_len, C, ci, co, K, d, lpad);
-      NBASR_CHECK();
-      nbasr_reduce_chunks<T><<<blocks_for(kcic), kThreads, 0, stream>>>(part_dw, kChunks, kcic,
-                                                                        kcic, dw);
-      NBASR_CHECK();
-      const dim3 dx_grid((C + kThreads - 1) / kThreads,
-                         static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
-      nbasr_conv_dx<T><<<dx_grid, kThreads, 0, stream>>>(dzc, w, g + n * numel, rows, t_len, C,
-                                                         ci, co, K, d, lpad);
-      NBASR_CHECK();
+      const int K = nd[1], d = nd[2], lpad = nd[3], ci = nd[4];
+      DwPlan dwp;
+      FwdPlan dxp;
+      std::memcpy(&dwp, nd + kDwPlanAt, sizeof(dwp));
+      std::memcpy(&dxp, nd + kDxPlanAt, sizeof(dxp));
+      int e = gconv::weight_grad<T>(batch, t_len, C / ci, ci, ci, K, d, lpad, in[n],
+                                    dense(t_len, C, ci), dzc, dense(t_len, C, ci), dw, part_dw,
+                                    dwp, stream);
+      if (e != cudaSuccess) return e;
+      void* out = nd[7] == kDxOut ? static_cast<void*>(dx) : static_cast<void*>(gbuf(n));
+      e = conv_dx<T>(nd[7], batch, t_len, C, ci, K, d, lpad, dzc, w, out, dxp, stream);
+      if (e != cudaSuccess) return e;
     } else {
       const dim3 dw_grid((C + kTile - 1) / kTile, (C + kTile - 1) / kTile);
       nbasr_linear_dw<T><<<dw_grid, kThreads, 0, stream>>>(in[n], dzc, dw, rows, C);
       NBASR_CHECK();
       const dim3 dx_grid((C + kTile - 1) / kTile,
                          static_cast<unsigned>((rows + kTile - 1) / kTile));
-      nbasr_linear_dx<T><<<dx_grid, kThreads, 0, stream>>>(dzc, w, g + n * numel, rows, C);
+      nbasr_linear_dx<T><<<dx_grid, kThreads, 0, stream>>>(dzc, w, gbuf(n), rows, C);
       NBASR_CHECK();
     }
   }
-  nbasr_convert<float, T><<<blocks_for(numel), kThreads, 0, stream>>>(g, dx, numel);
-  NBASR_CHECK();
+  if (!dx_direct) {
+    nbasr_convert<float, T><<<blocks_for(numel), kThreads, 0, stream>>>(gbuf(0), dx, numel);
+    NBASR_CHECK();
+  }
 #undef NBASR_CHECK
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Floats of f32 workspace nbasr_fused_cell_backward needs for this cell.
-extern "C" long long nbasr_fused_cell_backward_workspace(int batch, int t_len, int C, int n_nodes,
-                                                         const int* desc) {
-  return workspace_floats(batch, t_len, C, n_nodes, desc);
+// The fewer resident blocks per SM of the dx kernel's instances for one
+// output (T, or f32 stored and added).
+template <typename T, int KT, int OT>
+int dx_occupancy(int f32_out, int threads, int smem) {
+  if (!f32_out)
+    return gconv::occupancy(nbasr_fused_conv_dx<T, KT, OT, T, false>, threads, smem);
+  const int store = gconv::occupancy(nbasr_fused_conv_dx<T, KT, OT, float, false>, threads, smem);
+  const int add = gconv::occupancy(nbasr_fused_conv_dx<T, KT, OT, float, true>, threads, smem);
+  return store < add ? store : add;
 }
 
-// Backward of one cell on `stream`.  desc and weights as the forward's;
-// outs and mults are what the training forward kept ([n_nodes, B, T, C],
-// activation dtype); dy like x.  Writes dx (activation dtype), dweights[n]
-// (activation dtype, the weight's shape) and dbiases[n] (f32 [C]) for each
-// conv or linear node, and dscale/dshift (f32 [C]) with LayerNorm.  work
-// holds nbasr_fused_cell_backward_workspace floats.  Returns a cudaError_t,
-// 0 on success.
+}  // namespace
+
+// Floats of f32 workspace nbasr_fused_cell_backward needs for this cell
+// (desc as nbasr_fused_cell_backward takes it).
+extern "C" long long nbasr_fused_cell_backward_workspace(int batch, int t_len, int C, int n_nodes,
+                                                         const int* desc) {
+  if (n_nodes < 1 || n_nodes >= kMaxOutputs) return -1;
+  return work_layout(batch, t_len, C, n_nodes, desc).total;
+}
+
+// Backward of one cell on `stream`.  desc: kDescInts ints per node (the
+// forward's seven, then where a conv node's dx goes, its dW plan, dw_plan's
+// DW_PLAN_FIELDS, and its dx plan, fwd_plan's FWD_PLAN_FIELDS for the conv
+// on dz); weights as the forward's; outs and mults are what the training
+// forward kept ([n_nodes, B, T, C], activation dtype); dy like x.  Writes
+// dx (activation dtype), dweights[n] (activation dtype, the weight's shape)
+// and dbiases[n] (f32 [C]) for each conv or linear node, and dscale/dshift
+// (f32 [C]) with LayerNorm.  work holds nbasr_fused_cell_backward_workspace
+// floats, on 16 bytes.  Returns a cudaError_t, 0 on success.
 extern "C" int nbasr_fused_cell_backward(int bf16, int batch, int t_len, int C, int n_nodes,
                                          const int* desc, const void* const* weights,
                                          const void* x, const void* outs, const void* mults,
@@ -489,7 +700,12 @@ extern "C" int nbasr_fused_cell_backward(int bf16, int batch, int t_len, int C, 
                                          float eps, void* dx, void* const* dweights,
                                          void* const* dbiases, void* dscale, void* dshift,
                                          void* work, void* stream) {
-  if (n_nodes < 1 || n_nodes >= kMaxOutputs) return cudaErrorInvalidValue;
+  if (n_nodes < 1 || n_nodes >= kMaxOutputs || !desc ||
+      reinterpret_cast<unsigned long long>(work) % 16 != 0)
+    return cudaErrorInvalidValue;
+  static_assert(sizeof(DwPlan) == gconv::kDwPlanInts * sizeof(int), "DwPlan is kDwPlanInts ints");
+  static_assert(sizeof(FwdPlan) == gconv::kFwdPlanInts * sizeof(int),
+                "FwdPlan is kFwdPlanInts ints");
   const auto s = static_cast<cudaStream_t>(stream);
   const auto sc = static_cast<const float*>(ln_scale);
   const auto ds = static_cast<float*>(dscale);
@@ -507,6 +723,40 @@ extern "C" int nbasr_fused_cell_backward(int bf16, int batch, int t_len, int C, 
                              static_cast<const float*>(mults), static_cast<const float*>(dy), sc,
                              use_norm, eps, static_cast<float*>(dx), dweights, dbiases, ds, dh,
                              wk, s);
+}
+
+// Resident blocks per SM of the conv dx kernel with a plan's register tile
+// (kt, ot), threads and shared memory bytes, for an output in the
+// activation dtype (f32_out 0) or f32 (the fewer of store and add), from
+// the CUDA occupancy calculator; -1 for a tile that is not instantiated or
+// an error.
+extern "C" int nbasr_fused_conv_dx_blocks_per_sm(int bf16, int f32_out, int kt, int ot,
+                                                 int threads, int smem) {
+  if (threads < 1 || threads > gconv::kFwdThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return gconv::with_fwd_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      return dx_occupancy<__nv_bfloat16, decltype(a)::value, decltype(b)::value>(f32_out, threads,
+                                                                                 smem);
+    });
+  return gconv::with_fwd_tile<float>(kt, ot, [&](auto a, auto b) {
+    return dx_occupancy<float, decltype(a)::value, decltype(b)::value>(f32_out, threads, smem);
+  });
+}
+
+// The same for the conv dW kernel (this library's nbasr_gconv_dw).
+extern "C" int nbasr_fused_conv_dw_blocks_per_sm(int bf16, int kt, int ot, int threads,
+                                                 int smem) {
+  if (threads < 1 || threads > gconv::kDwThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return gconv::with_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      return gconv::occupancy(
+          gconv::nbasr_gconv_dw<__nv_bfloat16, decltype(a)::value, decltype(b)::value>, threads,
+          smem);
+    });
+  return gconv::with_tile<float>(kt, ot, [&](auto a, auto b) {
+    return gconv::occupancy(gconv::nbasr_gconv_dw<float, decltype(a)::value, decltype(b)::value>,
+                            threads, smem);
+  });
 }
 
 extern "C" const char* nbasr_cuda_error_string(int err) {

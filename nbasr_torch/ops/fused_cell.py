@@ -10,7 +10,9 @@ dbias).  The kernels are ``nbasr_torch/csrc/fused_cell.cu`` and
 ``nbasr_torch/csrc/fused_cell_bwd.cu``; their headers state the bounds and
 the designs.  The TPU layout tricks (chunk expansion, 128-lane padding) are
 not carried over: the kernels read and write the compact ``[K, ci, C]``
-weights.
+weights.  The backward's conv nodes run the grouped conv's dW and dx
+kernels (``nbasr_torch/csrc/gconv_body.cuh``) on launch plans made here
+(:func:`backward_plans`) and checked again in C.
 
 Dropout draws its bits from the JAX kernel's interpret-mode generator
 (``_Prng.bits``): a stateless hash of (seed, batch row, node, t, c) in
@@ -31,19 +33,20 @@ it went through.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, grouped_conv
 
 __all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
            'fused_cell_forward', 'fused_cell_train_forward',
            'fused_cell_backward', 'fused_cell_reference',
            'fused_cell_backward_reference', 'dropout_bits', 'keep_threshold',
-           'inv_keep', 'relu20_gate',
+           'inv_keep', 'relu20_gate', 'dx_outputs', 'backward_plans',
            'LAUNCHES', 'BACKWARD_LAUNCHES', 'reset_launches']
 
 LN_EPS_DEFAULT = 1e-3
@@ -56,6 +59,15 @@ BACKWARD_LAUNCHES = {'kernel': 0, 'plain': 0}
 
 _KIND = {'conv': 0, 'linear': 1, 'zero': 2}
 _MAX_NODES = 7          # kMaxOutputs - 1 in the kernels
+_DESC = 7               # ints per node of the forward's descriptor
+#: Where a conv node's dx goes in the backward kernel: rounded into dx (node
+#: 0 where nothing else writes g[0]), stored into its f32 gradient buffer
+#: g[n], or added there (after branch adds).
+DX_OUT, DX_STORE, DX_ADD = 0, 1, 2
+#: Ints per node of the backward's descriptor: the forward's seven, the dx
+#: output, a conv node's dW plan and its dx plan (zeros for other nodes).
+BWD_DESC_INTS = (_DESC + 1 + len(grouped_conv.DW_PLAN_FIELDS)
+                 + len(grouped_conv.FWD_PLAN_FIELDS))
 _U32 = 0xFFFFFFFF
 
 
@@ -371,6 +383,61 @@ def fused_cell_backward_reference(spec, x, outs, mults, dy, weights, ln):
 # the kernels
 # ---------------------------------------------------------------------------
 
+def dx_outputs(desc):
+    """Per node of a forward descriptor (:func:`_describe`'s ints), where a
+    conv node's dx goes (None for other nodes): ``DX_ADD`` where a node
+    names it among its branches (node m names only j <= m, so those adds
+    reach g[j] before node j's own dx), else ``DX_STORE``, or ``DX_OUT``
+    for node 0, whose sums then round straight into dx."""
+    n = len(desc) // _DESC
+    named = 0
+    for i in range(n):
+        named |= desc[i * _DESC + 6]
+    return [None if desc[i * _DESC] != _KIND['conv'] else
+            DX_ADD if named >> i & 1 else DX_OUT if i == 0 else DX_STORE
+            for i in range(n)]
+
+
+def _estimated_dx_blocks(f32_out, *args):
+    return grouped_conv.estimated_blocks_per_sm(*args)
+
+
+def backward_plans(desc, B, T, C, esize, src_align, out_align, sms=132,
+                   dw_blocks_per_sm=grouped_conv.estimated_blocks_per_sm,
+                   dx_blocks_per_sm=_estimated_dx_blocks):
+    """Per node, ``(dx output, dW plan, dx plan)`` of a conv node's
+    launches in the backward kernel, None for other nodes.
+
+    The backward runs the grouped conv's dW and dx kernels on the dense
+    ``[B, T, C]`` tensors seen as the ``[B, c, T, G]`` view (strides
+    ``(T*C, 1, C, c)``): the dW plan is :func:`grouped_conv.dw_plan` of src
+    (node i's input, at ``src_align[i]`` bytes past 16) and dzc, the dx
+    plan :func:`grouped_conv.fwd_plan` of the conv on dzc (the dims
+    swapped, as ``grouped_conv._PLANS['dx']``) into dx (``out_align``) or
+    into an f32 gradient buffer (``y_esize`` 4).  The workspace's dzc and
+    gradient buffers lie on 16 bytes.  ``dw_blocks_per_sm(kt, ot,
+    threads, smem)`` and ``dx_blocks_per_sm(f32_out, kt, ot, threads,
+    smem)`` give resident blocks per SM (the card's occupancy calculator,
+    or the CPU's estimate)."""
+    out = []
+    for i, mode in enumerate(dx_outputs(desc)):
+        if mode is None:
+            out.append(None)
+            continue
+        _, K, d, _, ci, co, _ = desc[i * _DESC:(i + 1) * _DESC]
+        G = C // ci
+        xst, zst = (T * C, 1, C, ci), (T * C, 1, C, co)
+        dw = grouped_conv.dw_plan(B, T, G, ci, co, K, d, esize, xst, zst,
+                                  src_align[i], 0, sms, dw_blocks_per_sm)
+        dx = grouped_conv.fwd_plan(
+            B, T, G, co, ci, K, d, esize, zst, xst, 0,
+            out_align if mode == DX_OUT else 0, sms,
+            functools.partial(dx_blocks_per_sm, int(mode != DX_OUT)),
+            y_esize=esize if mode == DX_OUT else 4)
+        out.append((mode, dw, dx))
+    return out
+
+
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _FWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP, _PP]
@@ -486,6 +553,36 @@ def _launch(spec, x, weights, ln, seed, save):
     return (y, scratch, mults) if save else (y, None, None)
 
 
+@functools.lru_cache(maxsize=4096)
+def _backward_launch(device, desc, B, T, C, esize, src_align, out_align):
+    """(the backward descriptor's ints, workspace floats) of one cell on
+    ``device``, its plans by :func:`backward_plans` on the card's SMs and
+    occupancy calculator.  Kept per spec, shape, dtype, device and pointer
+    alignment, so that a train step plans each cell shape once."""
+    def occupancy(kernel):
+        return functools.partial(
+            grouped_conv._blocks_per_sm, device, 'fused_cell_bwd',
+            f'nbasr_fused_conv_{kernel}_blocks_per_sm', int(esize == 2))
+
+    plans = backward_plans(desc, B, T, C, esize, src_align, out_align,
+                           grouped_conv._sm_count(device), occupancy('dw'),
+                           occupancy('dx'))
+    ints = []
+    for i, plan in enumerate(plans):
+        ints += desc[i * _DESC:(i + 1) * _DESC]
+        if plan is None:
+            ints += [0] * (BWD_DESC_INTS - _DESC)
+            continue
+        mode, dw, dx = plan
+        ints += ([mode] + [dw[k] for k in grouped_conv.DW_PLAN_FIELDS]
+                 + [dx[k] for k in grouped_conv.FWD_PLAN_FIELDS])
+    arr = (ctypes.c_int * len(ints))(*ints)
+    size = _build.function('fused_cell_bwd',
+                           'nbasr_fused_cell_backward_workspace',
+                           _WORKSPACE_ARGS, ctypes.c_longlong)
+    return arr, size(B, T, C, len(plans), arr)
+
+
 def _launch_backward(spec, x, outs, mults, dy, weights, ln):
     B, T, C = x.shape
     n = len(spec.nodes)
@@ -495,15 +592,16 @@ def _launch_backward(spec, x, outs, mults, dy, weights, ln):
         _check(t, name, (n, B, T, C), x.dtype, x.device)
     desc, wptrs, _ = _describe(spec, x, weights)
     (scale_ptr,) = _ln_ptrs(spec, ln, x, which=(0,))
-    desc_arr = (ctypes.c_int * len(desc))(*desc)
+    dx = torch.empty_like(x)
+    esize = x.element_size()
+    src = [x.data_ptr()] + [outs.data_ptr() + i * B * T * C * esize
+                            for i in range(n - 1)]
+    desc_arr, size = _backward_launch(
+        x.device, tuple(desc), B, T, C, esize, tuple(p % 16 for p in src),
+        dx.data_ptr() % 16)
     fn = _build.function('fused_cell_bwd', 'nbasr_fused_cell_backward',
                          _BWD_ARGS)
-    size = _build.function('fused_cell_bwd',
-                           'nbasr_fused_cell_backward_workspace',
-                           _WORKSPACE_ARGS, ctypes.c_longlong)
-    work = torch.empty((size(B, T, C, n, desc_arr),), dtype=torch.float32,
-                       device=x.device)
-    dx = torch.empty_like(x)
+    work = torch.empty((size,), dtype=torch.float32, device=x.device)
     dweights, dwptrs, dbptrs = [], [], []
     for w in weights:      # per node: dW like its weight, db f32 like its bias
         dweights.append(torch.empty_like(w))

@@ -382,7 +382,7 @@ def _fwd_tiles(K, co, esize):
 
 def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
                    x_ptr=0, y_ptr=0, sms=132,
-                   blocks_per_sm=estimated_blocks_per_sm):
+                   blocks_per_sm=estimated_blocks_per_sm, y_esize=None):
     """Every launch plan ``nbasr_grouped_conv_forward`` can run for this
     shape, as ``(cost, plan)`` pairs; :func:`fwd_plan` takes the cheapest.
 
@@ -398,7 +398,9 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
     walks more than one unit, the next in flight) and the weights of ``cc``
     input channels at a time in f32, ``wstride`` floats per group (an odd
     number of float2, so that a half-warp's 8-byte reads fall in distinct
-    banks).
+    banks).  The output's elements are ``y_esize`` bytes (``esize`` unless
+    given: the fused cell backward's dx leaves f32 sums in an f32 output
+    tile and stores them into an f32 gradient buffer).
 
     The cost is an estimate of one SM's issue cycles: per thread and unit
     the FMAs, the window's loads and conversions and the weights' float2
@@ -412,6 +414,7 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
     hide the latency, plus one wait for a first tile."""
     halo, rt = (K - 1) * d, FWD_RT
     step = rt * d
+    y_esize = y_esize or esize
     kt, nk, ot, no = _fwd_tiles(K, co, esize)
     wstride = no * ot + 2 * ((no * ot // 2) % 2 == 0)
     # per thread, unit, output tile and input channel: FMAs, window loads
@@ -421,7 +424,7 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
     for gs in range(1, min(G, FWD_THREADS // d) + 1):
         slabs = _ceil(G, gs)
         x_mode, x_vec = _stage(x_strides, ci, gs, G, esize, x_ptr)
-        y_mode, y_vec = _stage(y_strides, co, gs, G, esize, y_ptr)
+        y_mode, y_vec = _stage(y_strides, co, gs, G, y_esize, y_ptr)
         for nq in range(1, FWD_THREADS // (gs * d) + 1):
             rows = step * nq
             tiles = max(1, _ceil(T, rows))
@@ -433,11 +436,12 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
             threads = per_pass * _ceil(no, passes)
             warps = _ceil(threads, 32)
             y_elems = rows * gs * co
-            x_buf = _align16(max((rows + halo) * gs * ci,
-                                 y_elems if passes == 1 else 0) * esize) // esize
-            y_buf = 0 if passes == 1 else _align16(y_elems * esize) // esize
+            y_bytes = _align16(y_elems * y_esize)
+            x_buf = _align16(max((rows + halo) * gs * ci * esize,
+                                 y_bytes if passes == 1 else 0)) // esize
+            y_buf = 0 if passes == 1 else y_bytes // y_esize
             x_vecs = (rows + halo) * gs * ci * esize // x_vec
-            y_vecs = y_elems * esize // y_vec
+            y_vecs = y_elems * y_esize // y_vec
             per_channel = K * gs * wstride * 4
             # shared-memory and L1 wavefronts per unit and warp: the
             # window and weight reads, the output tile's writes, and the
@@ -445,14 +449,15 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
             x_wf, w_wf = _fwd_wavefronts(x_mode, ci, gs, rt, d, esize, nq * d,
                                          threads)
             x_lines = _copy_lines(gs * (ci if x_mode else 1) * esize, x_vec)
-            y_lines = _copy_lines(gs * (co if y_mode else 1) * esize, y_vec)
+            y_lines = _copy_lines(gs * (co if y_mode else 1) * y_esize, y_vec)
             mio = (passes * (ci * (nk * (rt + kt - 1) * x_wf
                                    + K * (ot // 2) * w_wf) + rt * ot * x_wf)
                    + (x_vecs * x_lines + y_vecs * y_lines) / 32 / warps)
             for span in FWD_SPANS:
                 if span > max(1, units):
                     break
-                x_bytes = (2 if span > 1 else 1) * x_buf * esize + y_buf * esize
+                x_bytes = ((2 if span > 1 else 1) * x_buf * esize
+                           + y_buf * y_esize)
                 room = (SMEM_LIMIT - x_bytes) // per_channel
                 for cc in sorted({min(ci, room), _ceil(ci, 2), _ceil(ci, 4)}):
                     if cc > room or cc < 1:
@@ -488,15 +493,17 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
 
 
 def fwd_plan(B, T, G, ci, co, K, d, esize, x_strides, y_strides, x_ptr=0,
-             y_ptr=0, sms=132, blocks_per_sm=estimated_blocks_per_sm):
+             y_ptr=0, sms=132, blocks_per_sm=estimated_blocks_per_sm,
+             y_esize=None):
     """How ``nbasr_grouped_conv_forward`` cuts the forward: a dict of
     :data:`FWD_PLAN_FIELDS` plus the grid (blocks) and the resident blocks
-    per SM: of :func:`fwd_candidates` with a block for every one of the
-    ``sms`` SMs (all of them where none has), the cheapest (ties: the
-    larger slab, then the shorter tile).  Raises ``ValueError`` only where
-    one time step of one group with its halo does not fit shared memory."""
+    per SM: of :func:`fwd_candidates` (``y_esize`` the output's element
+    size) with a block for every one of the ``sms`` SMs (all of them where
+    none has), the cheapest (ties: the larger slab, then the shorter
+    tile).  Raises ``ValueError`` only where one time step of one group
+    with its halo does not fit shared memory."""
     plans = fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
-                           x_ptr, y_ptr, sms, blocks_per_sm)
+                           x_ptr, y_ptr, sms, blocks_per_sm, y_esize)
     if not plans:
         raise ValueError(
             f'the forward kernel cannot stage one time step of a group: '
@@ -571,17 +578,15 @@ def _sm_count(device):
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device, kernel, bf16, kt, ot, threads, smem):
-    """Resident blocks per SM of the card for the ``'dw'``, ``'fwd'`` or
-    ``'dx'`` kernel, from the CUDA occupancy calculator."""
-    fn = _build.function('grouped_conv',
-                         f'nbasr_grouped_conv_{kernel}_blocks_per_sm',
-                         [ctypes.c_int] * 5)
-    blocks = _run(fn, device, bf16, kt, ot, threads, smem)
+def _blocks_per_sm(device, library, function, *args):
+    """Resident blocks per SM of the card from the occupancy entry point
+    ``function`` of ``csrc/<library>.cu`` (the CUDA occupancy calculator on
+    the built kernel), for its int arguments ``args``: here the ``'dw'``,
+    ``'fwd'`` or ``'dx'`` kernel's (bf16, kt, ot, threads, smem)."""
+    fn = _build.function(library, function, [ctypes.c_int] * len(args))
+    blocks = _run(fn, device, *args)
     if blocks < 1:
-        raise RuntimeError(f'no resident {kernel} block of {threads} threads '
-                           f'and {smem} bytes of shared memory (tile '
-                           f'{kt}x{ot})')
+        raise RuntimeError(f'no resident block of {function} for {args}')
     return blocks
 
 
@@ -600,7 +605,8 @@ def _launch_plan(device, kernel, *args):
     pointer alignment, so a train step plans each node once."""
     plan_fn, fields = _PLANS[kernel]
     plan = plan_fn(*args, sms=_sm_count(device), blocks_per_sm=functools.partial(
-        _blocks_per_sm, device, kernel, int(args[7] == 2)))
+        _blocks_per_sm, device, 'grouped_conv',
+        f'nbasr_grouped_conv_{kernel}_blocks_per_sm', int(args[7] == 2)))
     return plan, (ctypes.c_int * len(fields))(*(plan[k] for k in fields))
 
 

@@ -1,7 +1,7 @@
-"""A/B of the flagship train step, or of its grouped conv kernels, between
-checkouts, on one card.
+"""A/B of the flagship train step, of its grouped conv kernels or of its
+fused cell backward, between checkouts, on one card.
 
-    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv] ROOT_A ROOT_B ROOT_B ROOT_A ...
+    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv | --fused-bwd] ROOT_A ROOT_B ROOT_B ROOT_A ...
 
 For each root in the order given (alternate them: host time drifts between
 processes), a fresh process imports ``nbasr_torch`` from that root, builds
@@ -29,10 +29,23 @@ root's library was built (a root's ``grouped_conv.cu`` may be a variant
 of another's: put both in one call to see what the compiler made of
 each).
 
+With ``--fused-bwd`` it times the fused cell backward of the 18 flagship
+cells of one train step (3/4/5/6 cells at C/T = 600/300, 800/300,
+1000/150, 1200/75), bf16, B=32, dropout 0.2, on the saved node outputs
+and multipliers of each cell's own training forward (the cells, inputs
+and timers of this checkout's ``chip_smoke.py``): ``bwd_events_ms``, the
+CUDA-event median of single calls per cell, summed over the step;
+``bwd_device_ms``, calls queued behind a spin kernel, summed likewise;
+``kernels_ms``, the device time of each kernel of the backward library by
+name in a ``torch.profiler`` trace, per step; ``launches_per_cell``, the
+kernels a cell's backward launches; and ``registers``, the fused backward
+library's registers and spills as ptxas reported them.
+
 Only the API that every version of the port has is used (``get_model``,
 ``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``, the
-grouped conv's ``_launch_*`` wrappers).  One JSON line per root, then a
-summary line.
+grouped conv's ``_launch_*`` wrappers, ``fused_cell_train_forward``,
+``fused_cell_backward``, ``SearchCell.operands``).  One JSON line per root,
+then a summary line.
 """
 
 import importlib.util
@@ -49,13 +62,19 @@ SMOKE = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', '..',
                      'chip_smoke.py')
 
 
+def load_smoke():
+    """This checkout's chip_smoke.py, imported with the root's nbasr_torch."""
+    spec = importlib.util.spec_from_file_location('chip_smoke', SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def gconv_times():
     """Forward and dx times of the root's grouped conv kernels, by this
     checkout's chip_smoke.py (imported with the root's nbasr_torch)."""
     import torch
-    spec = importlib.util.spec_from_file_location('chip_smoke', SMOKE)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load_smoke()
     dev = torch.device('cuda')
     out = {'per_node': []}
     with torch.no_grad():
@@ -77,6 +96,67 @@ def gconv_times():
                     for k in ('events_ms', 'device_ms'):
                         total = f'{key}_{layout}_{k}'
                         out[total] = out.get(total, 0.0) + 3 * cells * row[k]
+    return out
+
+
+def kernel_name(key):
+    """A profiler row's kernel as ``nbasr_<name>``, or the row's key (the
+    memset)."""
+    m = re.search(r'nbasr_\w+?(?=<|\(|$)', key)
+    return m.group(0) if m else key[:40]
+
+
+def fused_bwd_times():
+    """The fused backward of the root's kernels at one flagship train
+    step's 18 bf16 cells, by this checkout's chip_smoke.py."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from nbasr_torch.ops import fused_cell
+    smoke = load_smoke()
+    dev = torch.device('cuda')
+    seed = torch.tensor(smoke.TRAIN_SEED, dtype=torch.int32, device=dev)
+    out = {'card': smoke.card_line(), 'bwd_events_ms': 0.0,
+           'bwd_device_ms': 0.0, 'per_width': []}
+    calls = []
+    with torch.no_grad():
+        for (C, T), cells in zip(smoke.TRAIN_WIDTHS, smoke.CELLS_PER_BLOCK):
+            cell = smoke.make_cell(C, smoke.SPECS['flagship'], dev)
+            spec = smoke.train_spec(cell, smoke.DROPOUT)
+            g = torch.Generator().manual_seed(smoke.SEED + C)
+            x = torch.randn((smoke.TRAIN_B, T, C), generator=g).to(
+                dev, torch.bfloat16)
+            dy = torch.randn((smoke.TRAIN_B, T, C), generator=g).to(
+                dev, torch.bfloat16)
+            weights, ln = cell.operands(torch.bfloat16)
+            _, outs, mults = fused_cell.fused_cell_train_forward(
+                spec, x, weights, ln, seed)
+            bwd = (lambda a: lambda: fused_cell.fused_cell_backward(*a))(
+                (spec, x, outs, mults, dy, weights, ln))
+            row = dict(C=C, T=T, cells=cells, events_ms=smoke.time_ms(bwd),
+                       device_ms=smoke.device_ms(bwd))
+            out['per_width'].append(row)
+            out['bwd_events_ms'] += cells * row['events_ms']
+            out['bwd_device_ms'] += cells * row['device_ms']
+            calls.append((cells, bwd))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS):
+                for cells, bwd in calls:
+                    for _ in range(cells):
+                        bwd()
+            torch.cuda.synchronize()
+    by_name, counts = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_name(e.key)
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / STEPS
+            counts[name] = counts.get(name, 0) + e.count
+    out['kernels_ms'] = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    out['kernels_total_ms'] = sum(by_name.values())
+    out['launches_per_cell'] = sum(counts.values()) / STEPS / 18
+    out['launches_by_name_per_step'] = {k: v / STEPS for k, v in counts.items()}
     return out
 
 
@@ -116,6 +196,9 @@ def measure(root, impl):
     if impl == 'gconv':
         return {'root': root, 'impl': impl, **gconv_times(),
                 'registers': registers(built['grouped_conv'][1])}
+    if impl == 'fused-bwd':
+        return {'root': root, 'impl': impl, **fused_bwd_times(),
+                'registers': registers(built['fused_cell_bwd'][1])}
     dev = torch.device('cuda')
     model = get_model([[1, 0], [1, 0, 0], [1, 0, 0, 0]], use_rnn=True,
                       dropout_rate=0.2, data_norm=True,
@@ -155,8 +238,8 @@ def main(argv):
     impl = 'auto'
     if argv[:1] == ['--impl']:
         impl, argv = argv[1], argv[2:]
-    elif argv[:1] == ['--gconv']:
-        impl, argv = 'gconv', argv[1:]
+    elif argv[:1] in (['--gconv'], ['--fused-bwd']):
+        impl, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)
     rows = []
@@ -173,7 +256,8 @@ def main(argv):
     for row in rows:
         for k, v in row.items():
             if k not in ('root', 'impl', 'step_ms_blocks', 'per_node',
-                         'registers'):
+                         'registers', 'per_width', 'card',
+                         'launches_by_name_per_step'):
                 summary.setdefault(row['root'], {}).setdefault(k, []).append(v)
     print(json.dumps({'summary': summary}))
 

@@ -210,10 +210,9 @@ def test_cell_vjp_bf16_matches_jax(arch):
 
 @pytest.mark.parametrize('arch', ARCHS[:2], ids=ARCH_IDS[:2])
 def test_cell_vjp_wide_groups_matches_jax(arch):
-    """Groups of 24 input channels (C=48, 2 groups), wider than the 16 a
-    dW thread of the backward kernel sums at once, so the kernel takes
-    them in slices; the plain version against JAX within 1e-5 of each
-    tensor's scale in f32, as the narrow groups."""
+    """Groups of 24 input channels (C=48, 2 groups), wider than 16: the
+    plain version against JAX within 1e-5 of each tensor's scale in f32,
+    as the narrow groups."""
     want, got = _vjp_pair(arch, 0.5, False, torch.float32, C=48, groups=2)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL * np.abs(w).max())

@@ -219,6 +219,13 @@ def test_dw_plan_covers_every_row_once(B, T, G, ci, co, K, d, layout, esize):
     xst, zst = _plan_strides(B, T, G, ci, co, layout)
     p = grouped_conv.dw_plan(B, T, G, ci, co, K, d, esize, xst, zst, 256,
                              512, sms=132)
+    _check_dw_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, zst)
+
+
+def _check_dw_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, zst,
+                   ptrs=(256, 512)):
+    """The dW plan's invariants (the strides of x and dz, their pointers'
+    bytes past an aligned base in ``ptrs``)."""
     assert set(grouped_conv.DW_PLAN_FIELDS) <= p.keys()
     units = B * p['tiles']
     seen = np.zeros((B, T), np.int64)
@@ -253,8 +260,8 @@ def test_dw_plan_covers_every_row_once(B, T, G, ci, co, K, d, layout, esize):
     assert p['workspace'] * 4 <= max(
         grouped_conv.DW_PARTIAL_SHARE * B * T * G * (ci + co) * esize, 4 * n)
     for (mode, vec), strides, ptr, nch in (
-            ((p['x_mode'], p['x_vec']), xst, 256, ci),
-            ((p['z_mode'], p['z_vec']), zst, 512, co)):
+            ((p['x_mode'], p['x_vec']), xst, ptrs[0], ci),
+            ((p['z_mode'], p['z_vec']), zst, ptrs[1], co)):
         assert vec == esize or (vec in (4, 8, 16) and vec > esize)
         s_b, s_c, s_t, s_g = strides
         if vec > esize:
@@ -355,10 +362,12 @@ def test_dx_plan_covers_every_output_once(B, T, G, ci, co, K, d, layout,
     _check_fwd_plan(p, B, T, G, co, ci, K, d, layout, esize, zst, xst)
 
 
-def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst):
+def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst,
+                    y_esize=None, ptrs=(256, 512)):
     """The forward plan's invariants (ci, co and the strides: the staged
-    operand's and the output's, at 256 and 512 bytes from an aligned
-    base)."""
+    operand's and the output's, at ``ptrs`` bytes from an aligned base;
+    the output's elements ``y_esize`` bytes, ``esize`` unless given)."""
+    y_esize = y_esize or esize
     assert set(grouped_conv.FWD_PLAN_FIELDS) <= p.keys()
     b, t, g, o, written = _fwd_owners(p, B, T, G, co, d)
     idx = ((b * T + t) * G + g) * co + o
@@ -391,36 +400,36 @@ def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst):
     assert p['x_buf'] >= (rows + halo) * p['gs'] * ci
     y_need = rows * p['gs'] * co
     if p['y_buf'] == 0:                 # one pass: the output over the x tile
-        assert ow == p['no'] and p['x_buf'] >= y_need
+        assert ow == p['no'] and p['x_buf'] * esize >= y_need * y_esize
     else:
         assert p['y_buf'] >= y_need
-    assert p['x_buf'] * esize % 16 == 0 and p['y_buf'] * esize % 16 == 0
+    assert p['x_buf'] * esize % 16 == 0 and p['y_buf'] * y_esize % 16 == 0
     assert p['wstride'] >= p['no'] * p['ot'] and (p['wstride'] // 2) % 2 == 1
     assert 1 <= p['cc'] <= ci
     assert p['w_buf'] >= K * p['cc'] * p['gs'] * p['wstride']
     bufs = 2 if p['span'] > 1 else 1
-    assert (bufs * p['x_buf'] * esize + p['y_buf'] * esize + 4 * p['w_buf']
+    assert (bufs * p['x_buf'] * esize + p['y_buf'] * y_esize + 4 * p['w_buf']
             <= p['smem'] <= grouped_conv.SMEM_LIMIT)
     assert 1 <= p['threads'] <= grouped_conv.FWD_THREADS
     assert p['grid'] == p['slabs'] * -(-B * p['tiles'] // p['span'])
     assert p['grid'] <= 2 ** 31 - 1
     assert p['slabs'] == -(-G // p['gs'])
     last = G - (p['slabs'] - 1) * p['gs']
-    for (mode, vec), strides, ptr, nch in (
-            ((p['x_mode'], p['x_vec']), xst, 256, ci),
-            ((p['y_mode'], p['y_vec']), yst, 512, co)):
-        assert vec == esize or (vec in (4, 8, 16) and vec > esize)
+    for (mode, vec), strides, ptr, nch, size in (
+            ((p['x_mode'], p['x_vec']), xst, ptrs[0], ci, esize),
+            ((p['y_mode'], p['y_vec']), yst, ptrs[1], co, y_esize)):
+        assert vec == size or (vec in (4, 8, 16) and vec > size)
         s_b, s_c, s_t, s_g = strides
-        if vec > esize:
-            assert (ptr % vec, s_b * esize % vec, s_t * esize % vec) == (0, 0, 0)
+        if vec > size:
+            assert (ptr % vec, s_b * size % vec, s_t * size % vec) == (0, 0, 0)
             run = p['gs'] * nch if mode == 1 else p['gs']
             tail = last * nch if mode == 1 else last
-            assert run * esize % vec == 0 and tail * esize % vec == 0
+            assert run * size % vec == 0 and tail * size % vec == 0
             if mode == 0:
-                assert s_g == 1 and s_c * esize % vec == 0
+                assert s_g == 1 and s_c * size % vec == 0
         assert mode == int(layout == 'dense' or (layout == 'split' and nch == 1))
         if layout == 'strided' and nch > 1:     # g strided: element by element
-            assert vec == esize
+            assert vec == size
     if layout == 'dense' and esize == 2 and (T, ci) == (300, 6) and B == 32:
         assert (p['x_vec'], p['y_vec']) == (16, 16)   # the flagship's block 0
 
@@ -449,12 +458,13 @@ def _tile_run(r, mode, nch, nrows, gs, s_c):
 
 
 def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
-                  gs, geff, T, stage, bounds=True):
+                  gs, geff, T, stage, bounds=True, add=False):
     """stage_tile (``stage``: device memory ``mem`` -> shared ``sm``, a time
     outside [0, T) reads zero unless ``bounds`` is off) or store_tile (the
-    reverse, times [0, nrows)), run by run and element by element, with
-    the kernel's alignment: each vector's shared and device addresses are
-    multiples of its bytes (the base pointer counts as aligned)."""
+    reverse, times [0, nrows); add_tile with ``add``), run by run and
+    element by element, with the kernel's alignment: each vector's shared
+    and device addresses are multiples of its bytes (the base pointer
+    counts as aligned)."""
     s_b, s_c, s_t, s_g = strides
     per_vec = vec // esize
     run_len = geff if mode == 0 else geff * nch
@@ -470,7 +480,7 @@ def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
         for e in range(per_vec):
             if not stage:
                 assert 0 <= a + e < len(mem)
-                mem[a + e] = sm[s + e]
+                mem[a + e] = mem[a + e] + sm[s + e] if add else sm[s + e]
             elif ((bounds and not 0 <= ts0 + trow < T)
                   or not 0 <= a + e < len(mem)):
                 sm[s + e] = 0.0
@@ -479,16 +489,22 @@ def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
 
 
 def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
-                     esize, bounds=True, dx=False):
+                     esize, bounds=True, dx=False, y_esize=None, prior=None):
     """The forward kernel's loader, weight staging, register tiles and
     store in numpy (f64 sums), on flat memory addressed by the strides;
     shared memory starts as NaN, so a read of what was never staged shows
     in an output.  Unwritten outputs stay NaN.  With ``dx`` the input
     gradient's kernel, the same body on dz: ``x`` is dz (``ci`` its
     channels), the output dx (``co``), ``w`` the conv's ``[K, co, G*ci]``,
-    staged transposed and tap-reversed, and ``lpad`` the mirrored pad."""
+    staged transposed and tap-reversed, and ``lpad`` the mirrored pad.
+    ``y_esize`` is the output's element size (the fused backward's f32
+    tile and buffer: 4); with ``prior`` (flat memory like the output) the
+    output tile is added into it (add_tile), else stored."""
     gs, rows, x_buf, y_buf = p['gs'], p['rows'], p['x_buf'], p['y_buf']
-    y = np.full(B * co * T * G, np.nan)
+    y_esize = y_esize or esize
+    if not y_buf:           # the output tile over the x tile: it must fit
+        assert rows * gs * co * y_esize <= x_buf * esize
+    y = np.full(B * co * T * G, np.nan) if prior is None else prior.copy()
     units = B * p['tiles']
     for blk in range(p['grid']):
         slab, u0 = blk % p['slabs'], (blk // p['slabs']) * p['span']
@@ -517,9 +533,10 @@ def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
             _emulate_unit(tile(u), yt, wsm, w, bias, p, ci, co, K, d, g0,
                           geff, first=u == u0, dx=dx)
             t0 = u % p['tiles'] * rows
-            _emulate_copy(y, yst, yt, co, p['y_mode'], p['y_vec'], esize,
+            _emulate_copy(y, yst, yt, co, p['y_mode'], p['y_vec'], y_esize,
                           u // p['tiles'] * yst[0] + g0 * yst[3] + t0 * yst[2],
-                          0, min(rows, T - t0), gs, geff, T, False)
+                          0, min(rows, T - t0), gs, geff, T, False,
+                          add=prior is not None)
     return y
 
 
@@ -632,15 +649,15 @@ EMULATED = [
 
 
 def _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice,
-                   kernel='fwd'):
+                   kernel='fwd', y_esize=None):
     """The plan of ``_PLANS[kernel]`` (``'dx'``: ci, co and the strides
-    those of the conv on dz), or the candidate that cuts the work as
-    ``choice`` says."""
+    those of the conv on dz; ``y_esize`` the output's element size), or
+    the candidate that cuts the work as ``choice`` says."""
     if choice == 'plan':
         return grouped_conv._PLANS[kernel][0](B, T, G, ci, co, K, d, esize,
-                                              xst, yst)
+                                              xst, yst, y_esize=y_esize)
     plans = [p for _, p in grouped_conv.fwd_candidates(
-        B, T, G, ci, co, K, d, esize, xst, yst)]
+        B, T, G, ci, co, K, d, esize, xst, yst, y_esize=y_esize)]
     if choice == 'passes':  # output tiles in passes, blocks of several units
         return max(plans, key=lambda p: (p['y_buf'] > 0, p['span'] > 1,
                                          G % p['gs'] > 0, p['cc'] < ci))
