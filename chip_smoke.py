@@ -12,8 +12,10 @@ prints no result):
 2. build: nvcc compiles every kernel in nbasr_torch/csrc into build/;
 3. kernels: the fused cell forward kernel against its plain PyTorch version
    on the card, at the four flagship widths (block 0-3 of a serving
-   window), on every node kind, in f32 and bf16; then its time per cell
-   beside its bound;
+   window), on every node kind, in f32 and bf16, two calls bit-equal; NaN,
+   +inf and -inf in x on three specs, where the output must be NaN and
+   +-inf exactly where the plain version's (on the CPU) is; then its time
+   per cell on CUDA events and as device time, beside its bound;
 4. serving: the flagship model (26,339,349 parameters, random weights from a
    seed) streams four 8 s streams of seeded audio, one ending 2 s early,
    through StreamingASR at chunk_frames=240 and StreamingGreedyDecoder;
@@ -29,10 +31,12 @@ prints no result):
    with 50 groups of 24 channels at C=1200; the same for the flagship
    cell at the train step's own shapes (B=32, dropout 0.2); NaN, +inf and
    -inf in dy, where the backward's outputs must be NaN and +-inf exactly
-   where the plain version's (on the CPU) are; the kept share of one large
+   where the plain version's (on the CPU) are, and in x, where the
+   training forward's output, node outputs and multipliers must be; the
+   training forward bit-equal across two calls; the kept share of one large
    dropout draw; the forward and backward times per flagship cell at the
    train step's shapes beside their bounds, on CUDA events and as device
-   time;
+   time, and the forward's kernel launches per cell from a profiler trace;
 7. train step: the flagship at full width in bf16, B=32, dropout 0.2, on
    synthetic ≤3 s utterances: 2 warm-up and 5 timed Trainer steps (ms per
    step, audio-s/s), 18 forward and 18 backward kernel launches per step
@@ -187,8 +191,15 @@ GATE_FLIP_SHARE = 1e-5
 # tensor's max.  KERNEL_GRAD_TOL holds the card's kernels against the plain
 # cells run on the card: everything outside the cells is the same
 # arithmetic on both sides, so they differ only by the cells' f32 summation
-# order carried through the backward (3.3e-5 measured on an H100); a wrong
-# kernel moves a gradient by its own size.  TRAIN_GRAD_TOL holds the card
+# order carried through the backward; a wrong kernel moves a gradient by
+# its own size.  The bound is below its own witness: it read 3.3e-5 on an
+# H100 with the kernels' present rounding, but a LayerNorm kernel that
+# summed its f32 statistics in another order (vectors of 4 a lane) read
+# 4.78e-2 on the same step, as much as the 1-ulp audio nudge below moves
+# the card's own gradients.  So it holds only while the kernels round as
+# they do, and it is to be founded again on a better conditioned step;
+# until then a change of a cell kernel's f32 summation order can fail it
+# with nothing wrong.  TRAIN_GRAD_TOL holds the card
 # against the CPU, where cuDNN, cuBLAS and the frontend sum in other orders
 # too.  The random-init flagship is badly conditioned there: its backward
 # grows gradients ~13 orders of magnitude over the 18 cells, and one f32
@@ -268,8 +279,9 @@ def time_ms(fn, runs=30, warmup=5):
 
 @torch.inference_mode()
 def check_kernels(device):
-    """Phase 3: kernel vs plain version at every width, spec and dtype, then
-    timings of the flagship cell.  Returns (max errors, timing rows)."""
+    """Phase 3: kernel vs plain version at every width, spec and dtype, two
+    calls bit-equal, non-finite inputs, then timings of the flagship cell.
+    Returns (max errors, timing rows, the non-finite check's counts)."""
     errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows = []
     for C, T in WIDTHS:
@@ -281,8 +293,11 @@ def check_kernels(device):
                 x = x32.to(dtype)
                 weights, ln = cell.operands(dtype)
                 got = fused_cell.fused_cell_forward(cell.spec, x, weights, ln)
+                again = fused_cell.fused_cell_forward(cell.spec, x, weights, ln)
                 want = fused_cell.fused_cell_reference(cell.spec, x, weights, ln)
                 torch.cuda.synchronize()
+                assert torch.equal(got, again), ('two calls differ', name, C,
+                                                 dtype)
                 assert got.shape == want.shape and got.dtype == want.dtype
                 assert bool(torch.isfinite(got.float()).all()), (name, C, dtype)
                 err = float((got.float() - want.float()).abs().max())
@@ -297,15 +312,81 @@ def check_kernels(device):
             x = x32.to(dtype)
             args = (cell.spec, x, *cell.operands(dtype))
             ms = time_ms(lambda: fused_cell.fused_cell_forward(*args))
+            dev_ms = device_ms(lambda: fused_cell.fused_cell_forward(*args))
             plain_ms = time_ms(lambda: fused_cell.fused_cell_reference(*args))
             bound_ms, bound_by = cell_bound(cell, B, T, C, dtype)
             rows.append(dict(C=C, T=T, dtype=str(dtype)[6:], ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by))
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
             print(f'flagship cell  B={B} C={C:4d} T={T:3d} {str(dtype)[6:]:8s} '
-                  f'kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  '
-                  f'bound {bound_ms:.4f} ms ({bound_by})')
-    return errors, rows
+                  f'kernel {ms:.4f} ms, device {dev_ms:.4f}  plain '
+                  f'{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})')
+    for dtype in ('float32', 'bfloat16'):
+        step = train_step_sums([r for r in rows if r['dtype'] == dtype],
+                               ('ms', 'device_ms', 'bound_ms'))
+        print(f'fused cell forward per serving step, the 18 {dtype} cells at '
+              f'B={B}: {step["ms"]:.3f} ms on CUDA events, '
+              f'{step["device_ms"]:.3f} ms of device time (queued runs), '
+              f'bound {step["bound_ms"]:.4f} ms')
+    return errors, rows, check_forward_nonfinite(device)
+
+
+def check_forward_nonfinite(device, seed=None):
+    """NaN, +inf and -inf planted in x (NONFINITE) at B=4, C=600, T=300 on
+    BWD_NONFINITE_SPECS, f32 and bf16: the forward kernel's outputs are NaN,
+    +inf and -inf exactly where the plain version's are, run on the CPU on
+    the same inputs, and its finite outputs within TOL of the finite scale.
+    Without a seed the serving forward's output; with one, the training
+    forward's at dropout 0.2: its output, every node output and every conv
+    or linear node's multipliers.  Returns how many outputs were NaN and
+    inf."""
+    t0 = time.perf_counter()
+    Bn, C, T = NONFINITE_SHAPE
+    counts = {'nan': 0, 'inf': 0}
+    g = torch.Generator().manual_seed(SEED + 19)
+    x32 = torch.randn((Bn, T, C), generator=g)
+    for bi, t, c, v in NONFINITE:
+        x32[bi, t, c] = v
+    cpu = lambda ts: ts and [t.cpu() for t in ts]
+    for name in BWD_NONFINITE_SPECS:
+        cell = make_cell(C, SPECS[name], device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(device, dtype)
+            weights, ln = cell.operands(dtype)
+            if seed is None:
+                got = [fused_cell.fused_cell_forward(cell.spec, x, weights, ln)]
+                want = [fused_cell.fused_cell_reference(
+                    cell.spec, x.cpu(), cpu(weights), cpu(ln))]
+            else:
+                spec = train_spec(cell, DROPOUT)
+                y, outs, mults = fused_cell.fused_cell_train_forward(
+                    spec, x, weights, ln, seed)
+                ry, routs, rmults = fused_cell.fused_cell_reference(
+                    spec, x.cpu(), cpu(weights), cpu(ln), seed.cpu(), save=True)
+                # a zero node's multiplier slot is not written (nor read)
+                live = [i for i, n in enumerate(spec.nodes) if n.kind != 'zero']
+                got = [y, *outs, *mults[live]]
+                want = [ry, *routs, *rmults[live]]
+            for i, (a, b) in enumerate(zip(got, want)):
+                a, b = a.float().cpu(), b.float()
+                for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                    assert torch.equal(test(a), test(b)), (name, dtype, i, test)
+                finite = torch.isfinite(b)
+                if bool(finite.any()):
+                    err = float((a[finite] - b[finite]).abs().max())
+                    scale = float(b[finite].abs().max())
+                    assert err <= TOL[dtype] * max(scale, 1e-30), \
+                        (name, dtype, i, err, scale)
+                counts['nan'] += int(torch.isnan(b).sum())
+                counts['inf'] += int(torch.isinf(b).sum())
+    assert counts['nan'] > 0, counts
+    what = ('serving forward\'s output' if seed is None else
+            'training forward\'s output, node outputs and multipliers')
+    print(f'fused forward NaN/inf in x: the {what} NaN and +-inf where the '
+          f'plain version\'s are ({counts["nan"]} NaN, {counts["inf"]} inf '
+          f'over {2 * len(BWD_NONFINITE_SPECS)} runs), finite ones within '
+          f'tolerance; {time.perf_counter() - t0:.1f} s')
+    return counts
 
 
 def make_audio():
@@ -505,9 +586,16 @@ class TrainKernelCheck:
         dtype = x.dtype
         y, outs, mults = fused_cell.fused_cell_train_forward(
             spec, x, weights, ln, self.seed)
+        again = fused_cell.fused_cell_train_forward(spec, x, weights, ln,
+                                                    self.seed)
         want = fused_cell.fused_cell_reference(spec, x, weights, ln, self.seed,
                                                save=True)
         torch.cuda.synchronize()
+        live = [i for i, n in enumerate(spec.nodes) if n.kind != 'zero']
+        assert torch.equal(y, again[0]) and torch.equal(outs, again[1]) and \
+            torch.equal(mults[live], again[2][live]), \
+            ('two forward calls differ', label, B, C, dtype)
+        del again
         err = float((y.float() - want[0].float()).abs().max())
         scale = float(want[0].float().abs().max())
         assert err <= TOL[dtype] * scale, (label, C, dtype, err, scale)
@@ -542,7 +630,8 @@ class TrainKernelCheck:
 @torch.no_grad()
 def check_train_kernels(device):
     """Phase 6.  Returns (the TrainKernelCheck with its errors and gate
-    flips, the kept share, timing rows)."""
+    flips, the kept share, timing rows, the backward's non-finite counts,
+    the training forward's non-finite counts)."""
     seed = torch.tensor(TRAIN_SEED, dtype=torch.int32, device=device)
     checker = TrainKernelCheck(seed)
     for C, T in TRAIN_WIDTHS:
@@ -636,8 +725,9 @@ def check_train_kernels(device):
               f'{step["device_ms"]:.3f} ms of device time (queued runs), '
               f'bound {step["bound_ms"]:.4f} ms; forward {step["fwd_ms"]:.3f} '
               f'/ {step["fwd_device_ms"]:.3f} ms')
+    fwd_nonfinite = check_forward_nonfinite(device, seed)
     nonfinite = check_backward_nonfinite(device, seed)
-    return checker, kept, rows, nonfinite
+    return checker, kept, rows, nonfinite, fwd_nonfinite
 
 
 def train_step_sums(rows, keys):
@@ -654,6 +744,7 @@ def check_backward_nonfinite(device, seed):
     on the same saved inputs, and its finite outputs within GRAD_TOL of
     the finite scale; BWD_NONFINITE_SPECS at dropout 0.2, f32 and bf16.
     Returns how many outputs were NaN and inf."""
+    t0 = time.perf_counter()
     Bn, C, T = NONFINITE_SHAPE
     counts = {'nan': 0, 'inf': 0}
     g = torch.Generator().manual_seed(SEED + 17)
@@ -690,7 +781,7 @@ def check_backward_nonfinite(device, seed):
     print(f'fused backward NaN/inf in dy: outputs NaN and +-inf where the '
           f'plain version\'s are ({counts["nan"]} NaN, {counts["inf"]} inf '
           f'over {2 * len(BWD_NONFINITE_SPECS)} runs), finite ones within '
-          f'tolerance')
+          f'tolerance; {time.perf_counter() - t0:.1f} s')
     return counts
 
 
@@ -700,26 +791,34 @@ BWD_KERNELS = ('nbasr_ln_backward_rows', 'nbasr_ln_param_partials',
                'nbasr_reduce_chunks', 'nbasr_node_dz', 'nbasr_gconv_dw',
                'nbasr_fused_conv_dx', 'nbasr_linear_dw', 'nbasr_linear_dx',
                'nbasr_convert')
-FWD_KERNELS = ('nbasr_conv_node', 'nbasr_linear_node', 'nbasr_zero_node',
+FWD_KERNELS = ('nbasr_fused_conv_fwd', 'nbasr_linear_node', 'nbasr_zero_node',
                'nbasr_layer_norm', 'nbasr_gconv_fwd')
+# the flagship cell's forward kernels: its three conv nodes and the LayerNorm
+FWD_LAUNCHES_PER_CELL = 4
 GCONV_BWD_KERNELS = ('nbasr_gconv_dx', 'nbasr_gconv_dw')  # dw and dw_reduce
 
 
 def profile_train_step(trainer, batch, lr):
     """Kernel time by name over one train step (torch.profiler), the busy
-    share, and the cell kernels' part (fused cell or grouped conv)."""
+    share, and the cell kernels' part (fused cell or grouped conv).
+    Returns the fused forward's kernels per cell in that step: its kernels
+    in the trace (FWD_KERNELS[:4], by name) over its wrapper's launches;
+    None where the step ran no fused forward or the profiler saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    cells = fused_cell.LAUNCHES['kernel']
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.step(batch, lr=lr)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    cells = fused_cell.LAUNCHES['kernel'] - cells
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print('profile: the profiler saw no device time (not measured)')
-        return
+        return None
     ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
     busy = ms(kernels)
     fwd = ms([e for e in kernels if any(k in e.key for k in FWD_KERNELS)])
@@ -732,6 +831,13 @@ def profile_train_step(trainer, batch, lr):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f'  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  '
               f'{e.key[:100]}')
+    if not cells:
+        return None
+    per_cell = sum(e.count for e in kernels
+                   if any(k in e.key for k in FWD_KERNELS[:4])) / cells
+    print(f'fused forward: {per_cell} kernel launches per cell in the '
+          f'profiled step ({cells} cells)')
+    return per_cell
 
 
 def check_train_step(device, impl='auto'):
@@ -790,9 +896,12 @@ def check_train_step(device, impl='auto'):
           f'{audio_s / wall:.1f} audio-s/s, running train loss '
           f'{m["ctc_loss"]:.4f}; {flops / 1e9:.1f} algorithmic GFLOP per step '
           f'= {flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s')
-    profile_train_step(trainer, batches[0], lr)
+    per_cell = profile_train_step(trainer, batches[0], lr)
+    if fused:   # a launch per conv node and one for the LayerNorm
+        assert per_cell == FWD_LAUNCHES_PER_CELL, per_cell
     return ({k: v['kernel'] for k, v in launches.items()},
-            dict(step_ms=step_ms, audio_s_per_s=audio_s / wall))
+            dict(step_ms=step_ms, audio_s_per_s=audio_s / wall,
+                 fwd_kernels_per_cell=per_cell))
 
 
 @contextlib.contextmanager
@@ -1807,9 +1916,9 @@ def main():
               f'{time.perf_counter() - t0:.1f} s since the build began]')
         return out
 
-    errors, rows = timed('phase 3', check_kernels, device)
+    errors, rows, fwd_nonfinite = timed('phase 3', check_kernels, device)
     launches, serving = timed('phases 4-5', check_serving, device)
-    checker, kept, train_rows, bwd_nonfinite = timed(
+    checker, kept, train_rows, bwd_nonfinite, train_fwd_nonfinite = timed(
         'phase 6', check_train_kernels, device)
     train_errors = checker.errors
     at_step = {k: {str(d)[6:]: v[1] for d, v in e.items()}
@@ -1830,8 +1939,8 @@ def main():
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
-    step = {k: sum(n * r[k] for n, r in zip(CELLS_PER_BLOCK, f32_rows))
-            for k in ('ms', 'plain_ms', 'bound_ms')}
+    step = train_step_sums(f32_rows, ('ms', 'device_ms', 'plain_ms',
+                                      'bound_ms'))
     # one train step's 18 bf16 cells
     bf16_rows = [r for r in train_rows if r['dtype'] == 'bfloat16']
     tstep = train_step_sums(bf16_rows, (
@@ -1849,6 +1958,15 @@ def main():
         max_abs_err_bf16=errors[torch.bfloat16],
         times_cover='the 18 f32 cells of one flagship serving step, B=4, '
                     'T=772/772/386/193',
+        device_ms=step['device_ms'],
+        device_times_cover='the same cells, device time per call of 20 '
+                           'calls queued back to back behind a spin kernel '
+                           '(no wrapper host time)',
+        kernels=FWD_KERNELS[:4],
+        launches_per_cell=train['fwd_kernels_per_cell'],
+        bit_equal_calls=True,
+        nonfinite_outputs_checked={'serving': fwd_nonfinite,
+                                   'train': train_fwd_nonfinite},
         per_width=rows,
         dropout_checked=True, dropout_gate_flips=checker.flips,
         dropout_multipliers_compared=checker.compared, dropout_kept_share=kept,

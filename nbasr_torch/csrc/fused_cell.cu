@@ -16,7 +16,9 @@
 // op_n is a grouped dilated conv1d (tap k reads outs[n][t + k*d - lpad],
 // zero outside [0, T); compact weights [K, ci, C]), a dense [C, C] product,
 // or nothing.  The rounding points are the TPU kernel's: its outs_ref holds
-// node outputs in the activation dtype.
+// node outputs in the activation dtype.  The clip is two comparisons, so a
+// NaN pre-activation stays NaN (jnp.clip's and torch.clamp's rule) and
+// +-inf clip to 20 and 0.
 //
 // Dropout: keep iff bits < threshold, where bits is the JAX kernel's
 // interpret-mode hash (_Prng.bits) of (seed, batch row b, node counter, t,
@@ -26,12 +28,12 @@
 // interpret mode draw the same mask.  A training forward (mults != null)
 // also writes each conv or linear node's multiplier, gate * keep / (1 - p)
 // with the clip-ReLU gate 1 inside (0, 20), 0.5 at exactly 0 or 20 (the
-// VJP of jnp.clip) and 0 outside, into mults [n_nodes, B, T, C] in the
-// activation dtype (0, 0.5, 1 times 1/(1-p): exact in bf16 for p = 0.2 or
-// 0.5); with scratch, which then holds every node output, that is all the
-// backward reads.  Inference passes no seed and no mults and runs its own
-// instantiation of the node kernels (kTrain false), which computes no gate
-// and no hash.
+// VJP of jnp.clip) and 0 outside (NaN included), into mults [n_nodes, B,
+// T, C] in the activation dtype (0, 0.5, 1 times 1/(1-p): exact in bf16
+// for p = 0.2 or 0.5); with scratch, which then holds every node output,
+// that is all the backward reads.  Inference passes no seed and no mults
+// and runs its own instantiation of the node kernels (kTrain false), which
+// computes no gate and no hash.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): a conv-only cell must read x and write y once, 2*B*T*C elements;
@@ -41,61 +43,143 @@
 // operations.  A training forward must also write the node outputs and
 // multipliers it keeps, 2*n_nodes more passes over [B, T, C].
 //
-// Design: one launch per node and one LayerNorm launch.  Node outputs pass
-// through a scratch buffer [n_nodes, B, T, C] in the activation dtype, so a
-// cell moves about 2*n_nodes + 2 passes over [B, T, C] where its inference
-// bound counts 2; keeping the node chain on chip is the next step.
-//   conv:   one thread per output element, K*ci <= 84 FMAs, operands
-//           read through L1 (neighbouring threads share input groups).
-//   linear: 64x64 output tiles in shared memory, 4x4 outputs per thread.
-//   zero:   an elementwise sum of the node's branches.
-//   norm:   one warp per (b, t) row.
+// Design: one launch per node and one LayerNorm launch (4 for the
+// flagship's three conv nodes).  Node outputs pass through a scratch buffer
+// [n_nodes, B, T, C] in the activation dtype, so a cell moves about
+// 2*n_nodes + 2 passes over [B, T, C] where its inference bound counts 2.
+//   conv:   the grouped conv forward's body (gconv_body.cuh's conv_units:
+//           each unit's x tile staged by cp.async with its halo, the f32
+//           weights staged once, a 7 x OT register tile of times by
+//           outputs, blocks walking units with the next tile in flight) on
+//           the node input seen as the [B, c, T, G] view with strides
+//           (T*C, 1, C, ci), planned in Python (fused_cell.forward_plans:
+//           grouped_conv.fwd_plan with an f32 output tile) and checked
+//           again here.  The plain f32 sums go to an f32 output tile (over
+//           the x tile where they fit); the node epilogue, a template
+//           parameter of conv_units, is its store pass: per vector of up
+//           to four elements, in registers at each output's (b, t, c), the
+//           f32 bias, the clip, and in training the gate and the dropout
+//           hash, the multipliers stored as one vector, then the branches
+//           added in f32 and the total rounded once into the node output,
+//           so the JAX kernel's rounding points hold.  The epilogue runs
+//           after the register tile is dead, and every store is a vector
+//           along the contiguous (g, c) run: applied inside the register
+//           tile's loop it took the bf16 tiles to 128 registers and
+//           200-byte spills, with scalar multiplier stores a channel group
+//           apart.
+//   linear: 64x64 output tiles in shared memory, 4x4 outputs per thread,
+//           the same epilogue, then the branch adds.
+//   zero:   an elementwise sum of the node's branches in vectors.
+//   norm:   one warp per (b, t) row, three passes over it through L1.
 // Every launch is checked with cudaGetLastError(); the entry point returns
 // the first error and launches nothing after it.
+
+#include "gconv_body.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxOutputs = 8;     // the cell input and up to 7 nodes
-constexpr int kDescInts = 7;       // kind, K, d, lpad, ci, co, branch mask
+using gconv::FwdPlan;
+using gconv::Stage;
+using gconv::View;
+
+constexpr int kMaxOutputs = 8;  // the cell input and up to 7 nodes
+// A node's descriptor: kind, K, d, lpad, ci, co, branch mask, then a conv
+// node's launch plan (fwd_plan's FWD_PLAN_FIELDS; zeros for other nodes)
+constexpr int kPlanAt = 7;
+constexpr int kDescInts = kPlanAt + gconv::kFwdPlanInts;
 constexpr int kConv = 0, kLinear = 1, kZero = 2;
 constexpr int kThreads = 256;
-constexpr int kTile = 64;          // linear: output tile edge
-constexpr int kTileK = 16;         // linear: reduction slice per stage
-constexpr long kMaxGridY = 65535;
+constexpr int kTile = 64;   // linear: output tile edge
+constexpr int kTileK = 16;  // linear: reduction slice per stage
 
 struct Outputs {
-  void* p[kMaxOutputs];
+  const void* p[kMaxOutputs];
 };
 
-__device__ __forceinline__ float load(const float* p, long i) { return __ldg(p + i); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
+__device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
-__device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
+__device__ __forceinline__ void store(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-// A conv or linear node's dropout and saving: seed null = no dropout, mult
-// null = nothing saved.
-template <typename T>
-struct NodeTail {
-  const int* seed;      // device int32 [2]
-  unsigned threshold;   // keep iff bits < threshold
-  float inv_keep;       // float32(1 / (1 - p))
-  unsigned counter;     // this node's draw: 1, 2, ... over conv/linear nodes
-  T* mult;              // [B, T, C] multiplier of this node, or null
-};
+// N consecutive values (one vector of 4N bytes in f32, 2N in bf16) to and
+// from f32; the address is aligned to the vector.
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x, v[i + 1] = a.y, v[i + 2] = a.z, v[i + 3] = a.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float (&v)[N]) {
+  if constexpr (N == 8 || N == 4 || N == 2) {
+    using V = std::conditional_t<N == 8, uint4, std::conditional_t<N == 4, uint2, unsigned>>;
+    const V a = *reinterpret_cast<const V*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __bfloat162float(h[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(__nv_bfloat16* p, const float (&v)[N]) {
+  if constexpr (N == 8 || N == 4 || N == 2) {
+    using V = std::conditional_t<N == 8, uint4, std::conditional_t<N == 4, uint2, unsigned>>;
+    union {
+      __nv_bfloat16 h[N];
+      V u;
+    } a;
+#pragma unroll
+    for (int i = 0; i < N; ++i) a.h[i] = __float2bfloat16_rn(v[i]);
+    *reinterpret_cast<V*>(p) = a.u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
 
 // nbasr_tpu/ops/fused_cell.py _Prng.bits in interpret mode, at i = t,
-// j = c, pid = b; uint32 arithmetic wraps as JAX's does.
-__device__ __forceinline__ unsigned dropout_bits(unsigned s0, unsigned s1, unsigned b,
-                                                 unsigned t, unsigned c, unsigned counter) {
-  unsigned x = (t * 0x9E3779B1u) ^ (c * 0x85EBCA6Bu) ^ (s0 * 0xC2B2AE35u) ^
-               (s1 + 0x27D4EB2Fu) ^ (b * 0x165667B1u) ^ (counter * 0x5851F42Du);
+// j = c, pid = b; uint32 arithmetic wraps as JAX's does.  bits = the mix of
+// (the row's key) ^ c * 0x85EBCA6B, so a row's key is computed once.
+__device__ __forceinline__ unsigned dropout_row_key(unsigned s0, unsigned s1, unsigned b,
+                                                    unsigned t, unsigned counter) {
+  return (t * 0x9E3779B1u) ^ (s0 * 0xC2B2AE35u) ^ (s1 + 0x27D4EB2Fu) ^ (b * 0x165667B1u) ^
+         (counter * 0x5851F42Du);
+}
+__device__ __forceinline__ unsigned dropout_bits(unsigned key, unsigned c) {
+  unsigned x = key ^ (c * 0x85EBCA6Bu);
   x ^= x >> 15;
   x *= 0x2545F491u;
   x ^= x >> 13;
@@ -105,97 +189,146 @@ __device__ __forceinline__ unsigned dropout_bits(unsigned s0, unsigned s1, unsig
   return x ^ (x >> 16);
 }
 
+// A conv or linear node's epilogue at one output: the f32 bias, the
+// clip-ReLU(0, 20) by comparisons (not fmaxf/fminf, which drop NaN), and in
+// training (kTrain) the gate, the dropout and the multiplier.  The
+// inference instantiation reads no seed, hash or multiplier.
+template <typename T, bool kTrain>
+struct NodeEpilogue {
+  const float* bias;  // f32 [C] (16-byte aligned for a conv node)
+  const int* seed;    // device int32 [2], or null: no dropout
+  unsigned threshold; // keep iff bits < threshold
+  float inv_keep;     // float32(1 / (1 - p))
+  unsigned counter;   // this node's draw: 1, 2, ... over conv/linear nodes
+  T* mult;            // [B, T, C] multiplier of this node, or null
+  int t_len, C;
+
+  // The dropout hash's key of row (b, t): what the outputs of one row share.
+  __device__ __forceinline__ unsigned row_key(int b, int t) const {
+    if (!kTrain || !seed) return 0u;
+    return dropout_row_key(static_cast<unsigned>(__ldg(seed)),
+                           static_cast<unsigned>(__ldg(seed + 1)), static_cast<unsigned>(b),
+                           static_cast<unsigned>(t), counter);
+  }
+
+  // The value of output (row key, c) before the branch adds, from its f32
+  // sum and bias; in training its multiplier goes to *m.
+  __device__ __forceinline__ float value(float acc, float bias_c, unsigned key, int c,
+                                         float* m) const {
+    const float a = acc + bias_c;
+    float y = a < 0.0f ? 0.0f : a;
+    y = y > 20.0f ? 20.0f : y;
+    if constexpr (kTrain) {
+      float g = (a > 0.0f && a < 20.0f) ? 1.0f : ((a == 0.0f || a == 20.0f) ? 0.5f : 0.0f);
+      if (seed) {
+        const bool keep = dropout_bits(key, static_cast<unsigned>(c)) < threshold;
+        y = keep ? y * inv_keep : 0.0f;
+        g = keep ? g * inv_keep : 0.0f;
+      }
+      *m = g;
+    }
+    return y;
+  }
+};
+
+// The conv node's epilogue for conv_units, in its store pass over the f32
+// tile of plain sums: per vector of the plan's y_vec / 4 elements at (b, t,
+// c), ..., their bias as one vector and the row's hash key once, then
+// NodeEpilogue's value of each in registers, the multipliers stored as one
+// vector, and the branches (outs[j] at the same elements, in f32, j in
+// order) added before the one rounding into dst.
+template <typename T, bool kTrain>
+struct ConvEpilogue : NodeEpilogue<T, kTrain> {
+  T* dst;
+  Outputs outs;
+  unsigned branches;
+
+  template <int N>
+  __device__ __forceinline__ void finish(long long e, const float* s, int b, int t) const {
+    const int c = static_cast<int>(e - (static_cast<long long>(b) * this->t_len + t) * this->C);
+    const unsigned key = this->row_key(b, t);
+    float v[N], m[N], bias[N];
+    load_n<N>(s, v);
+    load_n<N>(this->bias + c, bias);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = this->value(v[i], bias[i], key, c + i, &m[i]);
+    if (kTrain && this->mult) store_n<N>(this->mult + e, m);
+#pragma unroll
+    for (int j = 0; j < kMaxOutputs; ++j) {
+      if (!(branches >> j & 1u)) continue;
+      float a[N];
+      load_n<N>(static_cast<const T*>(outs.p[j]) + e, a);
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += a[i];
+    }
+    store_n<N>(dst + e, v);
+  }
+
+  // The dense view's runs (mode 1): one (g, c) run of the slab per time.
+  __device__ __forceinline__ void store(int b, int t0, long long at, const float* sm,
+                                        const Stage& st, int nrows, int gs, int geff) const {
+    const int per_vec = st.vec / static_cast<int>(sizeof(float));
+    gconv::for_each_vector(st, nrows, gs, geff * st.nch / per_vec,
+                           [&](int soff, long long goff, int trow, int v) {
+                             const float* s = sm + soff + v * per_vec;
+                             const long long e = at + goff + trow * st.v.t + v * per_vec;
+                             if (per_vec == 4)
+                               finish<4>(e, s, b, t0 + trow);
+                             else if (per_vec == 2)
+                               finish<2>(e, s, b, t0 + trow);
+                             else
+                               finish<1>(e, s, b, t0 + trow);
+                           });
+  }
+};
+
+// One conv node: conv_units on src (the dense [B, T, C] node input as the
+// [B, ci, T, G] view), no bias of T and no clip of its own, the plain sums
+// in an f32 output tile (Y = float), written out by the epilogue above.
+template <typename T, int KT, int OT, bool kTrain>
+__global__ void __launch_bounds__(gconv::kFwdThreads)
+    nbasr_fused_conv_fwd(const T* __restrict__ src, Stage xs, const T* __restrict__ w, Stage ys,
+                         FwdPlan p, int batch, int t_len, int groups, int ci, int K, int d,
+                         int lpad, const __grid_constant__ ConvEpilogue<T, kTrain> epi) {
+  gconv::conv_units<T, KT, gconv::kFwdRt, OT, false, false, float, false, ConvEpilogue<T, kTrain>>(
+      src, xs, w, nullptr, nullptr, ys, p, batch, t_len, groups, ci, ci, K, d, lpad, epi);
+}
+
 // The branch adds in f32 and the rounding of the node output to the
-// activation dtype.
+// activation dtype, one element.
 template <typename T>
 __device__ __forceinline__ void add_branches(float total, unsigned branches, const Outputs& outs,
-                                             long idx, T* dst) {
+                                             long long idx, T* dst) {
 #pragma unroll
   for (int j = 0; j < kMaxOutputs; ++j)
     if (branches >> j & 1u) total += load(static_cast<const T*>(outs.p[j]), idx);
   store(dst, idx, total);
 }
 
-// clip-ReLU, dropout and the saved multiplier of output (row r, channel c),
-// then the branch adds.  The inference instantiation (kTrain false) reads
-// no tail: it is the clip and the branch adds alone.
-template <typename T, bool kTrain>
-__device__ __forceinline__ void finish_node(float acc, long r, int c, int C, int t_len,
-                                            const NodeTail<T>& tail, unsigned branches,
-                                            const Outputs& outs, T* dst) {
-  float y = fminf(fmaxf(acc, 0.0f), 20.0f);
-  const long idx = r * C + c;
-  if (!kTrain) {
-    add_branches(y, branches, outs, idx, dst);
-    return;
-  }
-  float m = (acc > 0.0f && acc < 20.0f) ? 1.0f : ((acc == 0.0f || acc == 20.0f) ? 0.5f : 0.0f);
-  if (tail.seed) {
-    const long b = r / t_len;
-    const unsigned t = static_cast<unsigned>(r - b * t_len);
-    const bool keep = dropout_bits(static_cast<unsigned>(__ldg(tail.seed)),
-                                   static_cast<unsigned>(__ldg(tail.seed + 1)),
-                                   static_cast<unsigned>(b), t, static_cast<unsigned>(c),
-                                   tail.counter) < tail.threshold;
-    y = keep ? y * tail.inv_keep : 0.0f;
-    m = keep ? m * tail.inv_keep : 0.0f;
-  }
-  if (tail.mult) store(tail.mult, idx, m);
-  add_branches(y, branches, outs, idx, dst);
-}
-
-// grid: (ceil(C / kThreads), min(rows, 65535)); thread = channel c, block row
-// loop over the B*T rows.
-template <typename T, bool kTrain>
-__global__ void __launch_bounds__(kThreads) nbasr_conv_node(
-    const T* __restrict__ src, const T* __restrict__ w, const float* __restrict__ bias,
-    T* __restrict__ dst, Outputs outs, unsigned branches, NodeTail<T> tail, long rows,
-    int t_len, int C, int ci, int co, int K, int d, int lpad) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int in0 = (c / co) * ci;
-  const float b = bias[c];
-  for (long r = blockIdx.y; r < rows; r += gridDim.y) {
-    const int t = static_cast<int>(r % t_len);
-    const long first = r - t;  // row of t = 0 in this batch entry
-    float acc = b;
-    for (int k = 0; k < K; ++k) {
-      const int ts = t + k * d - lpad;
-      if (ts < 0 || ts >= t_len) continue;  // zero padding
-      const T* xs = src + (first + ts) * C + in0;
-      const T* wk = w + static_cast<long>(k) * ci * C + c;
-      float part = 0.0f;
-      for (int i = 0; i < ci; ++i) part += load(xs, i) * load(wk, static_cast<long>(i) * C);
-      acc += part;
-    }
-    finish_node<T, kTrain>(acc, r, c, C, t_len, tail, branches, outs, dst);
-  }
-}
-
 // grid: (ceil(C / 64), ceil(rows / 64)); 256 threads as 16 x 16, each
 // thread owns rows ty*4 + i and columns tx + 16*j of the tile.
 template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads) nbasr_linear_node(
-    const T* __restrict__ src, const T* __restrict__ w, const float* __restrict__ bias,
-    T* __restrict__ dst, Outputs outs, unsigned branches, NodeTail<T> tail, long rows,
-    int t_len, int C) {
+    const T* __restrict__ src, const T* __restrict__ w, T* __restrict__ dst, Outputs outs,
+    unsigned branches, const __grid_constant__ NodeEpilogue<T, kTrain> epi, long long rows) {
   __shared__ float a_tile[kTileK][kTile + 1];  // [k][row], padded against bank conflicts
   __shared__ float w_tile[kTileK][kTile];      // [k][col]
+  const int C = epi.C, t_len = epi.t_len;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long row0 = static_cast<long>(blockIdx.y) * kTile;
+  const long long row0 = static_cast<long long>(blockIdx.y) * kTile;
   const int col0 = blockIdx.x * kTile;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < C; k0 += kTileK) {
     for (int e = threadIdx.x; e < kTile * kTileK; e += kThreads) {
       const int rr = e / kTileK, kk = e % kTileK;
-      const long r = row0 + rr;
+      const long long r = row0 + rr;
       const int k = k0 + kk;
       a_tile[kk][rr] = (r < rows && k < C) ? load(src, r * C + k) : 0.0f;
     }
     for (int e = threadIdx.x; e < kTile * kTileK; e += kThreads) {
       const int kk = e / kTile, cc = e % kTile;
       const int k = k0 + kk, col = col0 + cc;
-      w_tile[kk][cc] = (k < C && col < C) ? load(w, static_cast<long>(k) * C + col) : 0.0f;
+      w_tile[kk][cc] = (k < C && col < C) ? load(w, static_cast<long long>(k) * C + col) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -214,24 +347,39 @@ __global__ void __launch_bounds__(kThreads) nbasr_linear_node(
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const long r = row0 + ty * 4 + i;
+    const long long r = row0 + ty * 4 + i;
     if (r >= rows) continue;
+    const int b = static_cast<int>(r / t_len);
+    const int t = static_cast<int>(r - static_cast<long long>(b) * t_len);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = col0 + tx + 16 * j;
-      if (col < C)
-        finish_node<T, kTrain>(bias[col] + acc[i][j], r, col, C, t_len, tail, branches, outs,
-                               dst);
+      if (col >= C) continue;
+      float m;
+      const float y = epi.value(acc[i][j], __ldg(epi.bias + col), epi.row_key(b, t), col, &m);
+      if (kTrain && epi.mult) store(epi.mult, r * C + col, m);
+      add_branches(y, branches, outs, r * C + col, dst);
     }
   }
 }
 
-template <typename T>
+// The sum of the branches, N elements a thread at a time (numel % N == 0).
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads) nbasr_zero_node(T* __restrict__ dst, Outputs outs,
-                                                             unsigned branches, long numel) {
-  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; i < numel;
-       i += static_cast<long>(gridDim.x) * blockDim.x)
-    add_branches(0.0f, branches, outs, i, dst);
+                                                             unsigned branches, long long numel) {
+  for (long long i = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) * N;
+       i < numel; i += static_cast<long long>(gridDim.x) * blockDim.x * N) {
+    float v[N] = {};
+#pragma unroll
+    for (int j = 0; j < kMaxOutputs; ++j) {
+      if (!(branches >> j & 1u)) continue;
+      float a[N];
+      load_n<N>(static_cast<const T*>(outs.p[j]) + i, a);
+#pragma unroll
+      for (int k = 0; k < N; ++k) v[k] += a[k];
+    }
+    store_n<N>(dst + i, v);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -241,7 +389,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // One warp per row: mean, then the mean of squared deviations (two passes,
-// as the TPU kernel), then xhat * scale + shift rounded to the dtype.
+// as the TPU kernel), then xhat * scale + shift rounded to the dtype.  Each
+// pass reads the row again, through L1: a warp's load covers 32
+// consecutive elements, and lane l sums elements l, l + 32, ... in order
+// before the warp's xor tree.  Holding the row in registers in this order
+// ran slower on an H100 (121-128 registers a thread), and 16-byte vectors
+// a lane would change the f32 summation order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) nbasr_layer_norm(
     const T* __restrict__ src, const float* __restrict__ scale, const float* __restrict__ shift,
@@ -263,52 +416,134 @@ __global__ void __launch_bounds__(kThreads) nbasr_layer_norm(
   for (int c = lane; c < C; c += 32) store(y, c, (load(x, c) - mu) * inv * scale[c] + shift[c]);
 }
 
-template <typename T>
+bool aligned(const void* p, long long bytes) {
+  return reinterpret_cast<unsigned long long>(p) % static_cast<unsigned long long>(bytes) == 0;
+}
+
+// f(KT, OT) as integral constants for a conv node's register tile (kt, ot)
+// of kFwdRt times, else -1: in bf16 the grouped forward's tiles
+// (with_fwd_tile: taps 5 and 7 by outputs 6, 8, 10); in f32, the serving
+// dtype, taps 5 by outputs 6, 8, 10 (fused_cell.F32_TILES: conv7 nodes
+// take a chunk of 5 taps and one of 2).
+template <typename T, typename F>
+int with_conv_tile(int kt, int ot, F&& f) {
+  if constexpr (std::is_same_v<T, float>) {
+#define NBASR_F32_TILE(KT, OT) \
+  if (kt == KT && ot == OT)    \
+    return f(std::integral_constant<int, KT>{}, std::integral_constant<int, OT>{});
+    NBASR_F32_TILE(5, 6)
+    NBASR_F32_TILE(5, 8)
+    NBASR_F32_TILE(5, 10)
+#undef NBASR_F32_TILE
+    return -1;
+  } else {
+    return gconv::with_fwd_tile<T>(kt, ot, f);
+  }
+}
+
+// A dense [B, T, C] tensor of nch-channel groups as the [B, c, T, G] view.
+View dense(int t_len, int C, int nch) {
+  return View{static_cast<long long>(t_len) * C, 1, C, nch};
+}
+
+// One conv node on the plan Python made (fwd_plan of the conv with an f32
+// output tile), checked again here with the pointers' alignment: the
+// staged input to its x_vec bytes, dst and the branches to the store
+// pass's vectors.
+template <typename T, bool kTrain>
+int conv_node(const int* nd, int batch, int t_len, int C, const T* src, const T* w,
+              const ConvEpilogue<T, kTrain>& epi, cudaStream_t s) {
+  const int K = nd[1], d = nd[2], lpad = nd[3], ci = nd[4];
+  if (K < 1 || d < 1 || ci < 1 || nd[5] != ci || C % ci != 0 || lpad < 0 || lpad > (K - 1) * d)
+    return cudaErrorInvalidValue;
+  FwdPlan p;
+  std::memcpy(&p, nd + kPlanAt, sizeof(p));
+  const int groups = C / ci;
+  if (gconv::bad_fwd_plan(p, sizeof(T), sizeof(float), batch, t_len, groups, ci, ci, K, d) ||
+      p.y_mode != 1)
+    return cudaErrorInvalidValue;
+  const Stage xs{dense(t_len, C, ci), ci, p.x_mode, p.x_vec};
+  const Stage ys{dense(t_len, C, ci), ci, p.y_mode, p.y_vec};
+  if (!gconv::stage_fits(xs, sizeof(T)) || !gconv::stage_fits(ys, sizeof(float)))
+    return cudaErrorInvalidValue;
+  const long long vec = static_cast<long long>(p.y_vec) / 4 * sizeof(T);
+  bool ok = aligned(src, p.x_vec) && aligned(epi.dst, vec) && aligned(epi.bias, 16);
+  for (int j = 0; j < kMaxOutputs; ++j)
+    if (epi.branches >> j & 1u) ok = ok && aligned(epi.outs.p[j], vec);
+  if (!ok) return cudaErrorInvalidValue;
+  const int err = with_conv_tile<T>(p.kt, p.ot, [&](auto kt, auto ot) {
+    return gconv::launch_units(
+        nbasr_fused_conv_fwd<T, decltype(kt)::value, decltype(ot)::value, kTrain>, p, batch, s,
+        src, xs, w, ys, p, batch, t_len, groups, ci, K, d, lpad, epi);
+  });
+  return err < 0 ? cudaErrorInvalidValue : err;
+}
+
+template <typename T, bool kTrain>
 int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
              const void* const* weights, const void* const* biases, const void* x,
              void* scratch, void* y, const float* ln_scale, const float* ln_shift, int use_norm,
              float eps, const int* seed, unsigned threshold, float inv_keep, T* mults,
              cudaStream_t stream) {
-  const long rows = static_cast<long>(batch) * t_len;
-  const long numel = rows * C;
+  const long long rows = static_cast<long long>(batch) * t_len;
+  const long long numel = rows * C;
+  if (rows == 0) return cudaSuccess;
   Outputs outs = {};
-  outs.p[0] = const_cast<void*>(x);
+  outs.p[0] = x;
   for (int n = 0; n < n_nodes; ++n)
     outs.p[n + 1] = (n + 1 == n_nodes && !use_norm) ? y : static_cast<T*>(scratch) + n * numel;
-  cudaError_t err;
+  // every node's descriptor first: nothing launches before all pass
+  for (int n = 0; n < n_nodes; ++n) {
+    const int kind = desc[n * kDescInts];
+    if (kind != kConv && kind != kLinear && kind != kZero) return cudaErrorInvalidValue;
+    if (desc[n * kDescInts + 6] >> (n + 1)) return cudaErrorInvalidValue;
+  }
+  int err;
   unsigned counter = 0;
-  const bool train = seed || mults;
-  const auto conv_node = train ? nbasr_conv_node<T, true> : nbasr_conv_node<T, false>;
-  const auto linear_node = train ? nbasr_linear_node<T, true> : nbasr_linear_node<T, false>;
   for (int n = 0; n < n_nodes; ++n) {
     const int* nd = desc + n * kDescInts;
     const unsigned branches = static_cast<unsigned>(nd[6]);
     const T* src = static_cast<const T*>(outs.p[n]);
-    T* dst = static_cast<T*>(outs.p[n + 1]);
+    T* dst = static_cast<T*>(const_cast<void*>(outs.p[n + 1]));
     const T* w = static_cast<const T*>(weights[n]);
-    const float* b = static_cast<const float*>(biases[n]);
-    const NodeTail<T> tail = {seed, threshold, inv_keep, nd[0] == kZero ? 0u : ++counter,
-                              mults ? mults + n * numel : nullptr};
+    NodeEpilogue<T, kTrain> epi{static_cast<const float*>(biases[n]),
+                                seed,
+                                threshold,
+                                inv_keep,
+                                nd[0] == kZero ? 0u : ++counter,
+                                mults ? mults + n * numel : nullptr,
+                                t_len,
+                                C};
     if (nd[0] == kConv) {
-      const dim3 grid((C + kThreads - 1) / kThreads,
-                      static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY));
-      conv_node<<<grid, kThreads, 0, stream>>>(src, w, b, dst, outs, branches, tail, rows, t_len,
-                                                C, nd[4], nd[5], nd[1], nd[2], nd[3]);
+      ConvEpilogue<T, kTrain> conv;
+      static_cast<NodeEpilogue<T, kTrain>&>(conv) = epi;
+      conv.dst = dst;
+      conv.outs = outs;
+      conv.branches = branches;
+      err = conv_node<T, kTrain>(nd, batch, t_len, C, src, w, conv, stream);
     } else if (nd[0] == kLinear) {
       const dim3 grid((C + kTile - 1) / kTile, static_cast<unsigned>((rows + kTile - 1) / kTile));
-      linear_node<<<grid, kThreads, 0, stream>>>(src, w, b, dst, outs, branches, tail, rows,
-                                                  t_len, C);
-    } else if (nd[0] == kZero) {
-      const long blocks = (numel + kThreads - 1) / kThreads;
-      nbasr_zero_node<T><<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), kThreads, 0,
-                            stream>>>(dst, outs, branches, numel);
+      nbasr_linear_node<T, kTrain><<<grid, kThreads, 0, stream>>>(src, w, dst, outs, branches, epi,
+                                                                  rows);
+      err = cudaGetLastError();
     } else {
-      return cudaErrorInvalidValue;
+      constexpr int kVec = 16 / sizeof(T);
+      bool vec = numel % kVec == 0 && aligned(dst, 16);
+      for (int j = 0; j < kMaxOutputs; ++j)
+        if (branches >> j & 1u) vec = vec && aligned(outs.p[j], 16);
+      const long long per = vec ? kVec : 1;
+      const long long blocks = (numel / per + kThreads - 1) / kThreads;
+      const unsigned grid = static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
+      if (vec)
+        nbasr_zero_node<T, kVec><<<grid, kThreads, 0, stream>>>(dst, outs, branches, numel);
+      else
+        nbasr_zero_node<T, 1><<<grid, kThreads, 0, stream>>>(dst, outs, branches, numel);
+      err = cudaGetLastError();
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (err != cudaSuccess) return err;
   }
   if (use_norm) {
-    const long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+    const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
     nbasr_layer_norm<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         static_cast<const T*>(outs.p[n_nodes]), ln_scale, ln_shift, static_cast<T*>(y), rows, C,
         eps);
@@ -317,16 +552,40 @@ int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
   return cudaSuccess;
 }
 
+template <typename T>
+int run(int batch, int t_len, int C, int n_nodes, const int* desc, const void* const* weights,
+        const void* const* biases, const void* x, void* scratch, void* y, const float* ln_scale,
+        const float* ln_shift, int use_norm, float eps, const int* seed, unsigned threshold,
+        float inv_keep, void* mults, cudaStream_t stream) {
+  if (seed || mults)
+    return run_cell<T, true>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y,
+                             ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep,
+                             static_cast<T*>(mults), stream);
+  return run_cell<T, false>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y,
+                            ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep, nullptr,
+                            stream);
+}
+
+// The fewer resident blocks per SM of a conv node's two instantiations.
+template <typename T, int KT, int OT>
+int conv_occupancy(int threads, int smem) {
+  const int infer = gconv::occupancy(nbasr_fused_conv_fwd<T, KT, OT, false>, threads, smem);
+  const int train = gconv::occupancy(nbasr_fused_conv_fwd<T, KT, OT, true>, threads, smem);
+  return infer < train ? infer : train;
+}
+
 }  // namespace
 
-// Runs one cell on `stream`.  desc holds kDescInts ints per node; weights[n]
-// and biases[n] are node n's weight (activation dtype) and f32 bias, null for
-// a zero node.  scratch holds n_nodes [B, T, C] buffers of the activation
-// dtype.  seed (device int32 [2]) turns dropout on, with keep iff bits <
-// threshold and kept values scaled by inv_keep; mults (n_nodes [B, T, C]
-// buffers of the activation dtype), when given, receives each conv or
-// linear node's multiplier for the backward.  Returns a cudaError_t, 0 on
-// success.
+// Runs one cell on `stream`.  desc holds kDescInts ints per node: kind, K,
+// d, lpad, ci, co, branch mask, then a conv node's launch plan
+// (fused_cell.forward_plans, in FWD_PLAN_FIELDS order; zeros for other
+// nodes); weights[n] and biases[n] are node n's weight (activation dtype)
+// and f32 bias, null for a zero node.  scratch holds n_nodes [B, T, C]
+// buffers of the activation dtype.  seed (device int32 [2]) turns dropout
+// on, with keep iff bits < threshold and kept values scaled by inv_keep;
+// mults (n_nodes [B, T, C] buffers of the activation dtype), when given,
+// receives each conv or linear node's multiplier for the backward.  Returns
+// a cudaError_t, 0 on success.
 extern "C" int nbasr_fused_cell_forward(int bf16, int batch, int t_len, int C, int n_nodes,
                                         const int* desc, const void* const* weights,
                                         const void* const* biases, const void* x, void* scratch,
@@ -334,17 +593,35 @@ extern "C" int nbasr_fused_cell_forward(int bf16, int batch, int t_len, int C, i
                                         int use_norm, float eps, const void* seed,
                                         unsigned threshold, float inv_keep, void* mults,
                                         void* stream) {
-  if (n_nodes < 1 || n_nodes >= kMaxOutputs) return cudaErrorInvalidValue;
+  if (n_nodes < 1 || n_nodes >= kMaxOutputs || !desc || batch < 0 || t_len < 0 || C < 1)
+    return cudaErrorInvalidValue;
+  static_assert(sizeof(FwdPlan) == gconv::kFwdPlanInts * sizeof(int),
+                "FwdPlan is kFwdPlanInts ints");
   const auto s = static_cast<cudaStream_t>(stream);
   const auto sc = static_cast<const float*>(ln_scale);
   const auto sh = static_cast<const float*>(ln_shift);
   const auto sd = static_cast<const int*>(seed);
   if (bf16)
-    return run_cell<__nv_bfloat16>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y,
-                                   sc, sh, use_norm, eps, sd, threshold, inv_keep,
-                                   static_cast<__nv_bfloat16*>(mults), s);
-  return run_cell<float>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y, sc, sh,
-                         use_norm, eps, sd, threshold, inv_keep, static_cast<float*>(mults), s);
+    return run<__nv_bfloat16>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y, sc,
+                              sh, use_norm, eps, sd, threshold, inv_keep, mults, s);
+  return run<float>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y, sc, sh,
+                    use_norm, eps, sd, threshold, inv_keep, mults, s);
+}
+
+// Resident blocks per SM of the conv node kernel with a plan's register
+// tile (kt, ot), threads and shared memory bytes (the fewer of its
+// inference and training instantiations), from the CUDA occupancy
+// calculator; -1 for a tile that is not instantiated or an error.
+extern "C" int nbasr_fused_conv_fwd_blocks_per_sm(int bf16, int kt, int ot, int threads,
+                                                  int smem) {
+  if (threads < 1 || threads > gconv::kFwdThreads || smem < 0 || smem > 232448) return -1;
+  if (bf16)
+    return with_conv_tile<__nv_bfloat16>(kt, ot, [&](auto a, auto b) {
+      return conv_occupancy<__nv_bfloat16, decltype(a)::value, decltype(b)::value>(threads, smem);
+    });
+  return with_conv_tile<float>(kt, ot, [&](auto a, auto b) {
+    return conv_occupancy<float, decltype(a)::value, decltype(b)::value>(threads, smem);
+  });
 }
 
 extern "C" const char* nbasr_cuda_error_string(int err) {

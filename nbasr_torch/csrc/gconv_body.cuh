@@ -16,7 +16,10 @@
 // Y and kAdd are the fused backward's: its dx leaves the f32 register sums
 // in an f32 output tile and stores or adds them into the f32 gradient
 // buffer, with no rounding in between; Y = T and kAdd = false are the
-// grouped kernels' own, which compile as they did before the split.
+// grouped kernels' own, which compile as they did before the split.  Its
+// epilogue type Epi is the fused forward's (fused_cell.cu: the node's f32
+// bias, clip, dropout and multipliers in registers, then a store pass with
+// the branch adds); the default NoEpilogue compiles to the code without it.
 //
 // Everything lives in namespace gconv inside an unnamed namespace, so each
 // library that includes it gets its own copy and no name meets the
@@ -511,6 +514,15 @@ __device__ __forceinline__ void sum_channels(float (&acc)[RT][OT], const T* tile
   }
 }
 
+// conv_units' default epilogue: none beyond kBiasRelu, and the output tile
+// stored (store_tile) or added (add_tile) into y.  Another Epi takes the
+// tile of plain sums (kBiasRelu false) and writes it out itself:
+//   void store(int b, int t0, long long at, const Y* tile, const Stage& ys,
+//     int nrows, int gs, int geff): the rows [0, nrows) of the unit at
+//     times t0, ... of utterance b, `at` its element offset in ys's view (y
+//     itself is not used).
+struct NoEpilogue {};
+
 // grid slabs * ceil(B * tiles / span), p.threads threads.  Block (slab, q)
 // owns the groups [g0, g0 + gs) and walks the units u = q*span, ... (unit
 // u: the times [t0, t0 + rows) of utterance b = u / tiles); with more than
@@ -529,14 +541,17 @@ __device__ __forceinline__ void sum_channels(float (&acc)[RT][OT], const T* tile
 // transposed and tap-reversed (stage_weights), x is dz and y is dx.  Y is
 // the output's type (T, or f32 for the fused backward: the output tile then
 // holds f32, y_buf counts f32 elements, and the sums reach y unrounded);
-// kAdd adds the tile into y (add_tile) instead of storing it.
+// kAdd adds the tile into y (add_tile) instead of storing it.  Epi, with
+// its state epi (a __grid_constant__ kernel parameter: read in place, not
+// copied into registers), replaces the store (NoEpilogue above).
 template <typename T, int KT, int RT, int OT, bool kBiasRelu, bool kDx, typename Y = T,
-          bool kAdd = false>
+          bool kAdd = false, typename Epi = NoEpilogue>
 __device__ __forceinline__ void conv_units(const T* __restrict__ x, Stage xs,
                                            const T* __restrict__ w, const T* __restrict__ bias,
                                            Y* __restrict__ y, Stage ys, FwdPlan p, int batch,
                                            int t_len, int groups, int ci, int co, int K, int d,
-                                           int lpad) {
+                                           int lpad, const Epi& epi = Epi{}) {
+  constexpr bool kEpi = !std::is_same_v<Epi, NoEpilogue>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the x tiles (two where a block walks more than one unit), the output
   // tile where the threads make more than one pass, then the weights
@@ -627,7 +642,10 @@ __device__ __forceinline__ void conv_units(const T* __restrict__ x, Stage xs,
       }
     }
     __syncthreads();
-    if constexpr (kAdd)
+    if constexpr (kEpi)
+      epi.store(b, t0, b * ys.v.b + g0 * ys.v.g + t0 * ys.v.t, yt, ys, min(p.rows, t_len - t0),
+                p.gs, geff);
+    else if constexpr (kAdd)
       add_tile(y + b * ys.v.b + g0 * ys.v.g + t0 * ys.v.t, yt, ys, min(p.rows, t_len - t0), p.gs,
                geff);
     else

@@ -51,8 +51,8 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
     Returns ``{name: (path, compiler log)}``; the log starts with the
-    seconds nvcc took and holds ptxas's register and shared-memory report,
-    empty for a library found already built.
+    seconds that library's nvcc took and holds ptxas's register and
+    shared-memory report, empty for a library found already built.
     """
     out, procs = {}, {}
     t0 = time.perf_counter()
@@ -63,18 +63,27 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f'{target.name}.{os.getpid()}.tmp')
+        log = tmp.with_suffix('.log')
         cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / f'{name}.cu')]
-        procs[name] = (target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with open(log, 'w') as f:       # a file: ptxas's report may fill a pipe
+            procs[name] = (target, tmp, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT))
     failed = []
-    for name, (target, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failed.append(f'{name}: nvcc exited {proc.returncode}\n{log}')
+    while procs:
+        done = [n for n, (*_, proc) in procs.items() if proc.poll() is not None]
+        if not done:
+            time.sleep(0.05)
             continue
-        os.replace(tmp, target)
-        out[name] = (target, f'compiled in {time.perf_counter() - t0:.1f} s '
-                             f'or less\n{log}')
+        secs = time.perf_counter() - t0
+        for name in done:
+            target, tmp, log, proc = procs.pop(name)
+            text = log.read_text()
+            log.unlink()
+            if proc.returncode:
+                failed.append(f'{name}: nvcc exited {proc.returncode}\n{text}')
+                continue
+            os.replace(tmp, target)
+            out[name] = (target, f'compiled in {secs:.1f} s\n{text}')
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
     return out

@@ -10,9 +10,10 @@ dbias).  The kernels are ``nbasr_torch/csrc/fused_cell.cu`` and
 ``nbasr_torch/csrc/fused_cell_bwd.cu``; their headers state the bounds and
 the designs.  The TPU layout tricks (chunk expansion, 128-lane padding) are
 not carried over: the kernels read and write the compact ``[K, ci, C]``
-weights.  The backward's conv nodes run the grouped conv's dW and dx
-kernels (``nbasr_torch/csrc/gconv_body.cuh``) on launch plans made here
-(:func:`backward_plans`) and checked again in C.
+weights.  The forward's conv nodes run the grouped conv forward's body
+and the backward's conv nodes its dW and dx kernels
+(``nbasr_torch/csrc/gconv_body.cuh``), on launch plans made here
+(:func:`forward_plans`, :func:`backward_plans`) and checked again in C.
 
 Dropout draws its bits from the JAX kernel's interpret-mode generator
 (``_Prng.bits``): a stateless hash of (seed, batch row, node, t, c) in
@@ -46,8 +47,9 @@ __all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
            'fused_cell_forward', 'fused_cell_train_forward',
            'fused_cell_backward', 'fused_cell_reference',
            'fused_cell_backward_reference', 'dropout_bits', 'keep_threshold',
-           'inv_keep', 'relu20_gate', 'dx_outputs', 'backward_plans',
-           'LAUNCHES', 'BACKWARD_LAUNCHES', 'reset_launches']
+           'inv_keep', 'relu20_gate', 'dx_outputs', 'forward_plans',
+           'backward_plans', 'LAUNCHES', 'BACKWARD_LAUNCHES',
+           'reset_launches']
 
 LN_EPS_DEFAULT = 1e-3
 
@@ -59,7 +61,20 @@ BACKWARD_LAUNCHES = {'kernel': 0, 'plain': 0}
 
 _KIND = {'conv': 0, 'linear': 1, 'zero': 2}
 _MAX_NODES = 7          # kMaxOutputs - 1 in the kernels
-_DESC = 7               # ints per node of the forward's descriptor
+_DESC = 7               # ints per node that describe it (:func:`_describe`)
+#: Ints per node of the forward kernel's descriptor: the seven, then a conv
+#: node's launch plan (zeros for other nodes).
+FWD_DESC_INTS = _DESC + len(grouped_conv.FWD_PLAN_FIELDS)
+#: The register tiles (taps, outputs) the forward's conv node instantiates
+#: in f32, the serving dtype: conv5's taps by the search space's 6, 8, 10
+#: channels a group (12 as two tiles of 6; conv7 as chunks of 5 and 2).  In
+#: bf16 they are the grouped forward's own.
+F32_TILES = ((5,), (6, 8, 10))
+#: Resident blocks per SM a conv node's plan keeps where it can: a block's
+#: epilogue pass runs after its sums, so other blocks' sums have to cover
+#: it (``fwd_sweep.py --fused``: plans of two blocks an SM ran up to 1.2x
+#: the fastest at the train step's widths).
+MIN_BLOCKS = 4
 #: Where a conv node's dx goes in the backward kernel: rounded into dx (node
 #: 0 where nothing else writes g[0]), stored into its f32 gradient buffer
 #: g[n], or added there (after branch adds).
@@ -308,13 +323,19 @@ def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
         outs.append(total.to(x.dtype))
     xf = outs[-1].float()
     if spec.use_norm:
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
-        xf = (xf - mu) * torch.rsqrt(var + spec.ln_eps) * ln[0] + ln[1]
+        xf = _layer_norm(xf, ln, spec.ln_eps)
     y = xf.to(x.dtype)
     if save:
         return y, torch.stack(outs[1:]), mults
     return y
+
+
+def _layer_norm(xf, ln, eps):
+    """The forward's LayerNorm of f32 rows: two-pass f32 statistics (the
+    mean, then the mean of squared deviations), as the JAX kernel."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * ln[0] + ln[1]
 
 
 def fused_cell_backward_reference(spec, x, outs, mults, dy, weights, ln):
@@ -396,6 +417,47 @@ def dx_outputs(desc):
     return [None if desc[i * _DESC] != _KIND['conv'] else
             DX_ADD if named >> i & 1 else DX_OUT if i == 0 else DX_STORE
             for i in range(n)]
+
+
+def forward_plans(desc, B, T, C, esize, src_align, out_align, sms=132,
+                  blocks_per_sm=grouped_conv.estimated_blocks_per_sm):
+    """Per node of a forward descriptor (:func:`_describe`'s ints), the
+    conv node's launch plan in the forward kernel, None for other nodes.
+
+    A conv node runs the grouped forward's body on its dense ``[B, T, C]``
+    input seen as the ``[B, c, T, G]`` view (strides ``(T*C, 1, C, c)``):
+    :func:`grouped_conv.fwd_plan` of that conv with an f32 output tile
+    (``y_esize`` 4: the epilogue leaves f32 values there, and a store pass
+    adds the branches and rounds), the staged input at ``src_align[i]``
+    bytes past 16, and the store pass's alignment ``out_align[i]`` (0, 8 or
+    4: vectors of 4, 2 or 1 elements, :func:`_store_align`); in f32 from
+    :data:`F32_TILES`; with :data:`MIN_BLOCKS` resident blocks an SM where
+    a plan has them.  ``blocks_per_sm(kt, ot, threads, smem)`` gives
+    resident blocks per SM (the card's occupancy calculator, or the CPU's
+    estimate)."""
+    out = []
+    for i in range(len(desc) // _DESC):
+        kind, K, d, _, ci, co, _ = desc[i * _DESC:(i + 1) * _DESC]
+        if kind != _KIND['conv']:
+            out.append(None)
+            continue
+        st = (T * C, 1, C, ci)
+        out.append(grouped_conv.fwd_plan(
+            B, T, C // ci, ci, co, K, d, esize, st, st, src_align[i],
+            out_align[i], sms, blocks_per_sm, y_esize=4,
+            reg_tiles=F32_TILES if esize == 4 else None,
+            min_blocks=MIN_BLOCKS))
+    return out
+
+
+def _store_align(ptrs, esize):
+    """The f32 plan's output alignment for the store pass, whose vectors of
+    4, 2 or 1 elements read and write the tensors at ``ptrs``: 0 where
+    every one lies on 4 elements, 8 on 2, else 4 (one f32 a vector)."""
+    for n, align in ((4, 0), (2, 8)):
+        if all(p % (n * esize) == 0 for p in ptrs):
+            return align
+    return 4
 
 
 def _estimated_dx_blocks(f32_out, *args):
@@ -517,6 +579,25 @@ def _ln_ptrs(spec, ln, x, which=(0, 1)):
     return [ln[i].data_ptr() for i in which]
 
 
+@functools.lru_cache(maxsize=4096)
+def _forward_launch(device, desc, B, T, C, esize, src_align, out_align):
+    """The forward descriptor's ints of one cell on ``device``, its plans by
+    :func:`forward_plans` on the card's SMs and occupancy calculator.  Kept
+    per spec, shape, dtype, device and pointer alignment, so that a step
+    plans each cell shape once."""
+    plans = forward_plans(
+        desc, B, T, C, esize, src_align, out_align,
+        grouped_conv._sm_count(device), functools.partial(
+            grouped_conv._blocks_per_sm, device, 'fused_cell',
+            'nbasr_fused_conv_fwd_blocks_per_sm', int(esize == 2)))
+    ints = []
+    for i, plan in enumerate(plans):
+        ints += desc[i * _DESC:(i + 1) * _DESC]
+        ints += ([0] * (FWD_DESC_INTS - _DESC) if plan is None else
+                 [plan[k] for k in grouped_conv.FWD_PLAN_FIELDS])
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def _launch(spec, x, weights, ln, seed, save):
     """The forward kernel: ``(y, outs, mults)``, the last two None unless
     ``save``."""
@@ -529,6 +610,15 @@ def _launch(spec, x, weights, ln, seed, save):
     desc, wptrs, bptrs = _describe(spec, x, weights)
     ln_ptrs = _ln_ptrs(spec, ln, x)
     n = len(spec.nodes)
+    # a conv node reads its bias in 16-byte vectors: an aligned copy of one
+    # that is not, kept alive through the launch
+    copies, wi = [], 0
+    for i, node in enumerate(spec.nodes):
+        if node.kind != 'zero':
+            if node.kind == 'conv' and bptrs[i] % 16:
+                copies.append(weights[wi + 1].clone())
+                bptrs[i] = copies[-1].data_ptr()
+            wi += 2
     if spec.dropping:
         _check(seed, 'seed', (2,), torch.int32, x.device)
         seed_ptr = seed.data_ptr()
@@ -539,11 +629,21 @@ def _launch(spec, x, weights, ln, seed, save):
     scratch = torch.empty((n, B, T, C), dtype=x.dtype, device=x.device)
     mults = torch.empty_like(scratch) if save else None
     y = torch.empty_like(x)
+    # each node's input and output, as the kernel addresses them
+    esize = x.element_size()
+    ptrs = [x.data_ptr()] + [scratch.data_ptr() + i * B * T * C * esize
+                             for i in range(n)]
+    if not spec.use_norm:
+        ptrs[n] = y.data_ptr()
+    out_align = tuple(
+        _store_align([ptrs[i + 1]] + [ptrs[j] for j in set(node.branches)],
+                     esize) for i, node in enumerate(spec.nodes))
+    desc_arr = _forward_launch(x.device, tuple(desc), B, T, C, esize,
+                               tuple(p % 16 for p in ptrs[:n]), out_align)
     fn = _build.function('fused_cell', 'nbasr_fused_cell_forward', _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(int(x.dtype == torch.bfloat16), B, T, C, n,
-                 (ctypes.c_int * len(desc))(*desc),
+        err = fn(int(x.dtype == torch.bfloat16), B, T, C, n, desc_arr,
                  (ctypes.c_void_p * n)(*wptrs), (ctypes.c_void_p * n)(*bptrs),
                  x.data_ptr(), scratch.data_ptr(), y.data_ptr(), *ln_ptrs,
                  int(spec.use_norm), spec.ln_eps, seed_ptr, thr, keep_scale,

@@ -366,23 +366,26 @@ def _copy_lines(run_bytes, vec):
     return max(_ceil(32 * vec, 128), _ceil(32, _ceil(run_bytes, vec)))
 
 
-def _fwd_tiles(K, co, esize):
+def _fwd_tiles(K, co, esize, reg_tiles=None):
     """(kt, nk, ot, no): the register tile's taps and outputs and how many
     of each cover K and co, in bf16 the narrowest output tile that covers
-    co in the fewest tiles."""
-    if esize == 4:
+    co in the fewest tiles; from ``reg_tiles`` (taps, outputs), where given,
+    the same way in either dtype."""
+    if esize == 4 and reg_tiles is None:
         kt, ot = FWD_F32_TILE
         no = _ceil(co, ot)
     else:
-        kt = K if K in FWD_TAP_TILES else FWD_TAP_TILES[0]
-        no = _ceil(co, FWD_OUT_TILES[-1])
-        ot = next(t for t in FWD_OUT_TILES if t >= _ceil(co, no))
+        taps, outs = reg_tiles or (FWD_TAP_TILES, FWD_OUT_TILES)
+        kt = K if K in taps else taps[0]
+        no = _ceil(co, outs[-1])
+        ot = next(t for t in outs if t >= _ceil(co, no))
     return kt, _ceil(K, kt), ot, no
 
 
 def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
                    x_ptr=0, y_ptr=0, sms=132,
-                   blocks_per_sm=estimated_blocks_per_sm, y_esize=None):
+                   blocks_per_sm=estimated_blocks_per_sm, y_esize=None,
+                   reg_tiles=None):
     """Every launch plan ``nbasr_grouped_conv_forward`` can run for this
     shape, as ``(cost, plan)`` pairs; :func:`fwd_plan` takes the cheapest.
 
@@ -400,7 +403,9 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
     number of float2, so that a half-warp's 8-byte reads fall in distinct
     banks).  The output's elements are ``y_esize`` bytes (``esize`` unless
     given: the fused cell backward's dx leaves f32 sums in an f32 output
-    tile and stores them into an f32 gradient buffer).
+    tile and stores them into an f32 gradient buffer).  ``reg_tiles`` (taps,
+    outputs) are the register tiles the caller's kernel instantiates, where
+    they are not this library's (:func:`_fwd_tiles`).
 
     The cost is an estimate of one SM's issue cycles: per thread and unit
     the FMAs, the window's loads and conversions and the weights' float2
@@ -415,7 +420,7 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
     halo, rt = (K - 1) * d, FWD_RT
     step = rt * d
     y_esize = y_esize or esize
-    kt, nk, ot, no = _fwd_tiles(K, co, esize)
+    kt, nk, ot, no = _fwd_tiles(K, co, esize, reg_tiles)
     wstride = no * ot + 2 * ((no * ot // 2) % 2 == 0)
     # per thread, unit, output tile and input channel: FMAs, window loads
     # and conversions, the weights' float2 loads
@@ -494,22 +499,26 @@ def fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
 
 def fwd_plan(B, T, G, ci, co, K, d, esize, x_strides, y_strides, x_ptr=0,
              y_ptr=0, sms=132, blocks_per_sm=estimated_blocks_per_sm,
-             y_esize=None):
+             y_esize=None, reg_tiles=None, min_blocks=1):
     """How ``nbasr_grouped_conv_forward`` cuts the forward: a dict of
     :data:`FWD_PLAN_FIELDS` plus the grid (blocks) and the resident blocks
     per SM: of :func:`fwd_candidates` (``y_esize`` the output's element
-    size) with a block for every one of the ``sms`` SMs (all of them where
-    none has), the cheapest (ties: the larger slab, then the shorter
-    tile).  Raises ``ValueError`` only where one time step of one group
-    with its halo does not fit shared memory."""
+    size, ``reg_tiles`` the register tiles to pick from) with at least
+    ``min_blocks`` resident blocks per SM where any has, and with a block
+    for every one of the ``sms`` SMs (all of them where none has), the
+    cheapest (ties: the larger slab, then the shorter tile).  Raises
+    ``ValueError`` only where one time step of one group with its halo does
+    not fit shared memory."""
     plans = fwd_candidates(B, T, G, ci, co, K, d, esize, x_strides, y_strides,
-                           x_ptr, y_ptr, sms, blocks_per_sm, y_esize)
+                           x_ptr, y_ptr, sms, blocks_per_sm, y_esize,
+                           reg_tiles)
     if not plans:
         raise ValueError(
             f'the forward kernel cannot stage one time step of a group: '
             f'B={B}, T={T}, G={G}, ci={ci}, co={co}, K={K}, d={d} in '
             f'{esize}-byte elements need more than {SMEM_LIMIT} bytes of '
             f'shared memory')
+    plans = [p for p in plans if p[1]['blocks_per_sm'] >= min_blocks] or plans
     return min(plans, key=lambda p: (p[1]['grid'] < sms, p[0], -p[1]['gs'],
                                      p[1]['rows']))[1]
 

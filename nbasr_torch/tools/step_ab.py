@@ -1,7 +1,7 @@
 """A/B of the flagship train step, of its grouped conv kernels or of its
-fused cell backward, between checkouts, on one card.
+fused cell forward or backward, between checkouts, on one card.
 
-    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv | --fused-bwd] ROOT_A ROOT_B ROOT_B ROOT_A ...
+    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv | --fused-fwd | --fused-bwd] ROOT_A ROOT_B ROOT_B ROOT_A ...
 
 For each root in the order given (alternate them: host time drifts between
 processes), a fresh process imports ``nbasr_torch`` from that root, builds
@@ -27,7 +27,8 @@ kernel; per node under ``per_node``; and ``registers``, each grouped conv
 kernel's registers and spill-store bytes as ptxas reported them when the
 root's library was built (a root's ``grouped_conv.cu`` may be a variant
 of another's: put both in one call to see what the compiler made of
-each).
+each), with ``fused_registers`` and ``bwd_registers`` those of the fused
+forward and backward libraries, which include the same header.
 
 With ``--fused-bwd`` it times the fused cell backward of the 18 flagship
 cells of one train step (3/4/5/6 cells at C/T = 600/300, 800/300,
@@ -41,6 +42,22 @@ name in a ``torch.profiler`` trace, per step; ``launches_per_cell``, the
 kernels a cell's backward launches; and ``registers``, the fused backward
 library's registers and spills as ptxas reported them.
 
+With ``--fused-fwd`` it times the fused cell forward the same way, on
+three sets of 18 flagship cells: ``train``, the training forward
+(``fused_cell_train_forward``, which keeps the node outputs and
+multipliers) of one train step, bf16, B=32, T 300/300/150/75, dropout 0.2;
+``infer_b32``, the serving forward (no dropout, nothing kept) at those
+shapes, which leaves out the training epilogue's hash and multipliers;
+``serve_f32`` and ``serve_bf16``, the serving forward
+(``fused_cell_forward``, nothing kept) of one serving window, B=4, T
+772/772/386/193.  For each: ``<set>_events_ms`` and ``<set>_device_ms``
+summed over the 18 cells, ``<set>_kernels_ms`` by kernel name and
+``<set>_launches_per_cell`` from a profiler trace; ``<set>_digest``, a
+SHA-256 of every output of one call per width (the training forward's
+node outputs and multipliers too), equal between roots whose kernels
+give the same bits; and ``registers``, the forward library's registers
+and spills.
+
 Only the API that every version of the port has is used (``get_model``,
 ``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``, the
 grouped conv's ``_launch_*`` wrappers, ``fused_cell_train_forward``,
@@ -48,6 +65,7 @@ grouped conv's ``_launch_*`` wrappers, ``fused_cell_train_forward``,
 then a summary line.
 """
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -110,8 +128,6 @@ def fused_bwd_times():
     """The fused backward of the root's kernels at one flagship train
     step's 18 bf16 cells, by this checkout's chip_smoke.py."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from nbasr_torch.ops import fused_cell
     smoke = load_smoke()
     dev = torch.device('cuda')
@@ -139,25 +155,86 @@ def fused_bwd_times():
             out['bwd_events_ms'] += cells * row['events_ms']
             out['bwd_device_ms'] += cells * row['device_ms']
             calls.append((cells, bwd))
+    by_name, counts = profile_calls(calls)
+    out['kernels_ms'] = by_name
+    out['kernels_total_ms'] = sum(by_name.values())
+    out['launches_per_cell'] = sum(counts.values()) / 18
+    out['launches_by_name_per_step'] = counts
+    return out
+
+
+def fused_fwd_times():
+    """The fused forward of the root's kernels at one flagship train step's
+    18 bf16 training cells and one serving window's 18 f32 and bf16 cells,
+    by this checkout's chip_smoke.py."""
+    import torch
+    from nbasr_torch.ops import fused_cell
+    smoke = load_smoke()
+    dev = torch.device('cuda')
+    seed = torch.tensor(smoke.TRAIN_SEED, dtype=torch.int32, device=dev)
+    sets = (('train', smoke.TRAIN_B, smoke.TRAIN_WIDTHS, torch.bfloat16),
+            ('infer_b32', smoke.TRAIN_B, smoke.TRAIN_WIDTHS, torch.bfloat16),
+            ('serve_f32', smoke.B, smoke.WIDTHS, torch.float32),
+            ('serve_bf16', smoke.B, smoke.WIDTHS, torch.bfloat16))
+    out = {'card': smoke.card_line(), 'per_width': []}
+    with torch.no_grad():
+        for name, Bn, widths, dtype in sets:
+            calls, digest = [], hashlib.sha256()
+            out[f'{name}_events_ms'] = out[f'{name}_device_ms'] = 0.0
+            for (C, T), cells in zip(widths, smoke.CELLS_PER_BLOCK):
+                cell = smoke.make_cell(C, smoke.SPECS['flagship'], dev)
+                g = torch.Generator().manual_seed(smoke.SEED + C)
+                x = torch.randn((Bn, T, C), generator=g).to(dev, dtype)
+                weights, ln = cell.operands(dtype)
+                if name == 'train':
+                    args = (smoke.train_spec(cell, smoke.DROPOUT), x, weights,
+                            ln, seed)
+                    fn = (lambda a: lambda: fused_cell.fused_cell_train_forward(
+                        *a))(args)
+                else:
+                    fn = (lambda a: lambda: fused_cell.fused_cell_forward(*a))(
+                        (cell.spec, x, weights, ln))
+                row = dict(set=name, C=C, T=T, cells=cells,
+                           events_ms=smoke.time_ms(fn),
+                           device_ms=smoke.device_ms(fn))
+                got = fn()
+                for t in got if isinstance(got, tuple) else (got,):
+                    digest.update(t.contiguous().view(torch.uint8).cpu()
+                                  .numpy().tobytes())
+                out['per_width'].append(row)
+                out[f'{name}_events_ms'] += cells * row['events_ms']
+                out[f'{name}_device_ms'] += cells * row['device_ms']
+                calls.append((cells, fn))
+            by_name, counts = profile_calls(calls)
+            out[f'{name}_kernels_ms'] = by_name
+            out[f'{name}_kernels_total_ms'] = sum(by_name.values())
+            out[f'{name}_launches_per_cell'] = sum(counts.values()) / 18
+            out[f'{name}_digest'] = digest.hexdigest()[:16]
+    return out
+
+
+def profile_calls(calls):
+    """({kernel: device ms per step}, {kernel: launches per step}) of STEPS
+    runs of every (cells, fn) in ``calls``, fn called ``cells`` times a
+    step, in a torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            for cells, fn in calls:
+                for _ in range(cells):
+                    fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEPS):
-                for cells, bwd in calls:
-                    for _ in range(cells):
-                        bwd()
-            torch.cuda.synchronize()
     by_name, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             name = kernel_name(e.key)
             by_name[name] = by_name.get(name, 0.0) + \
                 e.self_device_time_total / 1e3 / STEPS
-            counts[name] = counts.get(name, 0) + e.count
-    out['kernels_ms'] = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
-    out['kernels_total_ms'] = sum(by_name.values())
-    out['launches_per_cell'] = sum(counts.values()) / STEPS / 18
-    out['launches_by_name_per_step'] = {k: v / STEPS for k, v in counts.items()}
-    return out
+            counts[name] = counts.get(name, 0) + e.count / STEPS
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])), counts
 
 
 def registers(log):
@@ -195,7 +272,12 @@ def measure(root, impl):
     built = _build.build()
     if impl == 'gconv':
         return {'root': root, 'impl': impl, **gconv_times(),
-                'registers': registers(built['grouped_conv'][1])}
+                'registers': registers(built['grouped_conv'][1]),
+                'fused_registers': registers(built['fused_cell'][1]),
+                'bwd_registers': registers(built['fused_cell_bwd'][1])}
+    if impl == 'fused-fwd':
+        return {'root': root, 'impl': impl, **fused_fwd_times(),
+                'registers': registers(built['fused_cell'][1])}
     if impl == 'fused-bwd':
         return {'root': root, 'impl': impl, **fused_bwd_times(),
                 'registers': registers(built['fused_cell_bwd'][1])}
@@ -238,7 +320,7 @@ def main(argv):
     impl = 'auto'
     if argv[:1] == ['--impl']:
         impl, argv = argv[1], argv[2:]
-    elif argv[:1] in (['--gconv'], ['--fused-bwd']):
+    elif argv[:1] in (['--gconv'], ['--fused-fwd'], ['--fused-bwd']):
         impl, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)
@@ -257,7 +339,9 @@ def main(argv):
         for k, v in row.items():
             if k not in ('root', 'impl', 'step_ms_blocks', 'per_node',
                          'registers', 'per_width', 'card',
-                         'launches_by_name_per_step'):
+                         'launches_by_name_per_step', 'fused_registers',
+                         'bwd_registers') and \
+                    not k.endswith('_kernels_ms'):
                 summary.setdefault(row['root'], {}).setdefault(k, []).append(v)
     print(json.dumps({'summary': summary}))
 

@@ -111,12 +111,15 @@ SEED = np.array([123, 456789], np.int32)
 BF16_ULP = 2.0 ** -8
 
 
-def _jax_spec(spec, rate):
+def _jax_spec(spec, rate, one_group_chunks=False):
+    """The JAX kernel's spec of a port spec: its conv weights in one
+    block-diagonal chunk, or in one chunk per group."""
     nodes = []
     for n in spec.nodes:
         if n.kind == 'conv':
             nodes.append(jax_fused_cell.ConvNode(
-                n.K, n.d, n.lpad, n.rpad, n.groups, 1, n.cin_pg, n.cout_pg,
+                n.K, n.d, n.lpad, n.rpad, n.groups,
+                n.groups if one_group_chunks else 1, n.cin_pg, n.cout_pg,
                 n.branches))
         elif n.kind == 'linear':
             nodes.append(jax_fused_cell.LinearNode(n.branches))
@@ -286,3 +289,51 @@ def test_kernel_launch_refuses_to_detach():
     with torch.enable_grad(), pytest.raises(RuntimeError, match='detach'):
         fused_cell._launch(cell.spec, x, *cell.operands(torch.float32),
                            None, save=False)
+
+
+# (b, t, channel, value) planted in x: NaN, +inf and -inf in the two
+# utterances, far enough apart that no conv window holds two of them
+NONFINITE = ((0, 3, 5, np.nan), (1, 9, 17, np.inf), (1, 17, 2, -np.inf))
+
+
+@pytest.mark.parametrize('use_norm', [True, False], ids=['norm', 'no_norm'])
+@pytest.mark.parametrize('rate', [0.0, 0.5])
+@pytest.mark.parametrize('arch', ARCHS, ids=ARCH_IDS)
+def test_nonfinite_inputs_match_jax(arch, rate, use_norm):
+    """NaN, +inf and -inf in x: the plain version and the JAX kernel in
+    interpret mode put NaN, +inf and -inf in the same places (the clip
+    passes NaN, as jnp.clip does; +-inf clip to 20 and 0, and branch adds
+    carry them), and their finite values agree within 1e-5 of the finite
+    scale, as at finite inputs.  The JAX kernel runs one group per weight
+    chunk: with several groups in a chunk its block-diagonal product
+    multiplies a NaN or inf by the other groups' zero weights and spreads
+    NaN over the chunk, a trait of the TPU layout that neither the port's
+    kernel nor its plain version (compact weights) has."""
+    spec = SearchCell(24, arch, groups=4, dropout_rate=rate,
+                      use_norm=use_norm).train_spec
+    x, ws, ln, _ = _cell_inputs(spec, False)
+    for b, t, c, v in NONFINITE:
+        x[b, t, c] = v
+    jspec = _jax_spec(spec, rate, one_group_chunks=True)
+    ops, i = [], 0
+    for n in spec.nodes:
+        if n.kind == 'zero':
+            continue
+        w = jnp.asarray(ws[i])
+        if n.kind == 'conv':
+            w = jax_fused_cell.expand_chunked(w, n.groups, n.groups)
+        ops += [w, jnp.asarray(ws[i + 1])]
+        i += 2
+    want = np.asarray(jax_fused_cell.fused_cell_apply(
+        jspec, jnp.asarray(x), ops, [jnp.asarray(v) for v in ln],
+        jnp.asarray(SEED)))
+    got = fused_cell.fused_cell_reference(
+        spec, torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+        [torch.from_numpy(v) for v in ln], torch.tensor(SEED)).numpy()
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(want), err_msg=str(test))
+    finite = np.isfinite(want)
+    assert np.isnan(want).any() and finite.any()
+    scale = np.abs(want[finite]).max()
+    np.testing.assert_allclose(got[finite], want[finite], rtol=0,
+                               atol=ATOL * scale)

@@ -363,10 +363,12 @@ def test_dx_plan_covers_every_output_once(B, T, G, ci, co, K, d, layout,
 
 
 def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst,
-                    y_esize=None, ptrs=(256, 512)):
+                    y_esize=None, ptrs=(256, 512), reg_tiles=None):
     """The forward plan's invariants (ci, co and the strides: the staged
     operand's and the output's, at ``ptrs`` bytes from an aligned base;
-    the output's elements ``y_esize`` bytes, ``esize`` unless given)."""
+    the output's elements ``y_esize`` bytes, ``esize`` unless given; the
+    register tile one of ``reg_tiles``, (taps, outputs), where the kernel
+    is not this library's)."""
     y_esize = y_esize or esize
     assert set(grouped_conv.FWD_PLAN_FIELDS) <= p.keys()
     b, t, g, o, written = _fwd_owners(p, B, T, G, co, d)
@@ -380,7 +382,9 @@ def _check_fwd_plan(p, B, T, G, ci, co, K, d, layout, esize, xst, yst,
     rt, rows, kt = p['rt'], p['rows'], p['kt']
     halo = (K - 1) * d
     assert p['nk'] * kt >= K and p['no'] * p['ot'] >= co
-    if esize == 4:
+    if reg_tiles:
+        assert kt in reg_tiles[0] and p['ot'] in reg_tiles[1]
+    elif esize == 4:
         assert (kt, p['ot']) == grouped_conv.FWD_F32_TILE
     else:
         assert kt in grouped_conv.FWD_TAP_TILES
@@ -489,7 +493,8 @@ def _emulate_copy(mem, strides, sm, nch, mode, vec, esize, base, ts0, nrows,
 
 
 def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
-                     esize, bounds=True, dx=False, y_esize=None, prior=None):
+                     esize, bounds=True, dx=False, y_esize=None, prior=None,
+                     store=None):
     """The forward kernel's loader, weight staging, register tiles and
     store in numpy (f64 sums), on flat memory addressed by the strides;
     shared memory starts as NaN, so a read of what was never staged shows
@@ -499,7 +504,10 @@ def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
     staged transposed and tap-reversed, and ``lpad`` the mirrored pad.
     ``y_esize`` is the output's element size (the fused backward's f32
     tile and buffer: 4); with ``prior`` (flat memory like the output) the
-    output tile is added into it (add_tile), else stored."""
+    output tile is added into it (add_tile), else stored.  ``store(yt, b,
+    t0, at, nrows, geff)`` takes the output tile's place in the store (the
+    fused cell forward's epilogue: utterance ``b``, first time ``t0``,
+    element offset ``at`` in the output's view)."""
     gs, rows, x_buf, y_buf = p['gs'], p['rows'], p['x_buf'], p['y_buf']
     y_esize = y_esize or esize
     if not y_buf:           # the output tile over the x tile: it must fit
@@ -532,10 +540,14 @@ def _emulate_forward(x, xst, w, bias, yst, p, B, T, G, ci, co, K, d, lpad,
             yt = out_tile if y_buf else tile(u)
             _emulate_unit(tile(u), yt, wsm, w, bias, p, ci, co, K, d, g0,
                           geff, first=u == u0, dx=dx)
-            t0 = u % p['tiles'] * rows
+            b, t0 = divmod(u, p['tiles'])
+            t0 *= rows
+            at = b * yst[0] + g0 * yst[3] + t0 * yst[2]
+            if store is not None:
+                store(yt, b, t0, at, min(rows, T - t0), geff)
+                continue
             _emulate_copy(y, yst, yt, co, p['y_mode'], p['y_vec'], y_esize,
-                          u // p['tiles'] * yst[0] + g0 * yst[3] + t0 * yst[2],
-                          0, min(rows, T - t0), gs, geff, T, False,
+                          at, 0, min(rows, T - t0), gs, geff, T, False,
                           add=prior is not None)
     return y
 
@@ -649,15 +661,18 @@ EMULATED = [
 
 
 def _emulated_plan(B, T, G, ci, co, K, d, esize, xst, yst, choice,
-                   kernel='fwd', y_esize=None):
+                   kernel='fwd', y_esize=None, reg_tiles=None):
     """The plan of ``_PLANS[kernel]`` (``'dx'``: ci, co and the strides
-    those of the conv on dz; ``y_esize`` the output's element size), or
-    the candidate that cuts the work as ``choice`` says."""
+    those of the conv on dz; ``y_esize`` the output's element size,
+    ``reg_tiles`` the register tiles), or the candidate that cuts the work
+    as ``choice`` says."""
     if choice == 'plan':
         return grouped_conv._PLANS[kernel][0](B, T, G, ci, co, K, d, esize,
-                                              xst, yst, y_esize=y_esize)
+                                              xst, yst, y_esize=y_esize,
+                                              reg_tiles=reg_tiles)
     plans = [p for _, p in grouped_conv.fwd_candidates(
-        B, T, G, ci, co, K, d, esize, xst, yst, y_esize=y_esize)]
+        B, T, G, ci, co, K, d, esize, xst, yst, y_esize=y_esize,
+        reg_tiles=reg_tiles)]
     if choice == 'passes':  # output tiles in passes, blocks of several units
         return max(plans, key=lambda p: (p['y_buf'] > 0, p['span'] > 1,
                                          G % p['gs'] > 0, p['cc'] < ci))
