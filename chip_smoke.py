@@ -9,7 +9,8 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. card: its name and power limit, as nvidia-smi reports them;
-2. build: nvcc compiles every kernel in nbasr_torch/csrc into build/;
+2. build: nvcc compiles the four kernel libraries of nbasr_torch/csrc
+   into build/;
 3. kernels: the fused cell forward kernel against its plain PyTorch version
    on the card, at the four flagship widths (block 0-3 of a serving
    window), on every node kind, in f32 and bf16, two calls bit-equal; NaN,
@@ -25,8 +26,9 @@ prints no result):
    the same stream in bf16 against f32;
 6. train kernels: the training forward (dropout 0 and 0.2, same seed) and
    the backward kernel against their plain versions at the four widths of
-   the train-step batch (B=4), on every node kind, in f32 and bf16: output,
-   saved multipliers (the dropout masks must agree exactly), dx, every dW
+   the train-step batch (B=4), on every node kind and on a cell without
+   LayerNorm, in f32 and bf16: output, saved node outputs, saved
+   multipliers (the dropout masks must agree exactly), dx, every dW
    and db, dscale and dbias, and two backward calls bit-equal; three specs
    with 50 groups of 24 channels at C=1200; the same for the flagship
    cell at the train step's own shapes (B=32, dropout 0.2); NaN, +inf and
@@ -44,7 +46,9 @@ prints no result):
 8. train check: one f32 step's gradients before clipping (full width, B=2,
    cell dropout 0.2 with the same masks on both sides) on the card against
    the same port on the CPU, beside witnesses that split the difference:
-   the card's kernels against the plain cells run on the card, and each
+   the card's kernels against the plain cells run on the card, each tensor
+   held to a bound read from the card's own 1-ulp audio nudge of it, a
+   planted fault in one cell's backward that bound must reject, and each
    side against itself with the input audio nudged by one ulp;
 9. grouped conv kernels (``grouped_impl`` 'pallas' and 'pallas_split'):
    the forward (with and without its bias + clip-ReLU epilogue), dx and dW
@@ -69,12 +73,15 @@ prints no result):
    witness, 'pallas' against 'fused' (the same gate rule and masks);
    phases 7 and 11 also count one CTC alpha and one beta launch per step;
 12. CTC kernels: the alpha and beta recursions against their plain
-   versions on the card, in f32, at the train step's shapes (the loader's
-   batch, T=75, B=32, S=65), an eval batch's (T=200, B=16, S=161), S=513
-   (more states than a block has threads) and S=8193 (the state in global
-   memory), each with a row without labels, repeated labels, padded frames
-   and an impossible alignment; the loss and its logits gradient with the
-   kernels against the plain versions, and F.ctc_loss as a witness; kernel,
+   versions on the card, in f32, two calls bit-equal, at the train step's
+   shapes (the loader's batch, T=75, B=32, S=65), an eval batch's (T=200,
+   B=16, S=161), one frame (T=1), and on the block path S=257 (the first
+   row too long for a warp), S=513 and S=8193 (the state in shared memory
+   beside a cp.async ring) and S=24577 (the state in global memory), each
+   with a row without labels, repeated labels, padded frames and an
+   impossible alignment; the path each case took and its time on CUDA
+   events and as device time; the loss and its logits gradient with the
+   kernels against the plain versions, and F.ctc_loss as a witness;
    plain, bound and F.ctc_loss times;
 13. eval: Trainer.evaluate with the default beam search (W=12) over the
    synthetic val split with the flagship on the card (one alpha launch per
@@ -124,6 +131,9 @@ SPECS = {
     'tf_quirks': dict(arch=[[2, 1], [3, 1, 0], [5, 0, 0, 1]],
                       branch_semantics='tf_inverted', apply_dilation=False,
                       pad_math='tf'),
+    # no LayerNorm: the last node writes y, and a training forward must
+    # still hand back its output among the saved node outputs
+    'flagship no-norm': dict(arch=FLAGSHIP, use_norm=False),
 }
 # Kernel against plain version, as a share of max|plain|.  f32: both sum
 # in f32, in other orders, over <= 84 (conv) or <= 1200 (linear) terms, so
@@ -160,8 +170,9 @@ TRAIN_DATA = 'synthetic:64'
 DROPOUT = 0.2
 TRAIN_SEED = (1234567, 7654321)
 WIDE_GROUPS = 50          # ci = 24 at C=1200: groups wider than 16 channels
-TRAIN_CHECKED_AT = ('B=4 at T=300/300/150/75 on the four SPECS, dropout 0 '
-                    'and 0.2; three SPECS with 50 groups of 24 channels at '
+TRAIN_CHECKED_AT = ('B=4 at T=300/300/150/75 on the five SPECS (one without '
+                    'LayerNorm), dropout 0 and 0.2, output, saved node '
+                    'outputs and multipliers; three SPECS with 50 groups of 24 channels at '
                     'C=1200, T=75; the flagship cell at B=32, dropout 0.2 '
                     '(the train step\'s shapes); f32 and bf16; the backward '
                     'bit-equal across two calls at each, and with NaN, +inf '
@@ -188,27 +199,36 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # agree everywhere): at most this share of the elements.
 GATE_FLIP_SHARE = 1e-5
 # f32 gradients of one train step before clipping, as a share of each
-# tensor's max.  KERNEL_GRAD_TOL holds the card's kernels against the plain
-# cells run on the card: everything outside the cells is the same
-# arithmetic on both sides, so they differ only by the cells' f32 summation
-# order carried through the backward; a wrong kernel moves a gradient by
-# its own size.  The bound is below its own witness: it read 3.3e-5 on an
-# H100 with the kernels' present rounding, but a LayerNorm kernel that
-# summed its f32 statistics in another order (vectors of 4 a lane) read
-# 4.78e-2 on the same step, as much as the 1-ulp audio nudge below moves
-# the card's own gradients.  So it holds only while the kernels round as
-# they do, and it is to be founded again on a better conditioned step;
-# until then a change of a cell kernel's f32 summation order can fail it
-# with nothing wrong.  TRAIN_GRAD_TOL holds the card
-# against the CPU, where cuDNN, cuBLAS and the frontend sum in other orders
-# too.  The random-init flagship is badly conditioned there: its backward
-# grows gradients ~13 orders of magnitude over the 18 cells, and one f32
-# ulp of noise on the input audio moves the card's own gradients by 4.8e-2
-# of a tensor's max (the CPU's by 1.2e-2), on the very tensor where card
-# and CPU differ most, by as much.  The phase prints those witnesses beside
-# the check.
+# tensor's max.  The kernels' check holds the card's kernels against the
+# plain cells run on the card: everything outside the cells is the same
+# arithmetic on both sides, so they differ only by the cells' f32
+# summation order carried through the backward, while a wrong kernel moves
+# a gradient by its own size.  How far a few ulps carry depends on the
+# tensor: the random-init flagship is badly conditioned (its backward grows
+# gradients ~13 orders of magnitude over the 18 cells), and one f32 ulp of
+# noise on the input audio moves the card's own gradients by up to 4.8e-2
+# of a tensor's max, 3e-4 on others.  So each tensor n gets its own bound,
+# read in the same call from that nudge:
+#   bound[n] = min(KERNEL_GRAD_CAP, max(KERNEL_GRAD_TOL,
+#                                       KERNEL_GRAD_FACTOR * nudge[n]))
+# where nudge[n] is the share by which the card's 1-ulp audio nudge moves
+# tensor n.  A summation order is noise of the same few-ulp size injected
+# inside the cells rather than at the input, so it carries as the nudge
+# does; a LayerNorm that summed its statistics in another order read
+# 4.78e-2 against a nudge of 4.8e-2.  FACTOR 2 leaves room for the two
+# being different draws of that noise.  The floor, 1e-3 (the bound of
+# before on every tensor), holds where the step is well conditioned; the
+# cap, 0.1 (TRAIN_GRAD_TOL, to which phase 11 holds the split path), is
+# still 20x below a gradient moved by its own size.  The phase plants a
+# fault in one cell's backward (planted_fault()) and asserts that the bound
+# rejects it.  TRAIN_GRAD_TOL holds the card against the CPU, where
+# cuDNN, cuBLAS and the frontend sum in other orders too, on the very
+# tensor where the nudge moves the card's gradients most, by as much.  The
+# phase prints those witnesses beside the checks.
 TRAIN_GRAD_TOL = 0.1
 KERNEL_GRAD_TOL = 1e-3
+KERNEL_GRAD_FACTOR = 2.0
+KERNEL_GRAD_CAP = TRAIN_GRAD_TOL
 TRAIN_NORM_TOL = 1e-3
 
 
@@ -580,8 +600,9 @@ class TrainKernelCheck:
         self.flips = self.compared = 0
 
     def check(self, label, spec, x, dy, weights, ln):
-        """Asserts both kernels within tolerance and the masks equal;
-        returns the kernel's (outs, mults) for reuse."""
+        """Asserts both kernels within tolerance (the forward's output and
+        its saved node outputs, the backward's outputs) and the masks
+        equal; returns the kernel's (outs, mults) for reuse."""
         B, T, C = x.shape
         dtype = x.dtype
         y, outs, mults = fused_cell.fused_cell_train_forward(
@@ -599,6 +620,13 @@ class TrainKernelCheck:
         err = float((y.float() - want[0].float()).abs().max())
         scale = float(want[0].float().abs().max())
         assert err <= TOL[dtype] * scale, (label, C, dtype, err, scale)
+        # every node's saved output, the last one's too (without a
+        # LayerNorm it is y's), as the plain version keeps them
+        assert outs.shape == want[1].shape and outs.dtype == want[1].dtype
+        o_err = float((outs.float() - want[1].float()).abs().max())
+        o_scale = float(want[1].float().abs().max())
+        assert o_err <= TOL[dtype] * o_scale, \
+            ('saved node outputs', label, C, dtype, o_err, o_scale)
         f, n = check_masks(spec, mults, want[2], self.seed, B, T, C)
         self.flips, self.compared = self.flips + f, self.compared + n
         del want
@@ -615,7 +643,8 @@ class TrainKernelCheck:
         b_abs, b_rel = grad_errors(got_b, want_b)
         print(f'train kernels  {label:18s} B={B:2d} C={C:4d} T={T:3d} '
               f'p={spec.dropout_rate} {str(dtype)[6:]:8s} fwd err '
-              f'{err / scale:.2e} of scale, gate flips {f}/{n}; bwd '
+              f'{err / scale:.2e} of scale, node outputs '
+              f'{o_err / o_scale:.2e}, gate flips {f}/{n}; bwd '
               f'max_abs_err {b_abs:.3e}, worst share {b_rel:.2e} '
               f'(tol {GRAD_TOL[dtype]:.0e})')
         assert b_rel <= GRAD_TOL[dtype], (label, B, C, dtype, b_rel)
@@ -919,6 +948,44 @@ def plain_cells():
         fused_cell.fused_cell_train_forward, fused_cell.fused_cell_backward = saved
 
 
+@contextlib.contextmanager
+def planted_fault():
+    """A witness only, never the main path: inside, the card's kernels run
+    with one planted fault, the first node's bias gradient negated in the
+    first cell backward of each step (the flagship's last cell), as a
+    wrong kernel would give it."""
+    saved = fused_cell.fused_cell_backward
+    calls = [0]
+
+    def faulty(*args):
+        dx, dweights, dln = saved(*args)
+        if calls[0] == 0:
+            dweights = list(dweights)
+            dweights[1] = -dweights[1]
+        calls[0] += 1
+        return dx, dweights, dln
+
+    fused_cell.fused_cell_backward = faulty
+    try:
+        yield calls
+    finally:
+        fused_cell.fused_cell_backward = saved
+
+
+def kernel_grad_bounds(nudge):
+    """{tensor: the kernels' check's bound}, from the card's 1-ulp audio
+    nudge's share on each tensor (see KERNEL_GRAD_FACTOR)."""
+    return {n: min(KERNEL_GRAD_CAP, max(KERNEL_GRAD_TOL,
+                                        KERNEL_GRAD_FACTOR * v))
+            for n, v in nudge.items()}
+
+
+def over_bound(shares, bounds):
+    """(worst share / bound, its tensor) over the tensors."""
+    name = max(shares, key=lambda n: shares[n] / bounds[n])
+    return shares[name] / bounds[name], name
+
+
 def check_train_cpu(device):
     """Phase 8: one f32 step's gradients before clipping, card against CPU,
     with witnesses that split the difference: the card's kernels against
@@ -954,6 +1021,9 @@ def check_train_cpu(device):
         plain, _ = gradients(card, model, batch)
         assert fused_cell.LAUNCHES['kernel'] == 0 and \
             fused_cell.BACKWARD_LAUNCHES['kernel'] == 0
+    with planted_fault() as calls:
+        faulty, _ = gradients(card, model, batch)
+        assert calls[0] == 18, calls
     host = Trainer(loaders, device='cpu')
     want, want_m = gradients(host, cpu_model, batch)
     near, _ = gradients(host, cpu_model, nudged)
@@ -970,6 +1040,8 @@ def check_train_cpu(device):
 
     pairs = {'card vs cpu': shares(got, want),
              'kernels vs plain cells, both on the card': shares(got, plain),
+             'planted fault vs plain cells, both on the card':
+                 shares(faulty, plain),
              'plain cells on the card vs cpu': shares(plain, want),
              'card vs card, audio nudged 1e-7': shares(got_nudged, got),
              'cpu vs cpu, audio nudged 1e-7': shares(near, want)}
@@ -982,12 +1054,11 @@ def check_train_cpu(device):
           f'{n_card:.6e} vs {n_cpu:.6e} (tol {TRAIN_NORM_TOL} relative); '
           f'{len(want)} tensors; {cpu_s:.1f} s')
     readings = {}
-    tols = {'card vs cpu': TRAIN_GRAD_TOL,
-            'kernels vs plain cells, both on the card': KERNEL_GRAD_TOL}
+    bounds = kernel_grad_bounds(pairs['card vs card, audio nudged 1e-7'])
     for label, s in pairs.items():
         worst = max(s, key=s.get)
         readings[label] = s[worst]
-        tol = f' (tol {tols[label]:.0e})' if label in tols else ''
+        tol = f' (tol {TRAIN_GRAD_TOL:.0e})' if label == 'card vs cpu' else ''
         print(f'  gradient error as a share of each tensor\'s max, {label}: '
               f'worst {s[worst]:.2e} ({worst}), median '
               f'{np.median(list(s.values())):.2e}{tol}')
@@ -999,9 +1070,29 @@ def check_train_cpu(device):
                   'card vs cpu', 'kernels vs plain cells, both on the card',
                   'card vs card, audio nudged 1e-7',
                   'cpu vs cpu, audio nudged 1e-7')) for n in top))
-    assert readings['kernels vs plain cells, both on the card'] <= KERNEL_GRAD_TOL
+    honest, honest_at = over_bound(
+        pairs['kernels vs plain cells, both on the card'], bounds)
+    planted, planted_at = over_bound(
+        pairs['planted fault vs plain cells, both on the card'], bounds)
+    raised = sum(b > KERNEL_GRAD_TOL for b in bounds.values())
+    print(f'  kernels check, bound per tensor min({KERNEL_GRAD_CAP:g}, max('
+          f'{KERNEL_GRAD_TOL:g}, {KERNEL_GRAD_FACTOR:g} x card nudge)): '
+          f'bounds {min(bounds.values()):.2e} to {max(bounds.values()):.2e} '
+          f'({raised} of {len(bounds)} above the floor); kernels at '
+          f'{honest:.3f} of their bound ({honest_at}: '
+          f'{pairs["kernels vs plain cells, both on the card"][honest_at]:.2e}'
+          f' against {bounds[honest_at]:.2e}): passed; planted fault at '
+          f'{planted:.1f} of its bound ({planted_at}: '
+          f'{pairs["planted fault vs plain cells, both on the card"][planted_at]:.2e}'
+          f' against {bounds[planted_at]:.2e}): rejected')
+    assert planted > 1.0, ('the kernels check passed a planted fault',
+                           planted_at, planted)
+    assert honest <= 1.0, ('kernels vs plain cells', honest_at, honest)
     assert readings['card vs cpu'] <= TRAIN_GRAD_TOL
     assert abs(n_card - n_cpu) <= TRAIN_NORM_TOL * n_cpu
+    readings['kernels_over_bound'] = honest
+    readings['planted_fault_over_bound'] = planted
+    readings['kernel_bound_range'] = [min(bounds.values()), max(bounds.values())]
     return readings
 
 
@@ -1545,10 +1636,16 @@ CTC_WITNESS_TOL = {'loss': 1e-4, 'grad': 2e-3}
 # subtracts, two exps, add, log, add) and the emission add.
 CTC_OPS_PER_STATE = 19
 # (label, T, B, U) of the generated cases; the train step's comes from the
-# loader.  S = 2U+1: 161 an eval batch's, 513 more states than a block has
-# threads (256), 8193 more than the shared memory holds.
-CTC_CASES = (('eval', 200, 16, 80), ('S=513', 320, 8, 256),
-             ('S=8193', 40, 4, 4096))
+# loader.  S = 2U+1: 161 an eval batch's, 17 at one frame, 257 the first
+# row past the warp path (S_WARP = 256), 513 a block of 17 warps, 8193
+# more states than a block has threads (1024), in shared memory only with
+# the opt-in, 24577 a state that does not fit beside the ring (global
+# scratch).
+CTC_CASES = (('eval', 200, 16, 80), ('T=1', 1, 6, 8), ('S=257', 260, 8, 128),
+             ('S=513', 320, 8, 256), ('S=8193', 40, 4, 4096),
+             ('S=24577', 24, 4, 12288))
+# the cases timed against their plain versions and F.ctc_loss too
+CTC_TIMED = ('train step', 'eval')
 EVAL_BEAM = 12
 BEAM_MARGIN = 1e-4
 
@@ -1568,14 +1665,34 @@ def ctc_case(labels, label_len, logit_len, T, seed, device):
     logit_len[1] = max(logit_len[1], min(T, 4 * n))
     n = min(4, U)
     labels[2, :n] = [3, 7, 11, 13][:n]
-    label_len[2], logit_len[2] = n, 2
-    logit_len[3] = T // 2
+    label_len[2], logit_len[2] = n, min(2, T)
+    logit_len[3] = max(1, T // 2)
     label_len[3] = min(label_len[3], T // 8)
     labels[np.arange(U)[None, :] >= label_len[:, None]] = 0
     g = torch.Generator().manual_seed(seed)
     logits = 2 * torch.randn((len(labels), T, VOCAB), generator=g)
     return [torch.as_tensor(a).to(device)
             for a in (logits, logit_len, labels, label_len)]
+
+
+def ctc_cases(device):
+    """{label: (logits, logit_len, labels, label_len)} of phase 12."""
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batch = next(iter(loaders[1].full))
+    frames = loaders[1].full.bucket_frames[0]
+    T = frames // 4                      # the flagship's strides 1, 1, 2, 2
+    lsize = logits_length(torch.as_tensor(batch['feature_size']), frames, T)
+    cases = {'train step': ctc_case(batch['labels'], batch['label_size'],
+                                    lsize, T, SEED + 12, device)}
+    for label, Tc, Bc, U in CTC_CASES:
+        rng = np.random.RandomState(SEED + Tc)
+        labels = rng.randint(1, VOCAB, size=(Bc, U))
+        most = min(U, max(1, Tc // 2))
+        label_len = rng.randint(max(1, most // 2), most + 1, size=Bc)
+        logit_len = rng.randint(Tc - Tc // 4, Tc + 1, size=Bc)
+        cases[label] = ctc_case(labels, label_len, logit_len, Tc, SEED + U,
+                                device)
+    return cases
 
 
 def ctc_operands(logits, logit_len, labels, label_len):
@@ -1587,6 +1704,12 @@ def ctc_operands(logits, logit_len, labels, label_len):
         label_len, ext.shape[1])
 
 
+def ctc_kernel_calls(em, skip, final):
+    """{'alpha' | 'beta': a call of the kernel's wrapper on the operands}."""
+    return {'alpha': lambda: ctc_pallas._launch_alpha(em, skip),
+            'beta': lambda: ctc_pallas._launch_beta(em, skip, final)}
+
+
 def stack_errors(got, want):
     """(max abs error of the finite entries, floored entries); asserts the
     JAX tolerance and the same floor pattern."""
@@ -1596,7 +1719,7 @@ def stack_errors(got, want):
     err = (got - want).abs()[~floored]
     bad = err > CTC_ATOL + CTC_RTOL * want.abs()[~floored]
     assert not bool(bad.any()), float(err.max())
-    return float(err.max()), int(floored.sum())
+    return (float(err.max()) if err.numel() else 0.0), int(floored.sum())
 
 
 @contextlib.contextmanager
@@ -1631,21 +1754,20 @@ def f_ctc(logits, logit_len, labels, label_len):
 
 def ctc_bound(T, B, S, name):
     """(ms, 'bytes' | 'operations'): em read and the stack written once,
-    with the [B, S] masks (one for alpha, two for beta), against
+    with the [B, S] bool masks (one for alpha, two for beta), against
     CTC_OPS_PER_STATE f32 operations per state and step."""
-    nbytes = 4 * (2 * T * B * S + (1 if name == 'alpha' else 2) * B * S)
+    nbytes = 4 * 2 * T * B * S + (1 if name == 'alpha' else 2) * B * S
     t_bytes = nbytes / MEM_BYTES_S
     t_ops = CTC_OPS_PER_STATE * T * B * S / PEAK_OPS_S[torch.float32]
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def ctc_times(case, em, skip, final):
-    """Kernel, plain version, bound and library times of both recursions on
-    one case; the library is F.ctc_loss on the same rows, its forward for
-    alpha and its backward (autograd, the loss kept) for beta, on
-    log-probabilities it is given."""
+def ctc_library_times(case, em, skip, final):
+    """Plain version and library times of both recursions on one case; the
+    library is F.ctc_loss on the same rows, its forward for alpha and its
+    backward (autograd, the loss kept) for beta, on log-probabilities it is
+    given."""
     logits, logit_len, labels, label_len = case
-    T, B, S = em.shape
     lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
     lpg = lp.clone().requires_grad_()
     args = (labels, logit_len, label_len)
@@ -1653,61 +1775,58 @@ def ctc_times(case, em, skip, final):
                                           zero_infinity=True)
     ones = torch.ones_like(f_loss)
     calls = {
-        'alpha': (lambda: ctc_pallas._launch_alpha(em, skip),
-                  lambda: ctc_pallas.alpha_scan_reference(em, skip),
+        'alpha': (lambda: ctc_pallas.alpha_scan_reference(em, skip),
                   lambda: torch.nn.functional.ctc_loss(
                       lp, *args, reduction='none', zero_infinity=True)),
-        'beta': (lambda: ctc_pallas._launch_beta(em, skip, final),
-                 lambda: ctc_pallas.beta_scan_reference(em, skip, final),
+        'beta': (lambda: ctc_pallas.beta_scan_reference(em, skip, final),
                  lambda: torch.autograd.grad(f_loss, lpg, ones,
                                              retain_graph=True))}
     rows = {}
-    with torch.no_grad():
-        for name, (kernel, plain, library) in calls.items():
-            bound_ms, bound_by = ctc_bound(T, B, S, name)
-            with torch.enable_grad():
-                library_ms = time_ms(library)
-            rows[name] = dict(T=T, B=B, S=S, ms=time_ms(kernel),
-                              plain_ms=time_ms(plain, runs=10), bound_ms=bound_ms,
-                              bound_by=bound_by, library_ms=library_ms)
+    for name, (plain, library) in calls.items():
+        with torch.enable_grad():
+            library_ms = time_ms(library)
+        with torch.no_grad():
+            rows[name] = dict(plain_ms=time_ms(plain, runs=10),
+                              library_ms=library_ms)
     return rows
 
 
 def check_ctc_kernels(device):
-    """Phase 12.  Returns ({'alpha'|'beta': max abs error}, timing rows per
-    case, loss readings)."""
-    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
-    batch = next(iter(loaders[1].full))
-    frames = loaders[1].full.bucket_frames[0]
-    T = frames // 4                      # the flagship's strides 1, 1, 2, 2
-    lsize = logits_length(torch.as_tensor(batch['feature_size']), frames, T)
-    cases = {'train step': ctc_case(batch['labels'], batch['label_size'],
-                                    lsize, T, SEED + 12, device)}
-    for label, Tc, Bc, U in CTC_CASES:
-        rng = np.random.RandomState(SEED + Tc)
-        labels = rng.randint(1, VOCAB, size=(Bc, U))
-        most = min(U, Tc // 2)
-        label_len = rng.randint(most // 2, most + 1, size=Bc)
-        logit_len = rng.randint(Tc - Tc // 4, Tc + 1, size=Bc)
-        cases[label] = ctc_case(labels, label_len, logit_len, Tc, SEED + U,
-                                device)
+    """Phase 12.  Returns ({'alpha'|'beta': max abs error}, {case: {name:
+    timing row}}, loss readings)."""
+    cases = ctc_cases(device)
     errors = {'alpha': 0.0, 'beta': 0.0}
     readings, times = {}, {}
     for label, case in cases.items():
         with torch.no_grad():
             em, skip, final = ctc_operands(*case)
             T, B, S = em.shape
-            got = {'alpha': ctc_pallas._launch_alpha(em, skip),
-                   'beta': ctc_pallas._launch_beta(em, skip, final)}
+            calls = ctc_kernel_calls(em, skip, final)
             want = {'alpha': ctc_pallas.alpha_scan_reference(em, skip),
                     'beta': ctc_pallas.beta_scan_reference(em, skip, final)}
-            torch.cuda.synchronize()
-            for name in got:
-                err, floored = stack_errors(got[name], want[name])
+            plan = ctc_pallas.device_plan(em)
+            times[label] = {}
+            for name, call in calls.items():
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), ('two calls differ', name, label)
+                err, floored = stack_errors(got, want[name])
                 errors[name] = max(errors[name], err)
+                bound_ms, bound_by = ctc_bound(T, B, S, name)
+                row = dict(T=T, B=B, S=S, path=plan['path'], warps=plan['warps'],
+                           ring=plan['ring'], state=plan['state'],
+                           ms=time_ms(call), device_ms=device_ms(call),
+                           bound_ms=bound_ms, bound_by=bound_by)
+                row['us_per_step'] = 1e3 * row['device_ms'] / T
+                times[label][name] = row
                 print(f'ctc {name:5s} kernel vs plain  {label:10s} T={T:3d} '
-                      f'B={B:2d} S={S:4d}: max_abs_err {err:.3e} over the '
-                      f'finite entries, {floored} floored on both sides')
+                      f'B={B:2d} S={S:5d}: max_abs_err {err:.3e} over the '
+                      f'finite entries, {floored} floored on both sides, two '
+                      f'calls bit-equal; path {plan["path"]} ({plan["warps"]} '
+                      f'warps, ring {plan["ring"]}, state {plan["state"]}): events '
+                      f'{row["ms"]:.4f} ms, device {row["device_ms"]:.4f} ms, '
+                      f'{row["us_per_step"]:.3f} us per step; bound '
+                      f'{bound_ms:.5f} ms ({bound_by})')
         got, got_g = loss_and_grad(*case, ctc.ctc_loss)
         with plain_ctc():
             want, want_g = loss_and_grad(*case, ctc.ctc_loss)
@@ -1718,6 +1837,7 @@ def check_ctc_kernels(device):
         loss_err = float(((got - want).abs() / want.abs().clamp(min=1e-30))[ok].max())
         grad_err = float((got_g - want_g).abs().max() / want_g.abs().max())
         labelled = ok & (case[3] > 0)
+        assert bool(labelled.any()), label
         wit_loss = float(((got - wit).abs() / wit.abs().clamp(min=1e-30))[ok].max())
         wit_grad = float((got_g - wit_g)[labelled].abs().max()
                          / wit_g[labelled].abs().max())
@@ -1732,15 +1852,17 @@ def check_ctc_kernels(device):
         assert wit_grad <= CTC_WITNESS_TOL['grad'], label
         readings[label] = dict(loss=loss_err, grad=grad_err,
                                witness_loss=wit_loss, witness_grad=wit_grad)
-        if label in ('train step', 'eval'):
-            times[label] = ctc_times(case, em, skip, final)
-            for name, r in times[label].items():
+        if label in CTC_TIMED:
+            for name, r in ctc_library_times(case, em, skip, final).items():
+                times[label][name].update(r)
+                r = times[label][name]
                 print(f'ctc {name:5s} {label:10s} T={T} B={B} S={S}: kernel '
-                      f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f}, F.ctc_loss '
+                      f'{r["ms"]:.4f} ms (device {r["device_ms"]:.4f}), plain '
+                      f'{r["plain_ms"]:.4f}, F.ctc_loss '
                       f'{"forward" if name == "alpha" else "backward"} '
-                      f'{r["library_ms"]:.4f}; bound {r["bound_ms"]:.5f} ms '
-                      f'({r["bound_by"]}); {T} dependent steps, '
-                      f'{1e3 * r["ms"] / T:.2f} us per step')
+                      f'{r["library_ms"]:.4f}')
+    for label in CTC_TIMED:
+        assert all(r['path'] == 'warp' for r in times[label].values()), label
     logits, logit_len, labels, label_len = cases['train step']
     lg = logits.clone().requires_grad_()
     port_ms = time_ms(lambda: torch.autograd.grad(
@@ -1818,15 +1940,24 @@ def ctc_entry(name, errors, times, readings, train, eval_alpha):
         launches_per_eval_batch=1 if name == 'alpha' else 0,
         max_abs_err=errors[name], ms=row['ms'], plain_ms=row['plain_ms'],
         bound_ms=row['bound_ms'], bound_by=row['bound_by'],
-        library_ms=row['library_ms'],
+        library_ms=row['library_ms'], device_ms=row['device_ms'],
+        us_per_step=row['us_per_step'], path=row['path'],
         times_cover=f'one call at the train step\'s shapes, T={row["T"]}, '
-                    f'B={row["B"]}, S={row["S"]}; library_ms F.ctc_loss\'s '
+                    f'B={row["B"]}, S={row["S"]}: ms on CUDA events, '
+                    'device_ms per call of 20 queued behind a spin kernel, '
+                    'us_per_step device_ms / T; library_ms '
+                    'F.ctc_loss\'s '
                     + ('forward' if name == 'alpha' else 'backward')
                     + ' on the same rows',
         checked_at='train step T=75 B=32 S=65, eval T=200 B=16 S=161, '
-                   'T=320 B=8 S=513, T=40 B=4 S=8193; rows with no labels, '
-                   'repeats, padded frames, an impossible alignment',
-        eval_shape=times['eval'][name], loss_readings=readings)
+                   'T=1 B=6 S=17 (warp path); T=260 B=8 S=257, T=320 B=8 '
+                   'S=513, T=40 B=4 S=8193, T=24 B=4 S=24577 (block path, '
+                   'the last with the state in global memory); rows with no '
+                   'labels, repeats, padded frames, an impossible alignment; '
+                   'two calls bit-equal at each',
+        eval_shape=times['eval'][name],
+        per_case={label: t[name] for label, t in times.items()},
+        loss_readings=readings)
 
 
 def gconv_step_sums(rows, name, layout, keys):

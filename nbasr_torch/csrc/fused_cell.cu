@@ -542,6 +542,13 @@ int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
     }
     if (err != cudaSuccess) return err;
   }
+  if (!use_norm && mults) {
+    // without a LayerNorm the last node wrote y; the saved node outputs
+    // hold it too, as the plain version's do
+    err = cudaMemcpyAsync(static_cast<T*>(scratch) + (n_nodes - 1) * numel, y,
+                          numel * sizeof(T), cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
+  }
   if (use_norm) {
     const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
     nbasr_layer_norm<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
@@ -584,8 +591,10 @@ int conv_occupancy(int threads, int smem) {
 // buffers of the activation dtype.  seed (device int32 [2]) turns dropout
 // on, with keep iff bits < threshold and kept values scaled by inv_keep;
 // mults (n_nodes [B, T, C] buffers of the activation dtype), when given,
-// receives each conv or linear node's multiplier for the backward.  Returns
-// a cudaError_t, 0 on success.
+// receives each conv or linear node's multiplier for the backward, and
+// scratch then holds every node's output (without a LayerNorm the last
+// node writes y, copied into its scratch buffer).  Returns a cudaError_t, 0
+// on success.
 extern "C" int nbasr_fused_cell_forward(int bf16, int batch, int t_len, int C, int n_nodes,
                                         const int* desc, const void* const* weights,
                                         const void* const* biases, const void* x, void* scratch,

@@ -1,5 +1,6 @@
 """The CTC recursions on the card: the wrappers of the alpha and beta
-kernels, their plain versions, and the forward-only ``ctc_loss_pallas``.
+kernels, their plain versions, their launch plan, and the forward-only
+``ctc_loss_pallas``.
 
 Port of ``nbasr_tpu/ops/ctc_pallas.py``, with its names: ``_alpha_kernel``
 and ``_beta_kernel`` become ``nbasr_ctc_alpha`` and ``nbasr_ctc_beta`` of
@@ -10,18 +11,22 @@ and the beta kernel in its backward.
 :func:`alpha_scan_pallas` and :func:`beta_scan_pallas` take a CUDA tensor to
 the kernel and a CPU tensor to the plain version (a loop over t of torch
 ops, as the JAX package's scans), and nothing else: no fallback from one to
-the other.  ``LAUNCHES`` counts the calls of each.
+the other.  ``LAUNCHES`` counts the calls of each.  :func:`recursion_plan`
+picks the kernel's path (a warp a row with the state in registers, or a
+block a row for longer rows), pure and tested on the CPU; the kernel checks
+the plan again.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 __all__ = ['alpha_scan_pallas', 'beta_scan_pallas', 'ctc_loss_pallas',
-           'alpha_scan_reference', 'beta_scan_reference', 'LAUNCHES',
-           'reset_launches']
+           'alpha_scan_reference', 'beta_scan_reference', 'recursion_plan',
+           'LAUNCHES', 'reset_launches', 'S_WARP']
 
 _NEG_INF = -1e30
 
@@ -127,17 +132,82 @@ def beta_scan_reference(em, skip_ok, final_states):
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+#: The warp path's longest row.  A row of S states runs on
+#: ceil(S / WARP_OWN) warps of one block, each holding 64 states in
+#: registers (two a lane) of which it owns WARP_OWN; the other 16 it
+#: borrows from its neighbour every WARP_HALO steps (``ctc.cu``).
+S_WARP = 256
+WARP_OWN = 48
+WARP_HALO = 8
+#: The block path: threads of a row's block at most (a thread a state
+#: below), and em rows in its cp.async ring.
+BLOCK_THREADS = 1024
+BLOCK_RING = 2
+#: The shared memory a block of an H100 may opt in to: the default of
+#: :func:`recursion_plan` where no card is asked.
+H100_SHARED_LIMIT = 232448
+PLAN_FIELDS = ('path', 'warps', 'threads', 'ring')
+_PATHS = ('warp', 'block')
+
+
+def recursion_plan(T, B, S, smem_limit=H100_SHARED_LIMIT):
+    """The kernels' launch for em ``[T, B, S]`` on a card whose blocks may
+    opt in to ``smem_limit`` bytes of shared memory; one block a row.
+
+    ``path``: ``'warp'`` for S <= S_WARP, ``warps`` = ceil(S / WARP_OWN)
+    warps a row, the state in registers; ``'block'`` beyond, a block of
+    ``threads`` with em through a cp.async ring of ``ring`` = BLOCK_RING
+    rows and the state (``state``) in shared memory beside it where both
+    fit, else in a global scratch (``'global'``); ``smem`` its dynamic
+    shared memory in bytes.  A row whose ring does not fit is refused
+    (ValueError).  T and B do not change the plan."""
+    if T < 1 or B < 0 or S < 1:
+        raise ValueError(f'no recursion of shape {(T, B, S)}')
+    if S <= S_WARP:
+        warps = -(-S // WARP_OWN)
+        return dict(path='warp', warps=warps, threads=32 * warps, ring=0,
+                    state='registers', smem=0)
+    warps = min(BLOCK_THREADS // 32, -(-S // 32))
+    plan = dict(path='block', warps=warps, threads=32 * warps, ring=BLOCK_RING)
+    for state, words in (('shared', BLOCK_RING + 2), ('global', BLOCK_RING)):
+        if 4 * S * words <= smem_limit:
+            return dict(plan, state=state, smem=4 * S * words)
+    raise ValueError(f'a row of {S} states: its em ring of {BLOCK_RING} rows '
+                     f'does not fit {smem_limit} bytes of shared memory')
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_limit(device):
+    """The shared memory a block of a CUDA device may opt in to, read
+    once."""
+    with torch.cuda.device(device):
+        limit = _build.function('ctc', 'nbasr_ctc_shared_limit', [])()
+    if limit < 0:
+        raise RuntimeError(f'could not read the shared memory limit of {device}')
+    return limit
+
+
+def device_plan(em):
+    """:func:`recursion_plan` of a CUDA tensor's shape on its card."""
+    return recursion_plan(*em.shape, _shared_limit(em.device))
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_ALPHA_ARGS = [ctypes.c_int] * 3 + [_P] * 5
-_BETA_ARGS = [ctypes.c_int] * 3 + [_P] * 6
+_ALPHA_ARGS = [ctypes.c_int] * 3 + [_P] * 6
+_BETA_ARGS = [ctypes.c_int] * 3 + [_P] * 7
 
 
 def _operands(em, masks):
-    """Checks em and casts the ``[B, S]`` masks to contiguous f32 (as the
-    JAX wrappers' ``astype(jnp.float32)``); returns (T, B, S, masks)."""
+    """Checks em and the ``[B, S]`` masks, taken as bool (nonzero is true,
+    as the JAX wrappers' ``astype(jnp.float32)``) and contiguous; returns
+    (T, B, S, masks)."""
     if em.dim() != 3 or em.dtype != torch.float32 or not em.is_contiguous():
         raise ValueError(f'em: expected a contiguous float32 [T, B, S] '
                          f'tensor, got {em.dtype} {tuple(em.shape)}')
@@ -149,18 +219,18 @@ def _operands(em, masks):
         if tuple(m.shape) != (B, S) or m.device != em.device:
             raise ValueError(f'mask: expected [B, S] = {(B, S)} on '
                              f'{em.device}, got {tuple(m.shape)} on {m.device}')
-        out.append(m.to(torch.float32).contiguous())
+        out.append((m if m.dtype == torch.bool else m != 0).contiguous())
     return T, B, S, out
 
 
-def _state(B, S, device):
-    """The scratch of the recursion's state where it does not fit the shared
-    memory the kernel asks for, else None."""
-    limit = _build.function('ctc', 'nbasr_ctc_shared_state_bytes', [],
-                            ctypes.c_longlong)()
-    if 2 * S * 4 <= limit:
-        return None
-    return torch.empty((B, 2, S), dtype=torch.float32, device=device)
+def _launch_args(em, plan):
+    """(plan ints, the global scratch of the state or None)."""
+    ints = (ctypes.c_int * len(PLAN_FIELDS))(
+        _PATHS.index(plan['path']), *(plan[k] for k in PLAN_FIELDS[1:]))
+    _, B, S = em.shape
+    state = (torch.empty((B, 2, S), dtype=torch.float32, device=em.device)
+             if plan['state'] == 'global' else None)
+    return ints, state
 
 
 def _ptr(t):
@@ -174,25 +244,26 @@ def _stream(t):
 def _launch_alpha(em, skip_ok):
     T, B, S, (skip,) = _operands(em, (skip_ok,))
     alphas = torch.empty_like(em)
-    state = _state(B, S, em.device)
+    plan, state = _launch_args(em, device_plan(em))
     fn = _build.function('ctc', 'nbasr_ctc_alpha', _ALPHA_ARGS)
     with torch.cuda.device(em.device):
         err = fn(T, B, S, em.data_ptr(), skip.data_ptr(), alphas.data_ptr(),
-                 _ptr(state), _stream(em))
+                 _ptr(state), ctypes.cast(plan, _P), _stream(em))
     _build.check(err, 'ctc', 'CTC alpha')
     LAUNCHES['alpha']['kernel'] += 1
     return alphas
 
 
 def _launch_beta(em, skip_ok, final_states):
-    T, B, S, (skip_next, final) = _operands(
-        em, (_skip_next(skip_ok), final_states))
+    """The kernel takes the unshifted skip mask and reads skip[s+2]."""
+    T, B, S, (skip, final) = _operands(em, (skip_ok, final_states))
     betas = torch.empty_like(em)
-    state = _state(B, S, em.device)
+    plan, state = _launch_args(em, device_plan(em))
     fn = _build.function('ctc', 'nbasr_ctc_beta', _BETA_ARGS)
     with torch.cuda.device(em.device):
-        err = fn(T, B, S, em.data_ptr(), skip_next.data_ptr(),
-                 final.data_ptr(), betas.data_ptr(), _ptr(state), _stream(em))
+        err = fn(T, B, S, em.data_ptr(), skip.data_ptr(), final.data_ptr(),
+                 betas.data_ptr(), _ptr(state), ctypes.cast(plan, _P),
+                 _stream(em))
     _build.check(err, 'ctc', 'CTC beta')
     LAUNCHES['beta']['kernel'] += 1
     return betas

@@ -1,7 +1,8 @@
-"""A/B of the flagship train step, of its grouped conv kernels or of its
-fused cell forward or backward, between checkouts, on one card.
+"""A/B of the flagship train step, of its grouped conv kernels, of its
+fused cell forward or backward or of its CTC kernels, between checkouts,
+on one card.
 
-    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv | --fused-fwd | --fused-bwd] ROOT_A ROOT_B ROOT_B ROOT_A ...
+    python3 nbasr_torch/tools/step_ab.py [--impl auto | --gconv | --fused-fwd | --fused-bwd | --ctc] ROOT_A ROOT_B ROOT_B ROOT_A ...
 
 For each root in the order given (alternate them: host time drifts between
 processes), a fresh process imports ``nbasr_torch`` from that root, builds
@@ -57,6 +58,19 @@ SHA-256 of every output of one call per width (the training forward's
 node outputs and multipliers too), equal between roots whose kernels
 give the same bits; and ``registers``, the forward library's registers
 and spills.
+
+With ``--ctc`` it times the CTC alpha and beta kernels at four cases of
+phase 12 of this checkout's ``chip_smoke.py`` (its operands, from
+``ctc_cases``, and its timers, on the root's kernels through
+``ctc_pallas._launch_alpha/_launch_beta``): ``train step`` (the loader's
+batch, T=75, B=32, S=65), ``eval`` (T=200, B=16, S=161), ``S=513`` and
+``S=8193``.  For each case and recursion under ``ctc``: ``events_ms``, the
+CUDA-event median of single calls; ``device_ms``, calls queued behind a
+spin kernel; ``us_per_step``, device_ms over T; ``path``, the root's plan
+where it has one (``ctc_pallas.device_plan``); and ``digest``, a SHA-256 of
+the stack of one call, equal between roots whose kernels give the same
+bits.  ``registers``: the ``ctc`` library's registers and spills as ptxas
+reported them.
 
 Only the API that every version of the port has is used (``get_model``,
 ``get_dataloaders``, ``Trainer.init_state/step``, ``_build.build``, the
@@ -213,6 +227,35 @@ def fused_fwd_times():
     return out
 
 
+CTC_CASES = ('train step', 'eval', 'S=513', 'S=8193')
+
+
+def ctc_times():
+    """The root's CTC alpha and beta kernels at four cases of phase 12 of
+    this checkout's chip_smoke.py."""
+    import torch
+    from nbasr_torch.ops import ctc_pallas
+    smoke = load_smoke()
+    dev = torch.device('cuda')
+    out = {'card': smoke.card_line(), 'ctc': {}}
+    cases = smoke.ctc_cases(dev)
+    with torch.no_grad():
+        for label in CTC_CASES:
+            em, skip, final = smoke.ctc_operands(*cases[label])
+            T = em.shape[0]
+            plan = (ctc_pallas.device_plan(em)['path']
+                    if hasattr(ctc_pallas, 'device_plan') else 'block')
+            for name, call in smoke.ctc_kernel_calls(em, skip, final).items():
+                digest = hashlib.sha256(call().cpu().numpy().tobytes())
+                row = dict(T=T, B=em.shape[1], S=em.shape[2], path=plan,
+                           events_ms=smoke.time_ms(call),
+                           device_ms=smoke.device_ms(call),
+                           digest=digest.hexdigest()[:16])
+                row['us_per_step'] = 1e3 * row['device_ms'] / T
+                out['ctc'][f'{label} {name}'] = row
+    return out
+
+
 def profile_calls(calls):
     """({kernel: device ms per step}, {kernel: launches per step}) of STEPS
     runs of every (cells, fn) in ``calls``, fn called ``cells`` times a
@@ -269,7 +312,7 @@ def measure(root, impl):
     from nbasr_torch.training import Trainer
     assert nbasr_torch.__file__.startswith(os.path.abspath(root)), \
         nbasr_torch.__file__
-    built = _build.build()
+    built = _build.build(('ctc',)) if impl == 'ctc' else _build.build()
     if impl == 'gconv':
         return {'root': root, 'impl': impl, **gconv_times(),
                 'registers': registers(built['grouped_conv'][1]),
@@ -281,6 +324,9 @@ def measure(root, impl):
     if impl == 'fused-bwd':
         return {'root': root, 'impl': impl, **fused_bwd_times(),
                 'registers': registers(built['fused_cell_bwd'][1])}
+    if impl == 'ctc':
+        return {'root': root, 'impl': impl, **ctc_times(),
+                'registers': registers(built['ctc'][1])}
     dev = torch.device('cuda')
     model = get_model([[1, 0], [1, 0, 0], [1, 0, 0, 0]], use_rnn=True,
                       dropout_rate=0.2, data_norm=True,
@@ -320,7 +366,8 @@ def main(argv):
     impl = 'auto'
     if argv[:1] == ['--impl']:
         impl, argv = argv[1], argv[2:]
-    elif argv[:1] in (['--gconv'], ['--fused-fwd'], ['--fused-bwd']):
+    elif argv[:1] in (['--gconv'], ['--fused-fwd'], ['--fused-bwd'],
+                      ['--ctc']):
         impl, argv = argv[0][2:], argv[1:]
     if not argv:
         raise SystemExit(__doc__)
@@ -336,11 +383,15 @@ def main(argv):
         print(json.dumps(rows[-1]), flush=True)
     summary = {}
     for row in rows:
+        for case, r in row.get('ctc', {}).items():
+            for k in ('device_ms', 'us_per_step', 'events_ms', 'digest'):
+                summary.setdefault(row['root'], {}).setdefault(
+                    f'{case} {k}', []).append(r[k])
         for k, v in row.items():
             if k not in ('root', 'impl', 'step_ms_blocks', 'per_node',
                          'registers', 'per_width', 'card',
                          'launches_by_name_per_step', 'fused_registers',
-                         'bwd_registers') and \
+                         'bwd_registers', 'ctc') and \
                     not k.endswith('_kernels_ms'):
                 summary.setdefault(row['root'], {}).setdefault(k, []).append(v)
     print(json.dumps({'summary': summary}))
