@@ -86,26 +86,42 @@ prints no result):
 13. eval: Trainer.evaluate with the default beam search (W=12) over the
    synthetic val split with the flagship on the card (one alpha launch per
    batch, no beta, no plain call), and beam_search_decode on the card
-   against the CPU on the same logits.
+   against the CPU on the same logits;
+14. NAS path: the committed db/ folders queried without JAX (the flagship's
+   golden hash, finite PERs); grad_norm, snip and synflow at full width,
+   f32, on the CLI's B=1, T=128 batch, over four architectures that hold
+   all six ops (the all-zero one among them), each through compute_proxy
+   (18 forward and 18 backward fused cell launches a call, one alpha and
+   one beta for the loss proxies, no plain call) and against the plain
+   versions on the card, within a bound read from a witness (each cell
+   output nudged by one ulp); ms a call, first-call planning and model
+   build apart; then proxy_search (synflow, 8 candidates) and the CLI's
+   proxy command on the card.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import functools
+import io
 import json
+import pathlib
 import subprocess
 import time
 
 import numpy as np
 import torch
 
+import nbasr_torch
+from nbasr_torch import cli, search, search_space
 from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
 from nbasr_torch.models.asr import algorithmic_flops, count_params, \
     get_model, logits_length
 from nbasr_torch.models.cell import SearchCell
+from nbasr_torch.models import proxies
 from nbasr_torch.models.layers import conv_padding
 from nbasr_torch.ops import _build, ctc, ctc_pallas, decode, fused_cell, \
     grouped_conv
@@ -114,6 +130,7 @@ from nbasr_torch.ops.grouped_conv import to_split
 from nbasr_torch.search_space import arch_vec_to_names
 from nbasr_torch.serving import StreamingASR, StreamingGreedyDecoder
 from nbasr_torch.training import Trainer, ratios
+from nbasr_torch.utils import flatten
 
 SEED = 0
 FLAGSHIP = [[1, 0], [1, 0, 0], [1, 0, 0, 0]]
@@ -2021,6 +2038,311 @@ def gconv_entry(name, errors, rows, train, logits, grads, nonfinite):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the NAS path (dataset queries, zero-cost proxies, proxy search)
+# ---------------------------------------------------------------------------
+
+GOLDEN_HASH = '36855332a5778e0df5114305bc3ce238'
+DB = pathlib.Path(__file__).resolve().parent / 'db'     # committed folders
+# together they hold all six ops: conv5 (flagship), linear + conv5d2 +
+# conv7d2, conv7 + zero + linear, and zero alone (cells with no live node)
+NAS_ARCHS = {
+    'flagship': FLAGSHIP,
+    'linear+dilated': SPECS['linear+dilated']['arch'],
+    'conv7+zero+linear': SPECS['conv7+zero+linear']['arch'],
+    'all-zero': [[5, 0], [5, 0, 0], [5, 0, 0, 0]],
+}
+NAS_PROXIES = ('grad_norm', 'snip', 'synflow')
+NAS_FRAMES = 128            # the CLI's batch: B=1, T=128, 8 labels
+NAS_SEARCH_CANDIDATES = 8
+# Kernels against the plain versions on the card, on the same model and
+# input.  The two differ only in the cells' f32 sums (the CTC kernels give
+# the plain recursions' bits on this path; the block convs, LayerNorms and
+# head are the same calls).  The forward's output is held to NAS_OUT_TOL
+# of its largest value (readings 5e-6 to 1.3e-5, below what a one-ulp nudge
+# of every cell output does: 5e-6 to 2.3e-5).  The scores and the L2 norm
+# of all gradients, as shares of the plain ones, are held to NAS_RTOL, or
+# to NAS_WITNESS_FACTOR times the witness where that is more: at random
+# init the full-width gradients are set by f32 rounding only to a tenth
+# per tensor, since a one-ulp change of a cell output flips clip gates (at
+# 0 and 20) whose gradients are not small; such a nudge moves single
+# tensors by up to 12% (flagship) and 23% (conv7+zero+linear), as far as
+# the kernels do, and the flagship's grad_norm by 6.8e-4 where the kernels
+# read 3.5e-3 (nbasr_torch/tools/proxy_gap.py).  The witness is the largest
+# share over NAS_WITNESS_SEEDS such nudges of the plain versions (each
+# cell output and the gradient reaching it times 1 +- 2^-23); it reads
+# 7.9e-3 on synflow's gradients for linear+dilated, where the kernels read
+# 7.9e-3 too.
+NAS_OUT_TOL = 1e-4
+NAS_RTOL = 1e-2
+NAS_WITNESS_FACTOR = 2.0
+NAS_WITNESS_SEEDS = 3
+# fused forward and backward launches per proxy call (one per cell), and
+# CTC alpha / beta launches (the loss proxies only)
+NAS_CELL_LAUNCHES = sum(CELLS_PER_BLOCK)
+
+
+def nas_batch(frames, device):
+    """The CLI's seeded batch (``nbasr_torch/cli.py``), on ``device``."""
+    rng = np.random.RandomState(0)
+    feats = rng.randn(1, frames, 80).astype('float32')
+    labels = rng.randint(1, 49, size=(1, 8)).astype('int32')
+    return [torch.as_tensor(a).to(device) for a in (
+        feats, np.asarray([frames], 'int32'), labels,
+        np.asarray([8], 'int32'))]
+
+
+@contextlib.contextmanager
+def timed_plans():
+    """Inside, the fused cell's plan functions add their seconds and calls
+    to the yielded dict (a new cell shape is planned once, then cached)."""
+    saved = fused_cell.forward_plans, fused_cell.backward_plans
+    spent = {'s': 0.0, 'plans': 0}
+
+    def timed(fn):
+        def plan(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent['s'] += time.perf_counter() - t
+                spent['plans'] += 1
+        return plan
+
+    fused_cell.forward_plans, fused_cell.backward_plans = map(timed, saved)
+    try:
+        yield spent
+    finally:
+        fused_cell.forward_plans, fused_cell.backward_plans = saved
+
+
+@contextlib.contextmanager
+def nudged_cells(model, seed, forward=True, backward=True):
+    """A witness only: inside, every SearchCell's output (``forward``) and
+    the gradient that reaches it (``backward``) are multiplied by 1 +-
+    2^-23, one ulp up or down, signs drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def factor(t):
+        sign = torch.randint(0, 2, t.shape, generator=g) * 2 - 1
+        return 1 + 2.0 ** -23 * sign.to(t.device, t.dtype)
+
+    def nudge(module, args, out):
+        if forward:
+            out = out * factor(out)
+        if backward and out.requires_grad:
+            out.register_hook(lambda dy: dy * factor(dy))
+        return out
+
+    hooks = [m.register_forward_hook(nudge) for m in model.modules()
+             if isinstance(m, SearchCell)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def nas_launches():
+    return (dict(fused_cell.LAUNCHES), dict(fused_cell.BACKWARD_LAUNCHES),
+            {k: dict(v) for k, v in ctc_pallas.LAUNCHES.items()})
+
+
+def reset_nas_launches():
+    fused_cell.reset_launches()
+    ctc_pallas.reset_launches()
+
+
+def expected_nas_launches(name, calls=1):
+    cells = {'kernel': calls * NAS_CELL_LAUNCHES, 'plain': 0}
+    ctc_calls = 0 if name == 'synflow' else calls
+    return (cells, dict(cells), {k: {'kernel': ctc_calls, 'plain': 0}
+                                 for k in ('alpha', 'beta')})
+
+
+def add_launches(total, got):
+    """Add ``nas_launches()``'s counts to ``total``: a Counter each for the
+    fused forward and backward and the CTC alpha and beta."""
+    fwd, bwd, ctc_counts = got
+    for acc, part in zip(total, (fwd, bwd, ctc_counts['alpha'],
+                                 ctc_counts['beta'])):
+        acc.update(part)
+
+
+def share(a, b):
+    """|a - b| as a share of |b| (0 where both are 0)."""
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def check_nas_queries():
+    """Phase 14's host part: the committed dataset folders, no JAX."""
+    d = nbasr_torch.from_folder(DB, max_epochs=2)
+    info = d.full_info(FLAGSHIP, seed=d.seeds[0])
+    assert search_space.get_model_hash(FLAGSHIP) == GOLDEN_HASH
+    assert info['model_hash'] == GOLDEN_HASH, info
+    e40 = nbasr_torch.from_folder(DB / 'e40')
+    arch = next(iter(e40.dbs[0].values()))[-1]
+    per = [(e40.val_acc(arch, seed=s), e40.test_acc(arch, seed=s))
+           for s in e40.seeds]
+    assert all(np.isfinite(v) for v in [info['test_per'], *info['val_per'],
+                                        *np.ravel(per)]), (info, per)
+    print(f'nas queries: flagship {info["model_hash"]} in db/ (e2, seed '
+          f'{info["seed"]}): val PER {info["val_per"]}, test PER '
+          f'{info["test_per"]}; db/e40 ({len(e40.dbs[0])} archs x seeds '
+          f'{e40.seeds}) {arch}: (best val, test) PER {per}')
+
+
+@contextlib.contextmanager
+def recorded_pass(model):
+    """Inside, the yielded list receives ``(the model's output, its
+    gradients)`` of every proxy pass."""
+    passes, saved = [], proxies._grads
+    outs = []
+    hook = model.register_forward_hook(lambda m, args, out: outs.append(
+        out.detach()))
+
+    def grads(*args):
+        pairs = saved(*args)
+        passes.append((outs[-1], [g for _, g in pairs if g is not None]))
+        return pairs
+
+    proxies._grads = grads
+    try:
+        yield passes
+    finally:
+        proxies._grads = saved
+        hook.remove()
+
+
+def check_nas_proxy(name, arch_name, batch, device, card):
+    """One proxy on one arch at full width: the main path through
+    ``compute_proxy`` (launches counted), then the same model's score,
+    output and gradients with the kernels against the plain versions and
+    the witness, and times."""
+    arch = NAS_ARCHS[arch_name]
+    kw = {'use_norm': False} if name == 'synflow' else {}
+    reset_nas_launches()
+    with timed_plans() as plans:
+        t0 = time.perf_counter()
+        score = proxies.compute_proxy(name, arch, *batch, seed=SEED,
+                                      device=device)
+        first_s = time.perf_counter() - t0
+    launches = nas_launches()
+    assert launches == expected_nas_launches(name), (name, arch, launches)
+    t0 = time.perf_counter()
+    model = proxies._build_model(arch, SEED, device, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    score_fn = getattr(proxies, f'_score_{name}')
+
+    def run():
+        return score_fn(model, *batch)
+
+    def reading():
+        """(score, output, L2 norm of the gradients) of one pass."""
+        with recorded_pass(model) as passes:
+            value = run()
+        out, grads = passes[-1]
+        return value, out, float(torch.sqrt(sum(
+            g.double().square().sum() for g in grads)))
+
+    kernel, out, gnorm = reading()
+    ms = time_ms(run, runs=5, warmup=1)
+    with plain_cells(), plain_ctc():
+        plain, plain_out, plain_gnorm = reading()
+        plain_ms = time_ms(run, runs=3, warmup=0)
+        witness = 0.0
+        for k in range(NAS_WITNESS_SEEDS):
+            with nudged_cells(model, SEED + 14 + k):
+                nudged, _, nudged_gnorm = reading()
+            assert np.isfinite(nudged), nudged
+            witness = max(witness, share(nudged, plain),
+                          share(nudged_gnorm, plain_gnorm))
+    scale = float(plain_out.abs().max())
+    out_share = float((out - plain_out).abs().max()) / (scale or 1.0)
+    row = dict(proxy=name, arch=arch_name, score=score, kernel=kernel,
+               plain=plain, share=share(kernel, plain),
+               grad_norm_share=share(gnorm, plain_gnorm),
+               out_share=out_share, witness_share=witness,
+               first_call_s=first_s, plan_s=plans['s'], plans=plans['plans'],
+               build_s=build_s, ms=ms, plain_ms=plain_ms)
+    print(f'  {name:9s} {arch_name:18s} {kernel:.7g} (entry point '
+          f'{score:.7g}), plain {plain:.7g}: share {row["share"]:.2e}, '
+          f'gradient norm {row["grad_norm_share"]:.2e}, output '
+          f'{out_share:.2e}, witness {witness:.2e}; {ms:.3f} ms a call '
+          f'(plain {plain_ms:.3f}), first call {first_s:.3f} s of which '
+          f'planning {plans["s"]:.3f} s ({plans["plans"]} plans), model '
+          f'build {build_s:.3f} s [{card}]')
+    assert all(np.isfinite(v) for v in (score, kernel, plain, gnorm,
+                                        plain_gnorm)), row
+    return row, launches
+
+
+def nas_row_ok(row):
+    bound = max(NAS_RTOL, NAS_WITNESS_FACTOR * row['witness_share'])
+    return (row['share'] <= bound and row['grad_norm_share'] <= bound
+            and row['out_share'] <= NAS_OUT_TOL)
+
+
+def check_nas(device):
+    """Phase 14.  Returns the rows and the launches of the main path."""
+    card = card_line()
+    check_nas_queries()
+    batch = nas_batch(NAS_FRAMES, device)
+    total = [collections.Counter() for _ in range(4)]
+    rows = []
+    print(f'nas proxies at full width, f32, B=1, T={NAS_FRAMES} (the CLI '
+          f'batch): score with the kernels, plain versions on the card')
+    for arch_name in NAS_ARCHS:
+        for name in NAS_PROXIES:
+            row, launches = check_nas_proxy(name, arch_name, batch, device,
+                                            card)
+            rows.append(row)
+            add_launches(total, launches)
+    over = [r for r in rows if not nas_row_ok(r)]
+    assert not over, over
+    by = {(r['proxy'], r['arch']): r for r in rows}
+    # at full width synflow's all-ones input clips every block-1 conv
+    # output at 20, so the block LayerNorm hands on its bias, 0, and the
+    # score is 0 for these archs, as the JAX package's is (PERF.md)
+    for arch_name in NAS_ARCHS:
+        assert by['synflow', arch_name]['kernel'] >= \
+            by['synflow', 'all-zero']['kernel'], arch_name
+
+    reset_nas_launches()
+    with timed_plans() as plans:
+        t0 = time.perf_counter()
+        top = search.proxy_search('synflow',
+                                  num_candidates=NAS_SEARCH_CANDIDATES,
+                                  seed=SEED, device=device)
+        search_s = time.perf_counter() - t0
+    launches = nas_launches()
+    assert launches == expected_nas_launches('synflow',
+                                             NAS_SEARCH_CANDIDATES), launches
+    add_launches(total, launches)
+    assert len(top) == min(5, NAS_SEARCH_CANDIDATES), top
+    assert all(np.isfinite(s) for _, s in top), top
+    print(f'proxy_search(synflow, {NAS_SEARCH_CANDIDATES} candidates, '
+          f'seed {SEED}, T=64): {search_s:.3f} s wall, planning '
+          f'{plans["s"]:.3f} s ({plans["plans"]} plans); top 5: {top}')
+
+    reset_nas_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(['proxy', 'synflow', *map(str, flatten(FLAGSHIP)),
+                  '--device', device.type])
+    cli_score = float(out.getvalue())
+    launches = nas_launches()
+    assert launches == expected_nas_launches('synflow'), launches
+    add_launches(total, launches)
+    assert np.isfinite(cli_score)
+    assert share(cli_score, by['synflow', 'flagship']['score']) <= NAS_RTOL, \
+        cli_score
+    print(f'python -m nbasr_torch.cli proxy synflow {FLAGSHIP}: {cli_score}')
+    return rows, total, dict(search_s=search_s, search_plan_s=plans['s'],
+                             top=top, cli=cli_score)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -2067,6 +2389,7 @@ def main():
     ctc_errors, ctc_rows, ctc_readings = timed('phase 12', check_ctc_kernels,
                                                device)
     eval_alpha, evaluation = timed('phase 13', check_eval, device)
+    nas_rows, nas_counts, nas_search = timed('phase 14', check_nas, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -2144,12 +2467,25 @@ def main():
     all_train = {'auto': (fused_launches, train), **grouped_train}
     kernels += [ctc_entry(name, ctc_errors, ctc_rows, ctc_readings, all_train,
                           eval_alpha) for name in ('alpha', 'beta')]
+    # phase 14's main path: 12 compute_proxy calls, the proxy search and
+    # the CLI; no other kernel runs there
+    proxy_path = dict(zip(('fused_cell_forward', 'fused_cell_backward',
+                           'ctc_alpha', 'ctc_beta'), nas_counts))
+    for entry in kernels:
+        if entry['name'] in proxy_path:
+            entry['launches_proxy_path'] = proxy_path[entry['name']]['kernel']
     print(f'train step: {train["step_ms"]:.3f} ms, '
           f'{train["audio_s_per_s"]:.1f} audio-s/s (fused), ' + ', '.join(
               f'{t["step_ms"]:.3f} ms, {t["audio_s_per_s"]:.1f} audio-s/s '
               f'({impl})' for impl, (_, t) in grouped_train.items())
           + f'; serving: {serving["step_ms"]:.3f} ms per device step; eval '
-          f'(beam): {evaluation["eval_ms_per_batch"]:.3f} ms per batch')
+          f'(beam): {evaluation["eval_ms_per_batch"]:.3f} ms per batch; '
+          f'proxies (B=1, T={NAS_FRAMES}, full width): ' + ', '.join(
+              f'{name} {np.median([r["ms"] for r in nas_rows if r["proxy"] == name]):.3f} ms'
+              for name in NAS_PROXIES)
+          + f' a call (median over {len(NAS_ARCHS)} archs), first-call '
+          f'planning {sum(r["plan_s"] for r in nas_rows):.3f} s in all; '
+          f'proxy_search {nas_search["search_s"]:.3f} s')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
