@@ -143,7 +143,14 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, statistics in f32, flax's parameter
-    names; the result keeps the input's dtype."""
+    names; the result keeps the input's dtype.
+
+    On the CPU the two-pass f32 LayerNorm is written out: torch's CPU
+    ``layer_norm`` backward forms the scale gradient as a difference of two
+    sums, which leaves a residue on a constant row (normalised to exactly
+    0) when the gradient reaching it is large, as in ``synflow`` at full
+    width.  On the card ``F.layer_norm`` is one launch and has no such
+    residue."""
 
     def __init__(self, features, epsilon=norm_eps):
         super().__init__()
@@ -152,8 +159,16 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
-                            self.epsilon).to(x.dtype)
+        xf = x.float()
+        if xf.device.type != 'cpu':
+            y = F.layer_norm(xf, (x.shape[-1],), self.scale, self.bias,
+                             self.epsilon)
+        else:
+            mu = xf.mean(dim=-1, keepdim=True)
+            var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+            y = (xf - mu) * torch.rsqrt(var + self.epsilon) * self.scale \
+                + self.bias
+        return y.to(x.dtype)
 
 
 class SplitLayerNorm(LayerNorm):

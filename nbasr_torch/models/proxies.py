@@ -59,11 +59,16 @@ def _sensitivity(grads):
                          if g is not None))
 
 
-def _score_grad_norm(model, feats, fsize, labels, label_size):
-    model.eval()
-    grads = _grads(model, _loss(model, feats, fsize, labels, label_size))
+def _norm(grads):
+    """The L2 norm of all the gradients together."""
     return float(torch.sqrt(sum(g.square().sum() for _, g in grads
                                 if g is not None)))
+
+
+def _score_grad_norm(model, feats, fsize, labels, label_size):
+    model.eval()
+    return _norm(_grads(model, _loss(model, feats, fsize, labels,
+                                     label_size)))
 
 
 def _score_snip(model, feats, fsize, labels, label_size):
@@ -72,14 +77,19 @@ def _score_snip(model, feats, fsize, labels, label_size):
                                             label_size)))
 
 
-def _score_synflow(model, feats, fsize, labels=None, label_size=None):
-    """Replaces ``model``'s parameters by their absolute values, in place."""
-    model.eval()
+def _synflow_objective(model, feats, fsize):
+    """R = Σ outputs on the all-ones input; replaces ``model``'s parameters
+    by their absolute values, in place."""
     with torch.no_grad():
         for p in model.parameters():
             p.abs_()
-    ones = torch.ones_like(feats)
-    return _sensitivity(_grads(model, model(ones, fsize).sum()))
+    return model(torch.ones_like(feats), fsize).sum()
+
+
+def _score_synflow(model, feats, fsize, labels=None, label_size=None):
+    """Replaces ``model``'s parameters by their absolute values, in place."""
+    model.eval()
+    return _sensitivity(_grads(model, _synflow_objective(model, feats, fsize)))
 
 
 def grad_norm(arch, feats, fsize, labels, label_size, seed=0, device='cuda',
