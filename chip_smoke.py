@@ -65,6 +65,9 @@ prints no result):
 10. grouped forward: the flagship's f32 logits with 'pallas' and
    'pallas_split' against 'fused' on the card, same weights, one B=4
    batch; 54 forward kernel launches per model forward, no plain call;
+   the same for the JAX package's XLA lowerings 'chunked', 'masked_dense'
+   and 'native' (stock PyTorch, no kernel of ours) and for the tap-matmul
+   block convs (18 fused cell launches);
 11. grouped train steps: phase 7 for 'pallas' and 'pallas_split' (54
    forward, 54 dx and 54 dW launches per step, no plain call, no fused
    cell launch), beside the fused step of phase 7 in the same call; and one
@@ -101,7 +104,24 @@ prints no result):
    two faults planted in the backward kernel that both checks reject; ms
    a call, first-call planning and model build apart; then proxy_search
    (synflow and grad_norm, 8 candidates, the top 5 in the plain versions'
-   order) and the CLI's proxy command on the card.
+   order) and the CLI's proxy command on the card;
+15. checkpoints, int8 serving, remat: the full-width flagship takes 2 bf16
+   steps (B=32) and nbasr_torch.checkpoint.save_flax writes the JAX
+   trainer's latest.ckpt; a fresh Trainer loads it through Trainer.load
+   (parameters, Adam's step and moments, step count bit-equal), and its
+   next step, on the writer's generator state, is bit-equal to the
+   writer's (18 + 18 fused and 1 + 1 CTC launches, no plain call; cuDNN
+   deterministic for both); write and read MB/s; `python -m
+   nbasr_torch.cli quantize` on the file (its ratio, every q and s equal
+   to quant.quantize_tree here); StreamingASR(quantize=True) streams
+   phase 4's audio in f32 and bf16 (18 fused launches per device step, no
+   plain call), the card's int8 logits against the same int8 port on the
+   CPU within phase 5's 1e-3 and against the f32 stream within a bound
+   read from the CPU; the int8 streamer's resident bytes once its caller
+   drops the model, and the dequantization's share of a device step
+   beside its bound; one bf16 step with remat_cells against one without
+   (gradients bit-equal, 36 forward and 18 backward launches, peak memory
+   of each).
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -110,17 +130,21 @@ error and times; the last line is ``{"ok": true, "device": {...}}``.
 import collections
 import contextlib
 import functools
+import gc
 import io
 import json
 import pathlib
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import nbasr_torch
-from nbasr_torch import cli, search, search_space
+from nbasr_torch import checkpoint, cli, quant, search, search_space
+from nbasr_torch.convert import from_flax
 from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
 from nbasr_torch.models.asr import algorithmic_flops, count_params, \
@@ -441,14 +465,16 @@ def make_audio():
     return audio, valid
 
 
-def serve(model, audio, valid, device, block=7919):
-    """Stream ``audio`` through StreamingASR in uneven blocks, flush and
-    greedy-decode.  Returns (logits [B, n, V] numpy, tokens, lengths,
-    device steps, wall seconds)."""
+def serve(model, audio, valid, device, block=7919, quantize=False):
+    """Stream ``audio`` through StreamingASR (int8 weights with
+    ``quantize``) in uneven blocks, flush and greedy-decode.  Returns
+    (logits [B, n, V] numpy, tokens, lengths, device steps, wall
+    seconds)."""
     if device.type == 'cuda':
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s = StreamingASR(model, chunk_frames=240, batch_size=B, device=device)
+    s = StreamingASR(model, chunk_frames=240, batch_size=B, device=device,
+                     quantize=quantize)
     dec = StreamingGreedyDecoder(B)
     chunks = []
     for lo in range(0, audio.shape[1], block):
@@ -1520,15 +1546,68 @@ def _flagship_features(Bn, frames, seed):
     return feats, sizes
 
 
+def native_state(state):
+    """A state dict of grouped cell kernels in ``'native'``'s ``nn.Conv``
+    layout: ``conv_kernel_grouped [K, ci, C]`` -> ``conv.weight [C, ci,
+    K]``, ``conv_bias`` -> ``conv.bias``."""
+    out = {}
+    for k, v in state.items():
+        if k.endswith('.conv_kernel_grouped'):
+            out[k[:-len('conv_kernel_grouped')] + 'conv.weight'] = \
+                v.permute(2, 1, 0).contiguous()
+        elif k.endswith('.conv_bias'):
+            out[k[:-len('conv_bias')] + 'conv.bias'] = v
+        else:
+            out[k] = v
+    return out
+
+
+# The JAX package's XLA lowerings (stock PyTorch in the port: cuDNN convs
+# and einsum-expanded kernels), and the tap-matmul block conv, held against
+# the fused flagship's logits in phase 10
+XLA_IMPLS = ('chunked', 'masked_dense', 'native')
+
+
 @torch.no_grad()
 def check_grouped_forward(device):
-    """Phase 10.  Returns {impl: (worst share of max|fused|, launches)}."""
+    """Phase 10.  Returns ({impl: (worst share of max|fused|, grouped
+    forward launches)} of 'pallas' and 'pallas_split', {option: (share,
+    fused cell launches)} of the XLA lowerings and tap_matmul)."""
     fused = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
                       generator=torch.Generator().manual_seed(SEED + 2))
     feats, sizes = _flagship_features(CHECK_B, TRAIN_WIDTHS[0][1], SEED + 3)
     feats, sizes = feats.to(device), sizes.to(device)
     want = fused(feats, sizes)
     scale = float(want.abs().max())
+    options = {}
+    for impl in XLA_IMPLS + ('tap_matmul',):
+        kw = ({'block_conv_impl': 'tap_matmul'} if impl == 'tap_matmul'
+              else {'grouped_impl': impl})
+        model = get_model(FLAGSHIP, use_rnn=True, data_norm=True,
+                          device=device, **kw)
+        state = fused.state_dict()
+        model.load_state_dict(native_state(state) if impl == 'native'
+                              else state)
+        grouped_conv.reset_launches()
+        fused_cell.reset_launches()
+        got = model(feats, sizes)
+        torch.cuda.synchronize()
+        cells = fused_cell.LAUNCHES['kernel']
+        assert all(v == {'kernel': 0, 'plain': 0}
+                   for v in grouped_conv.LAUNCHES.values())
+        assert fused_cell.LAUNCHES['plain'] == 0
+        # the lowerings run no kernel of ours; tap_matmul keeps the fused
+        # cells, 18 launches
+        assert cells == (18 if impl == 'tap_matmul' else 0), (impl, cells)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        print(f'{"block conv" if impl == "tap_matmul" else "cell lowering"} '
+              f'[{impl}]: f32 logits vs fused on the card, B={CHECK_B} '
+              f'T={TRAIN_WIDTHS[0][1]}: max_abs_err {err:.3e}, max|fused| '
+              f'{scale:.3f} (tol {GROUPED_LOGITS_TOL * scale:.3e}); fused '
+              f'cell launches {cells}')
+        assert err <= GROUPED_LOGITS_TOL * scale, (impl, err, scale)
+        options[impl] = (err / scale, cells)
     out = {}
     for impl in ('pallas', 'pallas_split'):
         model = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
@@ -1549,7 +1628,7 @@ def check_grouped_forward(device):
               f'launches {launches}')
         assert err <= GROUPED_LOGITS_TOL * scale, (impl, err, scale)
         out[impl] = (err / scale, launches['forward']['kernel'])
-    return out
+    return out, options
 
 
 @contextlib.contextmanager
@@ -2472,6 +2551,313 @@ def check_nas(device):
     return rows, total, dict(searches=searches, cli=cli_scores)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: a JAX-format checkpoint round trip, the resumed step, the CLI's
+# quantize, int8 serving and remat_cells
+# ---------------------------------------------------------------------------
+
+# int8 stream against the f32 stream of the same weights, as relative L2
+# error of the logits.  On the CPU at full width (four seeded 8 s streams,
+# chunk_frames=240) the random-init flagship read 0.301 with the seed-0
+# init this phase starts from and 0.144 with seed 1 (a CPU rehearsal of
+# this phase, its 2 steps at B=4, read 0.245): per-channel int8 moves
+# each weight by up to half a step, and the random-weight flagship carries
+# that ~1.2x a cell.  Twice the seed-0 reading catches a broken int8 path
+# (a wrong scale axis or layout lands near 1 and above), not that drift.
+INT8_SERVE_CPU_READING = 0.301
+INT8_SERVE_TOL = 2 * INT8_SERVE_CPU_READING
+# bytes of a flagship checkpoint's three f32 copies (params, mu, nu), for
+# the size check (msgpack headers add ~0.1%)
+CKPT_BYTES = 3 * 4 * 26_339_349
+
+
+def _train_model(device, seed, **kw):
+    return get_model(FLAGSHIP, use_rnn=True, dropout_rate=DROPOUT,
+                     data_norm=True, compute_dtype=torch.bfloat16,
+                     device=device, generator=torch.Generator().manual_seed(
+                         seed), **kw)
+
+
+def _bit_equal_states(a, b):
+    """Names where two trainers' parameters or Adam states differ by a bit."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    bad = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    for n in pa:
+        sa, sb = a.optimizer.state[pa[n]], b.optimizer.state[pb[n]]
+        bad += [f'{n}.{k}' for k in ('step', 'exp_avg', 'exp_avg_sq')
+                if not torch.equal(sa[k].cpu(), sb[k].cpu())]
+    return bad
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block convs (some backward
+    algorithms add partial sums in a racy order), around two runs that must
+    agree bit for bit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def check_checkpoint(device, root, card):
+    """Phase 15, part 1: 2 bf16 steps, ``save_flax``, ``Trainer.load`` into
+    a fresh trainer, bit-equal states, then one step each with the same
+    generator state: bit-equal again, 18 + 18 fused and 1 + 1 CTC launches
+    in the resumed step.  Returns (the checkpoint path, readings, launches
+    of the resumed step)."""
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batches = list(loaders[1].full)
+    writer = Trainer(loaders, device=device)
+    writer.init_state(_train_model(device, SEED), seed=SEED)
+    for i in range(2):
+        writer.step(batches[i % len(batches)], lr=1e-4)
+    path = root / 'latest.ckpt'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_flax(writer, path, epoch=1, best_val=1.0)
+    write_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    assert CKPT_BYTES < size < 1.01 * CKPT_BYTES, size
+    reader = Trainer(loaders, device=device)
+    reader.init_state(_train_model(device, SEED + 7), seed=SEED + 7)
+    t0 = time.perf_counter()
+    meta = reader.load(path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    assert meta == {'epoch': 1, 'best_val': 1.0}, meta
+    assert reader.step_count == writer.step_count == 2
+    bad = _bit_equal_states(writer, reader)
+    assert not bad, bad[:5]
+    mb = size / 1e6
+    print(f'checkpoint: save_flax {mb:.1f} MB in {write_s:.3f} s '
+          f'({mb / write_s:.1f} MB/s), Trainer.load (flax) {read_s:.3f} s '
+          f'({mb / read_s:.1f} MB/s); params, Adam step/exp_avg/exp_avg_sq '
+          f'and step count bit-equal [{card}]')
+
+    # the resumed step against the writer's next step, same masks
+    reader.generator.set_state(writer.generator.get_state())
+    with deterministic_cudnn():
+        nxt = batches[2 % len(batches)]
+        writer.step(nxt, lr=1e-4)
+        torch.cuda.synchronize()
+        fused_cell.reset_launches()
+        ctc_pallas.reset_launches()
+        m = reader.step(nxt, lr=1e-4)
+        torch.cuda.synchronize()
+    launches = {'fused_forward': dict(fused_cell.LAUNCHES),
+                'fused_backward': dict(fused_cell.BACKWARD_LAUNCHES),
+                **{f'ctc_{k}': dict(v) for k, v in ctc_pallas.LAUNCHES.items()}}
+    print(f'resumed step: launches {launches}, loss {m["ctc_loss"]:.4f}')
+    for name, counts in launches.items():
+        want = 1 if name.startswith('ctc') else 18
+        assert counts == {'kernel': want, 'plain': 0}, (name, counts)
+    bad = _bit_equal_states(writer, reader)
+    assert not bad, bad[:5]
+    assert np.isfinite(m['ctc_loss']) and reader.nonfinite_steps == 0
+    print('resumed step: parameters and Adam state bit-equal to the '
+          "writer's next step")
+    return path, dict(write_s=write_s, read_s=read_s, mb=mb), launches
+
+
+def check_quantize_cli(path, card):
+    """Phase 15, part 2: ``python -m nbasr_torch.cli quantize`` on the
+    checkpoint; its JSON line, and every q and s equal to
+    ``quant.quantize_tree`` run here on the file's parameters.  Returns
+    (the file's parameters, the JSON line)."""
+    out = path.with_name('latest.int8.npz')
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, '-m', 'nbasr_torch.cli', 'quantize', str(path),
+         '--out', str(out)], cwd=pathlib.Path(__file__).resolve().parent,
+        check=True, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    params = from_flax({'params': checkpoint.unpackb(path.read_bytes())[
+        'params']})
+    want = quant.quantize_tree(params)
+    got = quant.load_quantized(out)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        if isinstance(w, dict):
+            assert torch.equal(got[name]['q'], w['q']), name
+            assert torch.equal(got[name]['s'], w['s']), name
+        else:
+            assert torch.equal(got[name], w), name
+    print(f'python -m nbasr_torch.cli quantize: {line} ({wall:.1f} s with '
+          f'the interpreter start); every q and s equal to quantize_tree '
+          f'[{card}]')
+    assert 0.25 <= line['ratio'] <= 0.27, line
+    assert line['int8_bytes'] == quant.quantized_size_bytes(want)[0]
+    return params, line
+
+
+def _serving_model(params, device, dtype=torch.float32):
+    model = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
+                      compute_dtype=dtype)
+    missing, unexpected = model.load_state_dict(params, strict=False)
+    assert not unexpected and set(missing) == {'data_norm.mean',
+                                               'data_norm.variance'}
+    return model
+
+
+def check_int8_serving(params, device, card):
+    """Phase 15, part 3: ``StreamingASR(quantize=True)`` on phase 4's
+    streams in f32 and bf16 (18 fused launches a device step, no plain
+    call), the card against the same int8 port on the CPU, int8 against f32
+    on the card; the streamer's resident bytes after the caller drops its
+    model; the dequantization's share of a device step.  Returns the
+    readings and the f32 launches."""
+    audio, valid = make_audio()
+    model = _serving_model(params, device)
+    f32, *_ = serve(model, audio, valid, device)
+    serve(model, audio, valid, device, quantize=True)        # warm-up
+    fused_cell.reset_launches()
+    q32, tokens, lengths, steps, wall = serve(model, audio, valid, device,
+                                              quantize=True)
+    launches = dict(fused_cell.LAUNCHES)
+    assert launches == {'kernel': 18 * steps, 'plain': 0}, (launches, steps)
+    assert np.isfinite(q32).all() and q32.shape == f32.shape
+    audio_s = float(valid.sum()) / SAMPLE_RATE
+    cpu = torch.device('cpu')
+    want, _, want_lengths, _, cpu_wall = serve(
+        _serving_model(params, cpu), audio, valid, cpu, quantize=True)
+    np.testing.assert_array_equal(lengths, want_lengths)
+    err = float(np.abs(q32 - want).max())
+    scale = float(np.abs(want).max())
+    rel = float(np.linalg.norm(q32 - f32) / np.linalg.norm(f32))
+    print(f'int8 serving f32: {steps} device steps, launches {launches}, '
+          f'wall {wall:.4f} s, {1e3 * wall / steps:.3f} ms per device step '
+          f'(host included), {audio_s / wall:.1f} audio-s/s; card vs cpu '
+          f'int8 logits max_abs_err={err:.3e} max|cpu|={scale:.3f} '
+          f'(tol {SERVE_TOL * scale:.3e}, cpu run {cpu_wall:.1f} s); int8 vs '
+          f'f32 relative L2 {rel:.4f} (tol {INT8_SERVE_TOL}: 2 x the CPU '
+          f'reading {INT8_SERVE_CPU_READING}) [{card}]')
+    assert err <= SERVE_TOL * scale
+    assert rel <= INT8_SERVE_TOL
+
+    low = _serving_model(params, device, torch.bfloat16)
+    serve(low, audio, valid, device, quantize=True)          # warm-up
+    fused_cell.reset_launches()
+    qb16, _, _, bf16_steps, bf16_wall = serve(low, audio, valid, device,
+                                              quantize=True)
+    assert fused_cell.LAUNCHES == {'kernel': 18 * bf16_steps, 'plain': 0}
+    rel_bf16 = float(np.linalg.norm(qb16 - q32) / np.linalg.norm(q32))
+    print(f'int8 serving bf16: wall {bf16_wall:.4f} s, {audio_s / bf16_wall:.1f} '
+          f'audio-s/s; vs int8 f32 relative L2 {rel_bf16:.4f} (tol '
+          f'{BF16_SERVE_TOL}) [{card}]')
+    assert np.isfinite(qb16).all() and rel_bf16 <= BF16_SERVE_TOL
+    del low
+
+    # resident weights: the int8 streamer alone, its caller's model dropped
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = _serving_model(params, device)
+    f32_bytes = torch.cuda.memory_allocated() - base
+    s = StreamingASR(model, chunk_frames=240, batch_size=B, device=device,
+                     quantize=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() - base
+    qbytes = sum(t['q'].numel() + 4 * t['s'].numel() if isinstance(t, dict)
+                 else t.numel() * t.element_size()
+                 for t in s.qparams.values())
+    win = torch.randn((B, s.Wf, 80), generator=torch.Generator().manual_seed(
+        SEED)).to(device)
+    mask = torch.ones((B, s.Wf), dtype=torch.bool, device=device)
+    step_ms = time_ms(lambda: s._device_step(win, mask, s.hl // s.ts,
+                                             s._init_carry()), runs=20)
+    deq_ms = time_ms(lambda: quant.dequantize_tree(s.qparams), runs=20)
+    deq_dev_ms = device_ms(lambda: quant.dequantize_tree(s.qparams))
+    n_q = sum(t['q'].numel() for t in s.qparams.values()
+              if isinstance(t, dict))
+    n_s = sum(t['s'].numel() for t in s.qparams.values()
+              if isinstance(t, dict))
+    deq_bytes = n_q + 4 * n_s + 4 * n_q          # int8 + scales in, f32 out
+    deq_bound = 1e3 * deq_bytes / MEM_BYTES_S
+    print(f'int8 streamer resident: {resident / 1e6:.3f} MB on the card '
+          f'(its tensors {qbytes / 1e6:.3f} MB) against the f32 model\'s '
+          f'{f32_bytes / 1e6:.3f} MB; device step {step_ms:.3f} ms (CUDA '
+          f'events, median of 20), of which dequantization {deq_ms:.4f} ms '
+          f'on events, {deq_dev_ms:.4f} ms device time '
+          f'({deq_ms / step_ms:.1%}), bound {deq_bound:.4f} ms '
+          f'({deq_bytes / 1e6:.1f} MB at {MEM_BYTES_S / 1e12:.2f} TB/s) '
+          f'[{card}]')
+    assert resident < 0.3 * f32_bytes, (resident, f32_bytes)
+    return dict(steps=steps, wall=wall, audio_s_per_s=audio_s / wall,
+                ms_per_step=1e3 * wall / steps, card_vs_cpu_share=err / scale,
+                int8_vs_f32_rel_l2=rel, bf16_rel_l2=rel_bf16,
+                resident_mb=resident / 1e6, f32_mb=f32_bytes / 1e6,
+                step_ms=step_ms, dequant_ms=deq_ms,
+                dequant_device_ms=deq_dev_ms, dequant_bound_ms=deq_bound,
+                bf16_audio_s_per_s=audio_s / bf16_wall), launches['kernel']
+
+
+def check_remat(device, card):
+    """Phase 15, part 4: one fused bf16 step's gradients with
+    ``remat_cells`` against one without, the same weights and generator
+    seed: bit-equal, 36 forward and 18 backward fused launches, and the
+    peak memory of each."""
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batch = next(iter(loaders[1].full))
+    out = {}
+    for remat in (False, True):
+        trainer = Trainer(loaders, device=device)
+        trainer.init_state(_train_model(device, SEED, remat_cells=remat),
+                           seed=SEED)
+        trainer.gradients(batch)                    # warm-up: plans
+        trainer.generator.manual_seed(SEED + 1)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_cell.reset_launches()
+        with deterministic_cudnn():
+            grads, m = trainer.gradients(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[remat] = (grads, m, dict(fused_cell.LAUNCHES),
+                      dict(fused_cell.BACKWARD_LAUNCHES), peak)
+        del trainer
+    (g0, m0, f0, b0, p0), (g1, m1, f1, b1, p1) = out[False], out[True]
+    print(f'remat_cells: launches forward {f1} backward {b1} (without: '
+          f'{f0} {b0}); peak memory of the step {p1 / 1e9:.3f} GB against '
+          f'{p0 / 1e9:.3f} GB without; loss {m1["ctc_loss"]:.6f} / '
+          f'{m0["ctc_loss"]:.6f} [{card}]')
+    assert f1 == {'kernel': 36, 'plain': 0} and b1 == {'kernel': 18, 'plain': 0}
+    assert f0 == {'kernel': 18, 'plain': 0} and b0 == b1
+    assert m0 == m1
+    bad = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    assert not bad, bad[:5]
+    print('remat_cells: every gradient bit-equal to the step without')
+    return dict(peak_gb=p1 / 1e9, peak_gb_without=p0 / 1e9), (f1, b1)
+
+
+def check_phase15(device):
+    """Phase 15.  Returns (readings, launches by path)."""
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, ckpt, resumed = check_checkpoint(device, pathlib.Path(tmp),
+                                               card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, line = check_quantize_cli(path, card)
+    serving, int8_launches = check_int8_serving(params, device, card)
+    remat, remat_launches = check_remat(device, card)
+    return (dict(checkpoint=ckpt, quantize=line, int8_serving=serving,
+                 remat=remat, card=card),
+            dict(resumed=resumed, int8_forward=int8_launches,
+                 remat=remat_launches))
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -2511,7 +2897,8 @@ def main():
     train_grads = timed('phase 8', check_train_cpu, device)
     gconv_errors, gconv_rows, nonfinite = timed('phase 9', check_gconv_kernels,
                                                 device)
-    grouped_logits = timed('phase 10', check_grouped_forward, device)
+    grouped_logits, model_options = timed('phase 10', check_grouped_forward,
+                                          device)
     grouped_train = {impl: timed(f'phase 11 {impl}', check_train_step, device,
                                  impl) for impl in ('pallas', 'pallas_split')}
     grouped_grads = timed('phase 11 gradients', check_grouped_grads, device)
@@ -2519,6 +2906,7 @@ def main():
                                                device)
     eval_alpha, evaluation = timed('phase 13', check_eval, device)
     nas_rows, nas_counts, nas_search = timed('phase 14', check_nas, device)
+    p15, p15_launches = timed('phase 15', check_phase15, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -2603,6 +2991,25 @@ def main():
     for entry in kernels:
         if entry['name'] in proxy_path:
             entry['launches_proxy_path'] = proxy_path[entry['name']]['kernel']
+    # phase 15's paths: the step resumed from a flax checkpoint, int8
+    # serving (f32), and the remat_cells step
+    resumed = p15_launches['resumed']
+    remat_fwd, remat_bwd = p15_launches['remat']
+    phase15 = {
+        'fused_cell_forward': dict(
+            resumed_step=resumed['fused_forward']['kernel'],
+            int8_serving=p15_launches['int8_forward'],
+            remat_step=remat_fwd['kernel']),
+        'fused_cell_backward': dict(
+            resumed_step=resumed['fused_backward']['kernel'],
+            remat_step=remat_bwd['kernel']),
+        'ctc_alpha': dict(resumed_step=resumed['ctc_alpha']['kernel']),
+        'ctc_beta': dict(resumed_step=resumed['ctc_beta']['kernel'])}
+    for entry in kernels:
+        if entry['name'] in phase15:
+            entry['launches_phase15'] = phase15[entry['name']]
+    kernels[0]['model_options_logits_vs_fused_share'] = {
+        k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '
           f'{train["audio_s_per_s"]:.1f} audio-s/s (fused), ' + ', '.join(
               f'{t["step_ms"]:.3f} ms, {t["audio_s_per_s"]:.1f} audio-s/s '
@@ -2615,7 +3022,12 @@ def main():
           + f' a call (median over {len(NAS_ARCHS)} archs), first-call '
           f'planning {sum(r["plan_s"] for r in nas_rows):.3f} s in all; '
           + ', '.join(f'proxy_search({k}) {v["wall_s"]:.3f} s'
-                      for k, v in nas_search['searches'].items()))
+                      for k, v in nas_search['searches'].items())
+          + f'; int8 serving: {p15["int8_serving"]["ms_per_step"]:.3f} ms '
+          f'per device step, {p15["int8_serving"]["audio_s_per_s"]:.1f} '
+          f'audio-s/s, {p15["int8_serving"]["resident_mb"]:.3f} MB resident; '
+          f'checkpoint write {p15["checkpoint"]["write_s"]:.3f} s, read '
+          f'{p15["checkpoint"]["read_s"]:.3f} s')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,4 @@
-"""Subcommand CLI of the port: query / hash / viz / proxies.
+"""Subcommand CLI of the port: query / hash / viz / proxies / quantize.
 
 Counterpart of ``nbasr_tpu/cli.py``, with its parser:
 
@@ -6,11 +6,14 @@ Counterpart of ``nbasr_tpu/cli.py``, with its parser:
     python -m nbasr_torch.cli hash 1 0 1 0 0 1 0 0 0
     python -m nbasr_torch.cli viz 1 0 1 0 0 1 0 0 0 --out graphs/
     python -m nbasr_torch.cli proxy synflow 1 0 1 0 0 1 0 0 0
+    python -m nbasr_torch.cli quantize results/jax/<run>/best.ckpt
 
 ``proxy`` runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given.  ``sweep``, ``info``, ``benchpass`` and
-``quantize`` take the JAX package's arguments and raise
-NotImplementedError until the port has their modules.
+``--device cpu`` is given.  ``quantize`` reads a checkpoint of either
+trainer (the JAX trainer's flax msgpack without flax), int8-quantizes its
+parameters and writes the JAX package's ``<ckpt>.int8.npz``; it runs on the
+host.  ``sweep``, ``info`` and ``benchpass`` take the JAX package's
+arguments and raise NotImplementedError until the port has their modules.
 """
 
 import argparse
@@ -19,7 +22,7 @@ import json
 #: The subcommands the port does not run yet, with the ROADMAP.md queue 1
 #: item that brings each.
 _LATER = {'sweep': 'Parallel and sweeps', 'info': 'Parallel and sweeps',
-          'benchpass': 'Parallel and sweeps', 'quantize': 'int8 PTQ'}
+          'benchpass': 'Parallel and sweeps'}
 
 
 def _arch(ints):
@@ -103,6 +106,30 @@ def main(argv=None):
         lsize = np.asarray([8], 'int32')
         print(compute_proxy(args.name, _arch(args.model), feats, fsize,
                             labels, lsize, device=args.device))
+    elif args.cmd == 'quantize':
+        from .quant import quantize_tree, quantized_size_bytes, save_quantized
+        qtree = quantize_tree(_checkpoint_params(args.ckpt))
+        out = args.out or args.ckpt + '.int8.npz'
+        save_quantized(out, qtree)
+        qb, fb = quantized_size_bytes(qtree)
+        print(json.dumps({'out': out, 'int8_bytes': qb, 'f32_bytes': fb,
+                          'ratio': round(qb / fb, 3)}))
+
+
+def _checkpoint_params(path):
+    """``{name: tensor}`` of a trainer checkpoint's parameters: the JAX
+    trainer's (flax msgpack) or the port's (``torch.save``)."""
+    import pathlib
+    import torch
+    from .checkpoint import is_flax_checkpoint, unpackb
+    from .convert import from_flax, to_flax
+    data = pathlib.Path(path).read_bytes()
+    if is_flax_checkpoint(data[:1]):
+        params = unpackb(data)['params']
+    else:      # the frozen data-norm stats are no parameters
+        params = to_flax(torch.load(path, map_location='cpu')['model'])[
+            'params']
+    return from_flax({'params': params})
 
 
 if __name__ == '__main__':

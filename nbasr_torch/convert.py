@@ -3,19 +3,25 @@
 A flax tree ``{'params': {...}, 'stats': {...}}`` of arrays maps to a flat
 state dict whose keys are the flax paths joined with ``'.'`` — the port's
 modules carry the JAX package's module and parameter names — with one
-layout change: a dense block conv's ``block{i}_conv/conv/kernel`` ``[K, cin,
-cout]`` (WIO) becomes ``block{i}_conv.conv.weight`` ``[cout, cin, K]``
-(``bias`` likewise becomes ``.conv.bias``).  Everything else keeps its
-layout: compact grouped kernels ``[K, ci, C]``, dense kernels ``[in, out]``,
-the LSTM's Keras layout (gate order i, f, g, o).  The ``stats`` collection
-(``data_norm/mean``, ``data_norm/variance``) becomes the MVN buffers.
-Both directions are exact copies.
+layout change: an ``nn.Conv``'s ``.../conv/kernel`` ``[K, cin, cout]``
+(WIO; ``cin`` per group) becomes ``.../conv.weight`` ``[cout, cin, K]``
+(``bias`` likewise becomes ``.conv.bias``).  Those are the dense block
+convs (``block{i}_conv/conv``) and a cell's conv nodes where the JAX
+package runs ``nn.Conv``: ``grouped_impl='native'``, and every unfused
+path at ``cell_groups=1`` (``node{n}_conv5/conv`` ...).  Everything else
+keeps its layout: compact grouped kernels ``[K, ci, C]``, dense kernels
+``[in, out]``, the LSTM's Keras layout (gate order i, f, g, o).  The
+``stats`` collection (``data_norm/mean``, ``data_norm/variance``) becomes
+the MVN buffers.  Adam's moments (optax ``mu``/``nu``, trees shaped like
+``params``) map the same way (:func:`adam_from_flax`,
+:func:`adam_to_flax`).  Both directions are exact copies.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['from_flax', 'to_flax']
+__all__ = ['from_flax', 'to_flax', 'adam_from_flax', 'adam_to_flax',
+           'is_conv_param']
 
 _STATS = ('data_norm.mean', 'data_norm.variance')
 
@@ -29,10 +35,12 @@ def _flatten(tree, prefix=''):
             yield key, np.asarray(v)
 
 
-def _is_block_conv(key):
-    """(whether ``key`` is a parameter of a dense block conv, its leaf name)."""
+def is_conv_param(key):
+    """(whether ``key`` is a parameter of an ``nn.Conv`` — a block conv, or
+    a cell's conv node on the ``'native'`` or a ``cell_groups=1`` unfused
+    path — and its leaf name)."""
     head, _, leaf = key.rpartition('.')
-    return head.endswith('_conv.conv'), leaf
+    return head == 'conv' or head.endswith('.conv'), leaf
 
 
 def from_flax(variables):
@@ -40,7 +48,7 @@ def from_flax(variables):
     state = {}
     for collection in ('params', 'stats'):
         for key, arr in _flatten(variables.get(collection, {})):
-            block_conv, leaf = _is_block_conv(key)
+            block_conv, leaf = is_conv_param(key)
             if block_conv and leaf == 'kernel':
                 key = key[:-len('kernel')] + 'weight'
                 arr = arr.transpose(2, 1, 0)
@@ -54,7 +62,7 @@ def to_flax(state_dict):
     out = {'params': {}}
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy()
-        block_conv, leaf = _is_block_conv(key)
+        block_conv, leaf = is_conv_param(key)
         if block_conv and leaf == 'weight':
             key = key[:-len('weight')] + 'kernel'
             arr = arr.transpose(2, 1, 0)
@@ -64,3 +72,20 @@ def to_flax(state_dict):
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
     return out
+
+
+def adam_from_flax(adam):
+    """An optax ``scale_by_adam`` state ``{'count', 'mu', 'nu'}`` ->
+    ``(count, {name: exp_avg}, {name: exp_avg_sq})`` in the state dict's
+    names and layouts."""
+    return (int(np.asarray(adam['count'])),
+            from_flax({'params': adam['mu']}),
+            from_flax({'params': adam['nu']}))
+
+
+def adam_to_flax(count, exp_avg, exp_avg_sq):
+    """Inverse of :func:`adam_from_flax`: ``count`` int32, the moments as
+    trees shaped like flax's ``params``."""
+    return {'count': np.asarray(count, np.int32),
+            'mu': to_flax(exp_avg)['params'],
+            'nu': to_flax(exp_avg_sq)['params']}

@@ -10,9 +10,13 @@ Counterpart of ``nbasr_tpu/models/asr.py``:
 Forward and backward: every SearchCell runs the fused cell kernels
 (``grouped_impl`` ``'auto'``), or each of its conv nodes the grouped conv
 kernels (``'pallas'``; ``'pallas_split'`` with each block's cell stack in
-the split layout ``[B, C // G, T, G]``), with the cells' dropout
-(``cell_dropout``, 0.2) and the pre-LSTM dropout (``dropout_rate``) in
-training mode.  Like the JAX model's ``train=False``
+the split layout ``[B, C // G, T, G]``) or the JAX package's XLA lowerings
+in stock PyTorch (``'chunked'``, ``'masked_dense'``, ``'native'``), with
+the cells' dropout (``cell_dropout``, 0.2) and the pre-LSTM dropout
+(``dropout_rate``) in training mode.  ``block_conv_impl='tap_matmul'``
+runs the block convs as shifted matmuls; ``remat_cells=True`` recomputes
+each cell's forward in the backward (``torch.utils.checkpoint``) instead
+of keeping what it saves.  Like the JAX model's ``train=False``
 default, a model is built in eval mode; ``.train()`` turns dropout on, and
 a training call then draws every dropout decision from the
 ``torch.Generator`` it is given.  Parameter counts for the README arch
@@ -23,6 +27,7 @@ a training call then draws every dropout decision from the
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.grouped_conv import from_split, to_split
 from ..search_space import arch_vec_to_names
@@ -72,14 +77,10 @@ class ASRModel(nn.Module):
                  block_strides=_BLOCK_STRIDES, block_filters=_BLOCK_FILTERS,
                  cells_per_block=_CELLS_PER_BLOCK, cell_groups=100,
                  rnn_units=500, init_scheme='scaled', grouped_impl='auto',
-                 block_conv_impl='auto', branch_semantics='canonical',
-                 apply_dilation=True, pad_math='torch', norm_epsilon=norm_eps,
-                 generator=None):
+                 block_conv_impl='auto', remat_cells=False,
+                 branch_semantics='canonical', apply_dilation=True,
+                 pad_math='torch', norm_epsilon=norm_eps, generator=None):
         super().__init__()
-        if block_conv_impl not in ('auto', 'conv'):
-            raise NotImplementedError(
-                f'block_conv_impl={block_conv_impl!r} is not ported yet '
-                f"(see ROADMAP.md); 'auto' and 'conv' run the conv lowering")
         generator = generator or torch.Generator().manual_seed(0)
         self.arch_desc = tuple(tuple(n) for n in arch_desc)
         self.use_rnn = use_rnn
@@ -91,6 +92,7 @@ class ASRModel(nn.Module):
         self.cells_per_block = tuple(cells_per_block)
         self.cell_groups = cell_groups
         self.grouped_impl = grouped_impl
+        self.remat_cells = remat_cells
         self.num_classes = num_classes
         self.rnn_units = rnn_units
         self.data_norm = (None if data_mean is None else MeanVarianceNorm(
@@ -101,7 +103,8 @@ class ASRModel(nn.Module):
                 block_kernels, block_strides, block_filters, cells_per_block)):
             self.add_module(f'block{i}_conv', PadConvRelu(
                 cin, filters, kernel, strides=stride, pad_math=pad_math,
-                init_scheme=init_scheme, generator=generator))
+                init_scheme=init_scheme, generator=generator,
+                impl=block_conv_impl))
             self.add_module(f'block{i}_norm', LayerNorm(filters, norm_epsilon))
             for j in range(cells):
                 self.add_module(f'block{i}_cell{j}', SearchCell(
@@ -132,7 +135,9 @@ class ASRModel(nn.Module):
         ``'head'`` takes that output and runs LSTM + Dense, threading the
         LSTM ``(c, h)`` carry through ``rnn_carry``/``return_rnn_carry``.
         In training mode ``generator`` (a CPU ``torch.Generator``) supplies
-        the cells' dropout seeds and the pre-LSTM dropout mask."""
+        the cells' dropout seeds and the pre-LSTM dropout mask; with
+        ``remat_cells`` each cell's seed is drawn before its checkpointed
+        call, so the recomputation uses the same masks and draws none."""
         if stage not in ('full', 'encode', 'head'):
             raise ValueError(f'unknown stage: {stage!r}')
         x = features
@@ -148,14 +153,21 @@ class ASRModel(nn.Module):
                 x = self.data_norm(x, mask=mask)
             # 'pallas_split' keeps each block's cell stack in the split
             # layout: one conversion each way per block
-            split = self.grouped_impl == 'pallas_split'
+            split = (self.grouped_impl == 'pallas_split'
+                     and self.cell_groups > 1)
             for i, cells in enumerate(self.cells_per_block):
                 x = getattr(self, f'block{i}_conv')(x)
                 x = getattr(self, f'block{i}_norm')(x)
                 if split:
                     x = to_split(x, self.cell_groups)
                 for j in range(cells):
-                    x = getattr(self, f'block{i}_cell{j}')(x, generator)
+                    cell = getattr(self, f'block{i}_cell{j}')
+                    if self.remat_cells and torch.is_grad_enabled():
+                        seed = cell.draw_seed(generator, x.device)
+                        x = checkpoint(cell, x, None, seed,
+                                       use_reentrant=False)
+                    else:
+                        x = cell(x, generator)
                 if split:
                     x = from_split(x)
             if stage == 'encode':

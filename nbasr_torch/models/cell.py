@@ -6,11 +6,15 @@ for every live branch bit, then a LayerNorm.  On the fused path
 (``grouped_impl`` ``'auto'``, ``'fused'``, ``'fused_aligned'``) the whole
 cell is one call of :func:`nbasr_torch.ops.fused_cell.fused_cell_forward`
 — the CUDA kernels on the card, their plain versions on the CPU — forward
-and backward.  On the unfused paths (``'pallas'``, ``'pallas_split'``,
-the JAX cell's ``__call__`` loop) each op runs itself: every conv node is
-the grouped conv kernel (``nbasr_torch/ops/grouped_conv.py``), the rest
-plain torch ops.  Parameter names match the JAX cell's
-(``node{n}_{op}/conv_kernel_grouped`` ..., ``norm/scale``) on every path.
+and backward.  On the unfused paths (the JAX cell's ``__call__`` loop)
+each op runs itself: every conv node is the grouped conv kernel
+(``nbasr_torch/ops/grouped_conv.py``) on ``'pallas'`` and
+``'pallas_split'``, and the JAX package's XLA lowering in stock PyTorch on
+``'chunked'``, ``'masked_dense'`` and ``'native'``; the rest are plain
+torch ops.  Parameter names match the JAX cell's
+(``node{n}_{op}/conv_kernel_grouped`` ..., ``norm/scale``; ``nn.Conv``'s
+``node{n}_{op}/conv/kernel`` on ``'native'`` and on every unfused path at
+``groups=1``) on every path.
 
 Like the JAX cell's ``train=False`` default, a cell is built in eval mode;
 ``.train()`` turns its dropout on, and each training call then draws the
@@ -26,8 +30,8 @@ from torch import nn
 from ..ops.fused_cell import (ConvNode, FusedCellSpec, LinearNode, ZeroNode,
                               fused_cell_forward)
 from ..ops.grouped_conv import from_split, to_split
-from .layers import GroupedPadConvRelu, LayerNorm, LinearRelu, \
-    SplitLayerNorm, conv_padding, norm_eps
+from .layers import CELL_CONV_IMPLS, GroupedPadConvRelu, LayerNorm, \
+    LinearRelu, SplitLayerNorm, conv_padding, norm_eps
 
 __all__ = ['SearchCell', 'CELL_DROPOUT']
 
@@ -42,12 +46,6 @@ _CONVS = {'conv5': (5, 1), 'conv5d2': (5, 2),
 #: is the JAX kernel in a 128-lane padded layout, a TPU layout the port does
 #: not carry: here it is the fused cell.
 _FUSED_IMPLS = ('auto', 'fused', 'fused_aligned')
-#: Values that run each op on its own, every conv node in the grouped conv
-#: kernels; ``'pallas_split'`` keeps the activations in the split layout.
-_UNFUSED_IMPLS = ('pallas', 'pallas_split')
-#: Values of the JAX package whose XLA lowerings later slices of the port
-#: bring.
-_LATER_IMPLS = ('chunked', 'masked_dense', 'native')
 
 
 class SearchCell(nn.Module):
@@ -55,10 +53,13 @@ class SearchCell(nn.Module):
 
     ``arch_desc`` is the named form ``[[op_name, b...], ...]``.
     ``grouped_impl`` ``'auto'``, ``'fused'`` and ``'fused_aligned'`` run the
-    fused cell; ``'pallas'`` runs the ops on ``[B, T, C]``, and
-    ``'pallas_split'`` on the split layout ``[B, C // groups, T, groups]``
-    (input and output too: :class:`ASRModel` converts once per block); the
-    JAX package's XLA lowerings raise NotImplementedError.
+    fused cell; ``'pallas'``, ``'chunked'``, ``'masked_dense'`` and
+    ``'native'`` run the ops on ``[B, T, C]``, and ``'pallas_split'`` (at
+    ``groups > 1``, as in the JAX cell) on the split layout ``[B, C //
+    groups, T, groups]`` (input and output too: :class:`ASRModel` converts
+    once per block).  A training call takes its dropout seed from
+    ``generator``, or ``seed`` drawn beforehand with :meth:`draw_seed` (so
+    a recomputation draws none).
     """
 
     def __init__(self, filters, arch_desc, dropout_rate=CELL_DROPOUT,
@@ -67,26 +68,18 @@ class SearchCell(nn.Module):
                  branch_semantics='canonical', apply_dilation=True,
                  pad_math='torch', norm_epsilon=norm_eps, generator=None):
         super().__init__()
-        if grouped_impl in _LATER_IMPLS:
-            raise NotImplementedError(
-                f"grouped_impl={grouped_impl!r} is not ported yet (see "
-                f"ROADMAP.md, queue 1); {_FUSED_IMPLS} run the fused cell, "
-                f"{_UNFUSED_IMPLS} the grouped conv kernels")
-        if grouped_impl not in _FUSED_IMPLS + _UNFUSED_IMPLS:
+        if grouped_impl not in _FUSED_IMPLS + CELL_CONV_IMPLS:
             raise ValueError(f'unknown grouped_impl: {grouped_impl!r}')
         if branch_semantics not in ('canonical', 'tf_inverted'):
             raise ValueError(f'unknown branch_semantics: {branch_semantics!r}')
         if groups < 1 or filters % groups:
             raise ValueError(f'filters={filters} is not a multiple of '
                              f'groups={groups}')
-        if grouped_impl in _UNFUSED_IMPLS and groups < 2:
-            raise ValueError(f'grouped_impl={grouped_impl!r} runs grouped '
-                             f'convs; groups={groups} is a dense conv')
         generator = generator or torch.Generator().manual_seed(0)
         C = filters
         ci = C // groups
         self.fused = grouped_impl in _FUSED_IMPLS
-        self.split = grouped_impl == 'pallas_split'
+        self.split = grouped_impl == 'pallas_split' and groups > 1
         self.groups = groups
         self.dropout_rate = dropout_rate
         live = 0 if branch_semantics == 'tf_inverted' else 1
@@ -110,7 +103,8 @@ class SearchCell(nn.Module):
                     d = 1
                 lpad, rpad = conv_padding(K, d, 1, pad_math=pad_math)
                 self.add_module(name, GroupedPadConvRelu(
-                    ci, C, K, d, groups, dropout_rate, self.split, pad_math,
+                    ci, C, K, d, groups, dropout_rate,
+                    'fused' if self.fused else grouped_impl, pad_math,
                     init_scheme, generator))
                 nodes.append(ConvNode(K, d, lpad, rpad, groups, ci, ci,
                                       branches))
@@ -139,18 +133,31 @@ class SearchCell(nn.Module):
         ln = (self.norm.scale, self.norm.bias) if self.norm is not None else None
         return weights, ln
 
-    def forward(self, x, generator=None):
+    @property
+    def dropping(self):
+        """Whether a call in the current mode draws a dropout seed."""
+        return self.training and self.dropout_rate > 0
+
+    def draw_seed(self, generator, device):
+        """The seed a call on ``device`` draws from ``generator``, or None
+        when it drops nothing.  The fused kernel reads it on the card; the
+        unfused ops hash their masks from a seed kept on the CPU, so that
+        reading it does not wait for the card."""
+        if not self.dropping:
+            return None
+        return _draw_seed(generator, device if self.fused
+                          else torch.device('cpu'))
+
+    def forward(self, x, generator=None, seed=None):
         """``[B, T, C] -> [B, T, C]`` (split: ``[B, c, T, G]`` both ways);
-        ``generator`` supplies the dropout seed in training mode."""
+        in training mode the dropout seed is ``seed`` if given (from
+        :meth:`draw_seed`), else drawn from ``generator``."""
+        if seed is None:
+            seed = self.draw_seed(generator, x.device)
         if self.fused:
             spec = self.train_spec if self.training else self.spec
-            seed = _draw_seed(generator, x.device) if spec.dropping else None
             return fused_cell_forward(spec, x.contiguous(),
                                       *self.operands(x.dtype), seed=seed)
-        # the unfused ops hash their masks from a seed kept on the CPU, so
-        # that reading it does not wait for the card
-        seed = (_draw_seed(generator, torch.device('cpu'))
-                if self.training and self.dropout_rate > 0 else None)
         outputs = [x]
         counter = 0
         for name, node in zip(self._op_names, self.spec.nodes):

@@ -6,8 +6,11 @@ so :mod:`nbasr_torch.convert` maps checkpoints by name; the one layout
 change is the dense block conv, whose weight is PyTorch's ``[cout, cin, K]``.
 The cell ops (:class:`GroupedPadConvRelu`, :class:`LinearRelu`) hold the
 parameters the fused cell kernel reads (``nbasr_torch/ops/fused_cell.py``)
-and run themselves on the unfused ``grouped_impl`` paths, ``'pallas'`` and
-``'pallas_split'`` (``nbasr_torch/ops/grouped_conv.py``, ``cell_ops.py``).
+and run themselves on the unfused ``grouped_impl`` paths: ``'pallas'`` and
+``'pallas_split'`` in the grouped conv kernels
+(``nbasr_torch/ops/grouped_conv.py``, ``cell_ops.py``), and the JAX
+package's XLA lowerings ``'chunked'``, ``'masked_dense'`` and ``'native'``
+in stock PyTorch (they reach no Pallas kernel there).
 """
 
 import math
@@ -22,9 +25,9 @@ from ..ops.fused_cell import dropout_bits, inv_keep, keep_threshold, \
 from ..ops.grouped_conv import grouped_conv1d, to_split
 
 __all__ = ['FUTURE_CONTEXT', 'norm_eps', 'relu20', 'conv_padding',
-           'kernel_initializer', 'hash_dropout', 'Dense', 'LayerNorm',
-           'SplitLayerNorm', 'PadConvRelu', 'GroupedPadConvRelu',
-           'LinearRelu', 'MeanVarianceNorm']
+           'kernel_initializer', 'hash_dropout', 'chunk_count', 'Dense',
+           'LayerNorm', 'SplitLayerNorm', 'PadConvRelu', 'GroupedPadConvRelu',
+           'LinearRelu', 'MeanVarianceNorm', 'CELL_CONV_IMPLS']
 
 #: 4 frames of look-ahead = 40 ms (reference model/tf/ops.py:3).
 FUTURE_CONTEXT = 4
@@ -202,31 +205,90 @@ class _ConvWeights(nn.Module):
 
 class PadConvRelu(nn.Module):
     """Pad → dense Conv1D (stride) → clip-ReLU(20): the encoder's block
-    convs (``groups == 1``).  ``[B, T, cin] -> [B, ceil(T/stride), filters]``
-    in the input's dtype."""
+    convs (``groups == 1``).  ``[B, T, cin] -> [B, T_out, filters]`` in the
+    input's dtype, ``T_out`` the conv's own output length.  ``impl`` is the JAX layer's ``dense_impl``: ``'auto'`` and
+    ``'conv'`` run ``F.conv1d``; ``'tap_matmul'`` runs the K taps as shifted
+    ``[B*T, cin] x [cin, cout]`` matmuls summed in f32, then rounds to the
+    input's dtype and adds the bias there
+    (``nbasr_tpu/models/layers.py:325-344``), with the same parameters."""
 
     def __init__(self, cin, filters, kernel_size, strides=1, dilation=1,
-                 pad_math='torch', init_scheme='reference', generator=None):
+                 pad_math='torch', init_scheme='reference', generator=None,
+                 impl='auto'):
         super().__init__()
+        if impl not in ('auto', 'conv', 'tap_matmul'):
+            raise ValueError(f'unknown block conv impl: {impl!r}')
         self.strides = strides
         self.dilation = dilation
+        self.impl = impl
         self.pads = conv_padding(kernel_size, dilation, strides,
                                  pad_math=pad_math)
         self.conv = _ConvWeights(cin, filters, kernel_size,
                                  kernel_initializer(init_scheme), generator)
 
     def forward(self, x):
+        if self.impl == 'tap_matmul':
+            return relu20(self._tap_matmul(x))
         xp = F.pad(x.transpose(1, 2), self.pads)
         y = F.conv1d(xp, self.conv.weight.to(x.dtype),
                      self.conv.bias.to(x.dtype), stride=self.strides,
                      dilation=self.dilation)
         return relu20(y).transpose(1, 2).contiguous()
 
+    def _tap_matmul(self, x):
+        """Tap k reads ``x_pad[:, k*d + s*t]``.  The output length is the
+        conv's own, ``(T_pad - (K-1)*d - 1) // s + 1``: the JAX version
+        takes ``ceil(T / s)`` instead, which a padding with less than
+        ``s - 1`` frames of slack (K*d <= s + context) overruns."""
+        w = self.conv.weight                          # [cout, cin, K]
+        K, d, s = w.shape[2], self.dilation, self.strides
+        xp = F.pad(x, (0, 0, *self.pads))
+        t_out = (xp.shape[1] - (K - 1) * d - 1) // s + 1
+        acc = None
+        for k in range(K):
+            off = k * d
+            xs = xp[:, off:off + (t_out - 1) * s + 1:s]
+            # the operands in the input's dtype, their products summed in f32
+            part = xs.float() @ w[:, :, k].to(x.dtype).float().T
+            acc = part if acc is None else acc + part
+        return acc.to(x.dtype) + self.conv.bias.to(x.dtype)
+
+
+def chunk_count(groups, cin, cout):
+    """Super-group count of the ``'chunked'`` lowering: the divisor of
+    ``groups`` with the fewest 128-padded matmul tiles over all chunks, ties
+    to fewer chunks (``nbasr_tpu/models/layers.py`` ``chunk_count``)."""
+    def cost(s):
+        gc = groups // s
+        tiles = -(-gc * cin // 128) * -(-gc * cout // 128)
+        return (s * tiles, s)
+    return min((s for s in range(1, groups + 1) if groups % s == 0), key=cost)
+
+
+def _block_diagonal(kernel, groups, chunks):
+    """Compact ``[K, ci, G*co]`` -> ``[K, (G/chunks)*ci, G*co]``: each of
+    ``chunks`` super-groups' kernel block-diagonal over its groups (one
+    chunk: the whole dense kernel), as the JAX ``'chunked'`` and
+    ``'masked_dense'`` lowerings expand it."""
+    K, ci, C = kernel.shape
+    gc = groups // chunks
+    kg = kernel.reshape(K, ci, chunks, gc, C // groups)
+    eye = torch.eye(gc, dtype=kernel.dtype, device=kernel.device)
+    return torch.einsum('kcsgo,gh->khcsgo', kg, eye).reshape(K, gc * ci, C)
+
+
+#: The cell conv lowerings of the unfused paths (``grouped_impl``).
+CELL_CONV_IMPLS = ('pallas', 'pallas_split', 'chunked', 'masked_dense',
+                   'native')
+
 
 class GroupedPadConvRelu(nn.Module):
-    """A cell's grouped conv op, stride 1: ``conv_kernel_grouped [K, ci,
-    filters]`` and ``conv_bias [filters]``, the JAX layer's parameters,
-    which the fused cell reads.  On the unfused paths it runs itself:
+    """A cell's conv op, stride 1, with the JAX layer's parameters:
+    ``conv_kernel_grouped [K, ci, filters]`` and ``conv_bias [filters]``,
+    which the fused cell reads; where the JAX package runs ``nn.Conv``
+    (``'native'``, and every unfused path at ``groups=1``) ``conv.weight
+    [filters, ci, K]`` and ``conv.bias``, which :mod:`nbasr_torch.convert`
+    maps to ``conv/{kernel,bias}``.  On the unfused paths it runs itself:
 
     - ``'pallas'``: ``[B, T, C]`` → pad → grouped conv (the kernel rounds
       its f32 sum to the activation dtype) → + bias in the activation
@@ -235,33 +297,68 @@ class GroupedPadConvRelu(nn.Module):
     - ``'pallas_split'``: split layout ``[B, ci, T, G]`` → pad → grouped
       conv with the bias and clip-ReLU in the kernel's f32 accumulator, one
       rounding, a gate that passes nothing at exactly 0 or 20 → dropout
-      (``nbasr_tpu/models/layers.py:243-262``).
+      (``nbasr_tpu/models/layers.py:243-262``);
+    - the JAX package's XLA lowerings, in stock PyTorch
+      (``nbasr_tpu/models/layers.py:264-324``): ``'chunked'``, one conv of
+      :func:`chunk_count` groups whose kernels are block-diagonal over their
+      groups; ``'masked_dense'``, one dense conv of the block-diagonal
+      kernel; ``'native'``, ``F.conv1d(groups=G)``; each then + bias →
+      :func:`relu20` → dropout.
+
+    Dropout is the fused cell's hash (:func:`hash_dropout`) on every path.
     """
 
     def __init__(self, cin, filters, kernel_size, dilation=1, groups=1,
-                 dropout_rate=0.0, split=False, pad_math='torch',
+                 dropout_rate=0.0, impl='pallas', pad_math='torch',
                  init_scheme='reference', generator=None):
         super().__init__()
+        if impl not in CELL_CONV_IMPLS + ('fused',):
+            raise ValueError(f'unknown cell conv impl: {impl!r}')
         self.groups = groups
         self.dilation = dilation
         self.dropout_rate = dropout_rate
-        self.split = split
+        if impl != 'fused' and groups == 1:
+            impl = 'native'         # the JAX layer's nn.Conv at groups=1
+        self.impl = impl
+        self.split = impl == 'pallas_split'
         self.pads = conv_padding(kernel_size, dilation, 1, pad_math=pad_math)
-        self.conv_kernel_grouped = nn.Parameter(kernel_initializer(
-            init_scheme)((kernel_size, cin, filters), generator))
-        self.conv_bias = nn.Parameter(torch.zeros(filters))
+        init = kernel_initializer(init_scheme)
+        if impl == 'native':
+            self.conv = _ConvWeights(cin, filters, kernel_size, init,
+                                     generator)
+        else:
+            self.conv_kernel_grouped = nn.Parameter(
+                init((kernel_size, cin, filters), generator))
+            self.conv_bias = nn.Parameter(torch.zeros(filters))
 
     def forward(self, x, seed=None, counter=0):
         """``seed`` (the cell's, on the CPU) turns dropout on, with the
         cell's ``counter``-th draw."""
-        w = self.conv_kernel_grouped.to(x.dtype)
-        b = self.conv_bias.to(x.dtype)
-        if self.split:
-            y = grouped_conv_relu(x, w, b, self.groups, *self.pads,
-                                  self.dilation)
+        if self.impl == 'native':
+            xp = F.pad(x.transpose(1, 2), self.pads)
+            y = F.conv1d(xp, self.conv.weight.to(x.dtype),
+                         self.conv.bias.to(x.dtype), dilation=self.dilation,
+                         groups=self.groups)
+            y = relu20(y.transpose(1, 2))
+        elif self.impl in ('chunked', 'masked_dense'):
+            w = self.conv_kernel_grouped
+            G, ci = self.groups, w.shape[1]
+            chunks = (chunk_count(G, ci, w.shape[2] // G)
+                      if self.impl == 'chunked' else 1)
+            wide = _block_diagonal(w, G, chunks).to(x.dtype)
+            xp = F.pad(x.transpose(1, 2), self.pads)
+            y = F.conv1d(xp, wide.permute(2, 1, 0), dilation=self.dilation,
+                         groups=chunks)
+            y = relu20(y.transpose(1, 2) + self.conv_bias.to(x.dtype))
         else:
-            y = relu20(grouped_conv1d(x, w, self.groups, *self.pads,
-                                      self.dilation) + b)
+            w = self.conv_kernel_grouped.to(x.dtype)
+            b = self.conv_bias.to(x.dtype)
+            if self.split:
+                y = grouped_conv_relu(x, w, b, self.groups, *self.pads,
+                                      self.dilation)
+            else:
+                y = relu20(grouped_conv1d(x, w, self.groups, *self.pads,
+                                          self.dilation) + b)
         if seed is not None:
             y = hash_dropout(y, self.dropout_rate, seed, counter,
                              self.groups if self.split else None)

@@ -1,11 +1,17 @@
 """Audio frontend: framing → Hann → power spectrum → mel → log, PyTorch.
 
-Counterpart of ``nbasr_tpu/ops/frontend.py`` (``:32-136``): the 80-bin
-log-mel filterbank at 16 kHz with a 25 ms window / 10 ms hop, no centring,
-a periodic Hann window, the power spectrum, an HTK mel scale with a zero
-DC row and fmax 8 kHz, and ``log(x + 1e-10)``.  Runs on the audio
-tensor's device.  Two spectrum paths: ``rfft`` (``torch.fft.rfft``) and
-``dft`` (an explicit real DFT as two matmuls).
+Counterpart of ``nbasr_tpu/ops/frontend.py``: the 80-bin log-mel
+filterbank at 16 kHz with a 25 ms window / 10 ms hop, no centring, a
+periodic Hann window, the power spectrum, an HTK mel scale with a zero DC
+row and fmax 8 kHz, and ``log(x + 1e-10)``.  Runs on the audio tensor's
+device.  Two spectrum paths: ``rfft`` (``torch.fft.rfft``) and ``dft`` (an
+explicit real DFT as two matmuls).
+
+The rest of the featurizer library (``:145-245``, the reference's
+``audio_feature.py`` dispatcher: spec / spec_dB / mel / pmel / lmel / mfcc,
+and the inverse STFT) are plain tensor functions with an explicit
+``device``: a tensor input stays on its own device unless ``device`` names
+another, an array goes to ``device``, the card by default.
 """
 
 import functools
@@ -14,7 +20,9 @@ import numpy as np
 import torch
 
 __all__ = ['FrontendConfig', 'mel_weight_matrix', 'num_frames',
-           'frame_signal', 'log_mel_spectrogram']
+           'frame_signal', 'log_mel_spectrogram', 'magnitude_spectrogram',
+           'to_db', 'mel_spectrogram', 'power_mel_spectrogram', 'mfcc',
+           'get_feature', 'inverse_stft']
 
 
 class FrontendConfig:
@@ -120,3 +128,135 @@ def log_mel_spectrogram(audio, config=None, mel_mat=None):
     frames = frame_signal(audio, config.window, config.hop)
     power = _power_spectrum(frames, config)
     return torch.log(power @ mel_mat + config.log_floor)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the featurizer library
+# ---------------------------------------------------------------------------
+
+def _placed(x, device, dtype=torch.float32):
+    """``x`` as a ``dtype`` tensor on ``device`` (a tensor's own device when
+    ``device`` is None, the card for an array)."""
+    if device is None:
+        device = x.device if isinstance(x, torch.Tensor) else 'cuda'
+    if not isinstance(x, torch.Tensor):
+        x = np.array(x)                # a writable copy of any array
+    from ..models.asr import resolve_device
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+
+
+def magnitude_spectrogram(audio, config=None, exponent=2.0, device=None):
+    """[..., samples] -> [..., frames, bins] ``|STFT|**exponent`` (reference
+    ``audio_feature.py:131-185``)."""
+    config = config or FrontendConfig()
+    audio = _placed(audio, device)
+    power = _power_spectrum(frame_signal(audio, config.window, config.hop),
+                            config)
+    if exponent == 2.0:
+        return power
+    return torch.pow(torch.sqrt(power), exponent)
+
+
+def to_db(spec, ref_level_db=20.0, min_level_db=-100.0, clip=True,
+          device=None):
+    """Power/magnitude spectrogram -> normalised dB in [0, 1] (reference
+    ``audio_feature.py:36-66``)."""
+    spec = _placed(spec, device)
+    db = 20.0 * torch.log10(torch.clamp(spec, min=1e-10)) - ref_level_db
+    db = db / -min_level_db
+    if clip:
+        db = torch.clamp(db, -1.0, 0.0) + 1.0
+    return db
+
+
+def mel_spectrogram(audio, config=None, mel_mat=None, exponent=2.0,
+                    device=None):
+    """Linear-power mel filterbank (reference ``audio_feature.py:299-369``)."""
+    config = config or FrontendConfig()
+    spec = magnitude_spectrogram(audio, config, exponent, device)
+    if mel_mat is None:
+        mel_mat = mel_weight_matrix(config.num_mel_bins, config.num_bins,
+                                    config.sample_rate, config.lower_hz,
+                                    config.upper_hz)
+    return spec @ torch.as_tensor(mel_mat, device=spec.device)
+
+
+def power_mel_spectrogram(audio, config=None, power_coeff=1.0 / 15.0,
+                          device=None, **kw):
+    """PNCC-style power-law mel (reference ``audio_feature.py:424-456``)."""
+    return torch.pow(mel_spectrogram(audio, config, device=device, **kw),
+                     power_coeff)
+
+
+@functools.lru_cache(maxsize=4)
+def _dct_matrix(n_in, n_out):
+    """Orthonormal DCT-II basis [n_in, n_out] (tf.signal.mfccs semantics)."""
+    k = np.arange(n_out)[None, :]
+    n = np.arange(n_in)[:, None]
+    basis = np.cos(np.pi * (2 * n + 1) * k / (2 * n_in))
+    basis *= np.sqrt(2.0 / n_in)
+    basis[:, 0] *= np.sqrt(0.5)
+    return basis.astype(np.float32)
+
+
+def mfcc(audio, config=None, num_coeffs=13, device=None, **kw):
+    """MFCCs: orthonormal DCT-II of the log-mel filterbank (reference
+    ``audio_feature.py:396-421``)."""
+    config = config or FrontendConfig()
+    lmel = log_mel_spectrogram(_placed(audio, device), config, **kw)
+    dct = torch.as_tensor(_dct_matrix(config.num_mel_bins, num_coeffs),
+                          device=lmel.device)
+    return lmel @ dct
+
+
+def _log_mel(audio, config, device=None, **kw):
+    return log_mel_spectrogram(_placed(audio, device), config, **kw)
+
+
+def _spec_db(audio, config, device=None, **kw):
+    return to_db(magnitude_spectrogram(audio, config, device=device), **kw)
+
+
+_FEATURES = {'spec': magnitude_spectrogram, 'spec_dB': _spec_db,
+             'mel': mel_spectrogram, 'pmel': power_mel_spectrogram,
+             'lmel': _log_mel, 'mfcc': mfcc}
+
+
+def get_feature(audio, config=None, feature_type='lmel', device=None, **kw):
+    """Feature dispatcher (reference ``audio_feature.py:458-475``)."""
+    if feature_type not in _FEATURES:
+        raise NotImplementedError(
+            f'Unsupported audio feature type {feature_type!r}')
+    return _FEATURES[feature_type](audio, config, device=device, **kw)
+
+
+def inverse_stft(stft, config=None, length=None, device=None):
+    """Complex STFT [..., frames, bins] -> audio, by windowed overlap-add
+    with squared-window normalisation (reference ``spec2wav``,
+    ``audio_feature.py:247-297``)."""
+    config = config or FrontendConfig()
+    stft = _placed(stft, device, torch.complex64)
+    frames = torch.fft.irfft(stft, n=config.fft_length, dim=-1)
+    w = (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(config.window)
+                            / config.window)).astype(np.float32)
+    frames = frames[..., :config.window] * torch.as_tensor(
+        w, device=frames.device)
+    n_frames = frames.shape[-2]
+    total = config.window + (n_frames - 1) * config.hop
+    idx = (np.arange(n_frames)[:, None] * config.hop
+           + np.arange(config.window)[None, :]).reshape(-1)
+    flat = frames.reshape(frames.shape[:-2] + (-1,))
+    audio = torch.zeros(frames.shape[:-2] + (total,), dtype=torch.float32,
+                        device=frames.device)
+    audio = audio.index_add(-1, torch.as_tensor(idx, device=frames.device),
+                            flat)
+    norm = np.zeros(total, np.float32)
+    np.add.at(norm, idx, np.tile(w * w, n_frames))
+    audio = audio / torch.clamp(torch.as_tensor(norm, device=audio.device),
+                                min=1e-8)
+    if length is not None:
+        if length <= total:
+            audio = audio[..., :length]
+        else:   # framing dropped a tail shorter than one hop; zero-pad back
+            audio = torch.nn.functional.pad(audio, (0, length - total))
+    return audio

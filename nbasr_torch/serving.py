@@ -11,15 +11,26 @@ flush-time windows are clipped at ``Tp``; the LSTM head threads its
 with per-row validity masks.  The frontend and the device step run on the
 model's device; on the card every SearchCell is one launch of the fused
 cell kernel (18 per step for the flagship).
+
+``quantize=True`` serves int8 weights (:mod:`nbasr_torch.quant`): the
+streamer keeps each kernel on the device as int8 plus f32 scales, holds no
+f32 copy of them and no reference to the caller's parameters, and each
+device step dequantizes them to f32 before it runs the model (whose cells
+still run the fused cell kernel; a bf16 model casts the f32 weights as it
+always does).
 """
+
+import copy
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from .models.asr import logits_length, resolve_device
 from .ops.frontend import FrontendConfig, log_mel_spectrogram, \
     mel_weight_matrix, num_frames
 from .parallel.seqparallel import encoder_halo
+from .quant import dequantize_tree, quantize_tree
 
 __all__ = ['StreamingASR', 'StreamingGreedyDecoder']
 
@@ -52,8 +63,9 @@ class StreamingASR:
     ``model`` must already live on ``device`` (``get_model(...,
     device=...)``); it runs in its own ``compute_dtype``.  ``chunk_frames``
     (feature frames emitted per device step) must be a multiple of the
-    model's total time reduction.  ``quantize=True`` (int8 PTQ) belongs to a
-    later slice of the port and raises.
+    model's total time reduction.  ``quantize=True`` serves the model's
+    weights int8 (see the module docstring); the caller may then drop its
+    model.
 
     Usage::
 
@@ -67,9 +79,6 @@ class StreamingASR:
 
     def __init__(self, model, chunk_frames=240, batch_size=1, frontend=None,
                  quantize=False, device='cuda'):
-        if quantize:
-            raise NotImplementedError('int8 PTQ serving is not ported yet '
-                                      '(see ROADMAP.md)')
         self.device = resolve_device(device)
         if any(p.device != self.device for p in model.parameters()):
             raise ValueError(f'the model is not on {self.device}; build it '
@@ -78,6 +87,13 @@ class StreamingASR:
             # f32 serving means f32: cuDNN convs default to TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        #: the int8 tree (``quant.quantize_tree``) and the model's buffers,
+        #: which a quantized streamer runs its skeleton with
+        self.qparams = self._buffers = None
+        if quantize:
+            self.qparams = quantize_tree(dict(model.named_parameters()))
+            self._buffers = {n: b.clone() for n, b in model.named_buffers()}
+            model = _skeleton(model)
         self.model = model
         self.frontend = frontend or FrontendConfig()
         self.ts = int(np.prod(model.block_strides))
@@ -120,11 +136,16 @@ class StreamingASR:
     @torch.inference_mode()
     def _device_step(self, window, mask, trim_off, carry):
         """window [B, Wf, F] -> logits [B, Co, V] for encoder output frames
-        [trim_off, trim_off + Co) of the window, advancing the LSTM carry."""
-        enc = self.model(window, mask=mask, stage='encode')
+        [trim_off, trim_off + Co) of the window, advancing the LSTM carry;
+        a quantized streamer dequantizes its weights first."""
+        run = self.model
+        if self.qparams is not None:
+            tensors = {**dequantize_tree(self.qparams), **self._buffers}
+            run = lambda *a, **k: functional_call(self.model, tensors, a, k)
+        enc = run(window, mask=mask, stage='encode')
         trim = min(max(trim_off, 0), enc.shape[1] - self.Co)
-        logits, carry = self.model(enc[:, trim:trim + self.Co], stage='head',
-                                   rnn_carry=carry, return_rnn_carry=True)
+        logits, carry = run(enc[:, trim:trim + self.Co], stage='head',
+                            rnn_carry=carry, return_rnn_carry=True)
         self.steps += 1
         return logits, carry
 
@@ -246,3 +267,14 @@ class StreamingASR:
             if drop > 0:
                 self._feats = self._feats[:, drop:]
                 self._feat_base = keep_from
+
+
+def _skeleton(model):
+    """A copy of ``model`` whose parameters are empty tensors on the meta
+    device: the module structure a quantized streamer runs through
+    ``functional_call``, without an f32 weight or a reference to the
+    caller's parameters (its buffers are copied)."""
+    memo = {id(p): torch.nn.Parameter(torch.empty_like(p, device='meta'),
+                                      requires_grad=False)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)

@@ -8,12 +8,18 @@ repository's ``train.py``, same 9-int arch vector and flags).
 defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 ``--dtype`` defaults to bfloat16 on the card and float32 on the CPU.  Eval
 decodes with the merged-prefix beam search, W=12, as ``train.py`` does
-(``--decoder greedy`` for the greedy decoder).  The ``--dp/--tp`` meshes
-are a later slice of the port (``ROADMAP.md``).
+(``--decoder greedy`` for the greedy decoder).  The port writes its run to
+``<exp_folder>/torch/<exp_name>``; where that folder has no checkpoint and
+the JAX package's run of the same name (``<exp_folder>/jax/<exp_name>``)
+left ``latest.ckpt``/``best.ckpt``, they are copied over and the run
+resumes from them (``Trainer.load`` reads flax checkpoints) unless
+``--reset`` is given.  The ``--dp/--tp`` meshes are a later slice of the
+port (``ROADMAP.md``).
 """
 
 import argparse
 import pathlib
+import shutil
 
 import torch
 
@@ -61,7 +67,9 @@ def main(argv=None):
                         help="cell implementation: 'auto', 'fused' and "
                              "'fused_aligned' run the fused cell kernels, "
                              "'pallas' and 'pallas_split' the grouped conv "
-                             "kernels; the XLA lowerings are not ported yet")
+                             "kernels, 'chunked', 'masked_dense' and "
+                             "'native' the JAX package's XLA lowerings in "
+                             "stock PyTorch")
     args = parser.parse_args(argv)
     if args.dp or args.tp != 1:
         parser.error('--dp/--tp: the distributed runners are not ported yet '
@@ -91,12 +99,35 @@ def main(argv=None):
         grouped_impl=args.grouped_impl,
         generator=torch.Generator().manual_seed(args.seed), **model_kw)
     trainer_kw = {} if args.adam_eps is None else {'adam_eps': args.adam_eps}
+    save_dir = pathlib.Path(args.exp_folder) / 'torch'
+    if not args.reset:
+        adopt_jax_run(pathlib.Path(args.exp_folder) / 'jax' / args.exp_name,
+                      save_dir / args.exp_name)
     trainer = get_trainer(dataloaders, get_loss(), device=device,
-                          save_dir=pathlib.Path(args.exp_folder) / 'torch',
-                          eval_decoder=args.decoder, **trainer_kw)
+                          save_dir=save_dir, eval_decoder=args.decoder,
+                          **trainer_kw)
     return trainer.train(model, epochs=args.epochs, lr=args.lr,
                          reset=args.reset, model_name=args.exp_name,
                          seed=args.seed)
+
+
+def adopt_jax_run(jax_dir, out_dir):
+    """Copy the JAX run's checkpoints (and their ``.json`` sidecars) into
+    ``out_dir`` when it has none of its own, so that ``Trainer.train``
+    resumes from them.  Returns the files copied."""
+    names = ('latest.ckpt', 'best.ckpt')
+    if any((out_dir / n).exists() for n in names):
+        return []
+    copied = []
+    for name in names:
+        for src in (jax_dir / name, jax_dir / (name + '.json')):
+            if src.exists():
+                out_dir.mkdir(parents=True, exist_ok=True)
+                shutil.copyfile(src, out_dir / src.name)
+                copied.append(src)
+    if copied:
+        print(f'    Resuming the JAX run {jax_dir}')
+    return copied
 
 
 if __name__ == '__main__':

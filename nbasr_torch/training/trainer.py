@@ -22,9 +22,13 @@ merged-prefix beam search, W=12, by default (``eval_decoder='greedy'``
 for the greedy decoder); with a ``save_dir``, TensorBoard scalars go to
 ``<run>/tb`` as the JAX trainer writes them.
 
-Not ported yet (``ROADMAP.md``): the flax-checkpoint loader and the
-profiler hook; the eval prewarm hides an XLA compile and has no
-counterpart here.
+Checkpoints: :meth:`Trainer.save` writes the port's own format
+(``torch.save``); :meth:`Trainer.load` reads that and the flax msgpack
+files the JAX trainer writes (:mod:`nbasr_torch.checkpoint`), so
+``train()`` resumes a ``latest.ckpt``/``best.ckpt`` the JAX trainer left in
+its folder; :func:`nbasr_torch.checkpoint.save_flax` writes one the JAX
+trainer loads.  Not ported yet (``ROADMAP.md``): the profiler hook; the
+eval prewarm hides an XLA compile and has no counterpart here.
 """
 
 import json
@@ -35,6 +39,7 @@ import time
 
 import torch
 
+from ..checkpoint import is_flax_checkpoint, load_flax
 from ..data.phonemes import PhonemeEncoder
 from ..models.asr import logits_length, resolve_device
 from ..ops.decode import beam_search_decode, greedy_decode
@@ -95,9 +100,12 @@ class Trainer:
         self.model = None
         self.optimizer = None
         self.generator = None
-        #: train steps taken, and those skipped for non-finite gradients
+        #: train steps taken, those skipped for non-finite gradients, and
+        #: the skipped steps since the last finite one
         self.step_count = 0
         self.nonfinite_steps = 0
+        self.nonfinite_run = 0
+        self.seed = 0
         self.metrics = None
         self._best_weights = None
 
@@ -142,9 +150,11 @@ class Trainer:
         norm_host, peak_host = torch.stack([norm, peak.to(norm.dtype)]).tolist()
         if not math.isfinite(peak_host):
             self.nonfinite_steps += 1
+            self.nonfinite_run += 1
             for p in params:
                 p.grad = None
             return
+        self.nonfinite_run = 0
         if norm_host >= self.clip_norm:      # optax: (g / ‖g‖) * max_norm
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.clip_norm)
@@ -208,8 +218,10 @@ class Trainer:
         self.optimizer = torch.optim.Adam(
             model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=self.adam_eps)
         self.generator = torch.Generator().manual_seed(seed + 1)
+        self.seed = seed
         self.step_count = 0
         self.nonfinite_steps = 0
+        self.nonfinite_run = 0
         self.metrics = zeros_like_metrics(('ctc_loss',), self.device)
         return self
 
@@ -368,7 +380,7 @@ class Trainer:
                 pickle.dump(test_scores, f)
         return history, test_scores
 
-    # -- checkpoints in the port's own format ---------------------------
+    # -- checkpoints: the port's own format, and the JAX trainer's -------
 
     def save(self, path, **meta):
         """Model, optimizer, step count and dropout generator state to
@@ -378,17 +390,30 @@ class Trainer:
                     'optimizer': self.optimizer.state_dict(),
                     'step': self.step_count,
                     'nonfinite_steps': self.nonfinite_steps,
+                    'nonfinite_run': self.nonfinite_run,
                     'generator': self.generator.get_state()}, path)
         path.with_suffix(path.suffix + '.json').write_text(json.dumps(meta))
 
     def load(self, path):
-        """Restore what :meth:`save` wrote; returns its ``meta``."""
+        """Restore what :meth:`save` wrote, or a checkpoint of the JAX
+        trainer (flax msgpack, :func:`nbasr_torch.checkpoint.load_flax`:
+        the dropout generator is left alone there); returns its ``meta``.
+        The format is told by the file's first bytes: ``torch.save``'s zip
+        opens with ``PK``, flax's msgpack with a map header."""
         path = pathlib.Path(path)
+        with open(path, 'rb') as f:
+            head = f.read(2)
+        if is_flax_checkpoint(head):
+            return load_flax(self, path)
+        if head != b'PK':
+            raise ValueError(f'{path}: neither a torch.save checkpoint nor a '
+                             f'flax one (first bytes {head!r})')
         state = torch.load(path, map_location=self.device)
         self.model.load_state_dict(state['model'])
         self.optimizer.load_state_dict(state['optimizer'])
         self.step_count = state['step']
         self.nonfinite_steps = state['nonfinite_steps']
+        self.nonfinite_run = state.get('nonfinite_run', 0)
         self.generator.set_state(state['generator'].cpu())
         meta_file = path.with_suffix(path.suffix + '.json')
         return json.loads(meta_file.read_text()) if meta_file.exists() else {}

@@ -239,13 +239,21 @@ def test_dropout_masks_agree_across_impls():
 
 
 def test_impl_choices():
+    """Every ``grouped_impl`` of the JAX package builds; the unfused paths
+    at groups=1 hold nn.Conv's ``conv`` parameters and run no split
+    layout, as the JAX cell does; an unknown impl is refused."""
     for impl in ('chunked', 'masked_dense', 'native'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            SearchCell(24, ARCHS[0], groups=4, grouped_impl=impl)
+        cell = SearchCell(24, ARCHS[0], groups=4, grouped_impl=impl)
+        assert not cell.fused and not cell.split
     assert SearchCell(24, ARCHS[0], groups=4,
                       grouped_impl='fused_aligned').fused
-    with pytest.raises(ValueError, match='dense conv'):
-        SearchCell(24, ARCHS[0], groups=1, grouped_impl='pallas')
+    for impl in ('pallas', 'pallas_split'):
+        dense = SearchCell(24, ARCHS[0], groups=1, grouped_impl=impl)
+        assert not dense.split
+        assert {n for n, _ in dense.named_parameters()} >= {
+            'node0_conv5.conv.weight', 'node0_conv5.conv.bias'}
+    with pytest.raises(ValueError, match='unknown grouped_impl'):
+        SearchCell(24, ARCHS[0], groups=4, grouped_impl='tiled')
 
 
 def test_get_model_defaults_to_the_card(monkeypatch):

@@ -90,8 +90,25 @@ def test_cpu_runs_the_plain_version():
 
 @pytest.mark.parametrize('impl', ['chunked', 'masked_dense', 'native'])
 def test_later_impls_are_refused(impl):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        SearchCell(24, ARCHS[0], groups=4, grouped_impl=impl)
+    """The JAX package's XLA lowerings, once refused here, now run: the same
+    eval output as the fused cell on the same weights (1e-5 of max: f32
+    sums in another order), and no fused cell call."""
+    fused = SearchCell(24, ARCHS[0], groups=4)
+    cell = SearchCell(24, ARCHS[0], groups=4, grouped_impl=impl)
+    state = fused.state_dict()
+    if impl == 'native':   # nn.Conv's layout: [C, ci, K]
+        state = {k.replace('conv_kernel_grouped', 'conv.weight').replace(
+            'conv_bias', 'conv.bias'): v.permute(2, 1, 0).contiguous()
+                 if k.endswith('conv_kernel_grouped') else v
+                 for k, v in state.items()}
+    cell.load_state_dict(state)
+    x = torch.from_numpy(_x())
+    want = fused(x).detach()
+    fused_cell.reset_launches()
+    got = cell(x).detach()
+    assert fused_cell.LAUNCHES == {'kernel': 0, 'plain': 0}
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 def test_forward_refuses_other_devices():

@@ -1,5 +1,6 @@
 """Import hygiene of the port: nbasr_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the port's entry points default to the card."""
+JAX, flax, msgpack nor the JAX package, and the port's entry points
+default to the card."""
 
 import ast
 import pathlib
@@ -12,7 +13,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / 'nbasr_torch'
-FORBIDDEN = ('jax', 'flax', 'nbasr_tpu')
+FORBIDDEN = ('jax', 'flax', 'msgpack', 'nbasr_tpu')
 
 
 def _modules():
@@ -33,7 +34,8 @@ def test_every_module_imports_without_jax():
             'nbasr_torch.data.timit', 'nbasr_torch.utils',
             'nbasr_torch.search_space', 'nbasr_torch.graph_utils',
             'nbasr_torch.dataset', 'nbasr_torch.search', 'nbasr_torch.cli',
-            'nbasr_torch.version', 'nbasr_torch.models.proxies'} <= set(mods)
+            'nbasr_torch.version', 'nbasr_torch.models.proxies',
+            'nbasr_torch.checkpoint', 'nbasr_torch.quant'} <= set(mods)
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             f'print(sorted(m for m in sys.modules '

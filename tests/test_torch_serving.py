@@ -154,6 +154,19 @@ def test_latency_reporting():
 
 
 def test_quantized_serving_is_a_later_slice():
-    port = ASRModel.from_arch_vec(ARCH, **KW)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        StreamingASR(port, quantize=True, device='cpu')
+    """Ported now (tests/test_torch_quant.py holds it against JAX): the
+    int8 streamer runs, and its logits are within 5% of max of the f32
+    streamer's (per-channel int8 weights, random init)."""
+    B, S = 2, 16000
+    audio = _audio(B, S)
+    valid = np.array([S, S - 4000])
+    _, _, port = _models(True, audio, valid)
+    f32 = _cat(_run_stream(StreamingASR(port, chunk_frames=24, batch_size=B,
+                                        device='cpu'), audio, valid))
+    s = StreamingASR(port, quantize=True, chunk_frames=24, batch_size=B,
+                     device='cpu')
+    got = _cat(_run_stream(s, audio, valid))
+    assert got.shape == f32.shape and s.qparams is not None
+    np.testing.assert_allclose(got, f32, rtol=0,
+                               atol=0.05 * np.abs(f32).max())
+    assert float(np.abs(got - f32).max()) > 0
