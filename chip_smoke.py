@@ -121,7 +121,24 @@ prints no result):
    drops the model, and the dequantization's share of a device step
    beside its bound; one bf16 step with remat_cells against one without
    (gradients bit-equal, 36 forward and 18 backward launches, peak memory
-   of each).
+   of each);
+16. the sweep, data parallelism and the native runtime: the native host
+   runtime (built with g++) parses seeded RIFF and SPHERE bytes as the
+   Python parser does, its Levenshtein equals edit_distance on the card on
+   phase 13's beam hypotheses, its beam search the card's where the top-2
+   margin is clear; run_sweep of the flagship and [[0,1],[2,1,0],[4,0,1,1]]
+   x seed 1234 x 1 epoch (B=32, beam eval, f32): 18 + 18 fused and 1 + 1
+   CTC launches a train step, 18 + 1 an eval batch, no plain call, the
+   file read back, the resume replay launching nothing and writing the
+   same bytes, the same rows on two worker threads sharing the card;
+   static_info_pass (the flagship's 26,339,349 parameters) and
+   benchmark_pass (median ms of 20 B=1, T=500 f32 forwards an arch, read
+   back by from_folder); the train twin under torchrun at --dp 1;
+   ParallelTrainer over NCCL at world size 1, its bf16 step bit-equal to
+   the plain Trainer's; two gloo ranks on the one card (f32, dropout 0,
+   B=16 each), their gradients before clipping within phase 8's bound of
+   one rank's on B=32, a planted world-size factor rejected; the CLI's
+   sweep, info and benchpass in subprocesses; entry()'s forward.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -134,6 +151,7 @@ import gc
 import io
 import json
 import pathlib
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -143,7 +161,8 @@ import numpy as np
 import torch
 
 import nbasr_torch
-from nbasr_torch import checkpoint, cli, quant, search, search_space
+from nbasr_torch import checkpoint, cli, entry, native, quant, search, \
+    search_space
 from nbasr_torch.convert import from_flax
 from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
@@ -156,6 +175,8 @@ from nbasr_torch.ops import _build, ctc, ctc_pallas, decode, fused_cell, \
     grouped_conv
 from nbasr_torch.ops.fused_cell import FusedCellSpec
 from nbasr_torch.ops.grouped_conv import to_split
+from nbasr_torch.parallel import ParallelTrainer, benchmark_pass, run_sweep, \
+    static_info_pass, unique_architectures
 from nbasr_torch.search_space import arch_vec_to_names
 from nbasr_torch.serving import StreamingASR, StreamingGreedyDecoder
 from nbasr_torch.training import Trainer, ratios
@@ -2857,6 +2878,465 @@ def check_phase15(device):
                  remat=remat_launches))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the native host runtime, the sweep, static info and latency,
+# data parallelism, the CLI and the entry points
+# ---------------------------------------------------------------------------
+
+REPO = pathlib.Path(__file__).resolve().parent
+#: the flagship and an arch of linear, conv5d2 and conv7d2 nodes
+P16_ARCHS = {'flagship': FLAGSHIP, 'linear+dilated': [[0, 1], [2, 1, 0],
+                                                      [4, 0, 1, 1]]}
+P16_SEED = 1234
+FLAGSHIP_PARAMS = 26_339_349
+BENCH_REPEATS = 20
+#: seconds a subprocess or a pair of spawned ranks of phase 16 may take
+P16_TIMEOUT_S = 600
+FUSED_CELLS = sum(CELLS_PER_BLOCK)
+
+
+def launch_counts():
+    return {'fused_forward': dict(fused_cell.LAUNCHES),
+            'fused_backward': dict(fused_cell.BACKWARD_LAUNCHES),
+            **{f'ctc_{k}': dict(v) for k, v in ctc_pallas.LAUNCHES.items()}}
+
+
+def reset_counts():
+    fused_cell.reset_launches()
+    ctc_pallas.reset_launches()
+
+
+def expected_counts(device, forwards=0, steps=0, evals=0):
+    """Launch counts of ``forwards`` eval forwards, ``steps`` train steps
+    and ``evals`` eval batches (forward and the loss's alpha): kernels on
+    the card, the plain versions on the CPU (a rehearsal)."""
+    used, other = (('kernel', 'plain') if device.type == 'cuda'
+                   else ('plain', 'kernel'))
+    count = lambda n: {used: n, other: 0}
+    return {'fused_forward': count(FUSED_CELLS * (forwards + steps + evals)),
+            'fused_backward': count(FUSED_CELLS * steps),
+            'ctc_alpha': count(steps + evals), 'ctc_beta': count(steps)}
+
+
+def _wav_bytes(audio, kind):
+    """Seeded 16 kHz PCM16 bytes as RIFF or NIST SPHERE."""
+    import struct
+    pcm = (np.clip(audio, -1, 1) * 32767).astype('<i2').tobytes()
+    if kind == 'riff':
+        return (b'RIFF' + struct.pack('<I', 36 + len(pcm)) + b'WAVE'
+                + b'fmt ' + struct.pack('<IHHIIHH', 16, 1, 1, SAMPLE_RATE,
+                                        SAMPLE_RATE * 2, 2, 16)
+                + b'data' + struct.pack('<I', len(pcm)) + pcm)
+    header = (f'NIST_1A\n   1024\nsample_rate -i {SAMPLE_RATE}\n'
+              f'sample_n_bytes -i 2\nsample_byte_format -s2 01\n'
+              f'channel_count -i 1\nend_head\n')
+    return header.encode('ascii').ljust(1024, b' ') + pcm
+
+
+def host_ms(fn, runs=5):
+    """Median host milliseconds of ``fn`` (the card synchronised after)."""
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def check_native(device, card):
+    """Phase 16, part 1: the native host runtime against the Python parser
+    and, on phase 13's eval batch, against the card's edit distance and
+    beam search.  Returns the readings."""
+    from nbasr_torch.data import timit
+    from nbasr_torch.ops.edit_distance import edit_distance
+    assert native.available(), 'the native runtime did not build with g++'
+    rng = np.random.RandomState(SEED + 16)
+    audio = (rng.randn(int(AUDIO_SECONDS * SAMPLE_RATE)) * 0.2).astype(
+        np.float32)
+    out = {}
+    for kind, parse in (('riff', timit._parse_riff),
+                        ('sphere', timit._parse_sphere)):
+        data = _wav_bytes(audio, kind)
+        got, rate = native.parse_wav(data)
+        want, want_rate = parse(data)
+        err = float(np.abs(got - want).max())
+        assert rate == want_rate == SAMPLE_RATE and got.shape == want.shape
+        assert err <= 1e-6, (kind, err)
+        out[f'parse_{kind}_ms'] = host_ms(lambda: native.parse_wav(data))
+        out[f'parse_{kind}_python_ms'] = host_ms(lambda: parse(data))
+
+    # phase 13's eval batch, its hypotheses and logits on the card
+    model = get_model(FLAGSHIP, use_rnn=True, data_norm=True, device=device,
+                      generator=torch.Generator().manual_seed(SEED + 13))
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    trainer = Trainer(loaders, device=device, verbose=False)
+    trainer.init_state(model, seed=SEED)
+    batch = trainer._put_batch(next(iter(loaders[2])))
+    with torch.no_grad():
+        logits, lsize = trainer._eval_logits(batch)
+    hyp, hyp_len, scores = decode._beam_search(logits, lsize, EVAL_BEAM,
+                                               None, 0)
+    refs = (batch['labels'], batch['label_size'])
+    on_card = edit_distance(hyp, hyp_len, *refs)
+    host = [t.cpu().numpy() for t in (hyp, hyp_len, *refs)]
+    got = native.levenshtein(*host)
+    assert np.array_equal(got, on_card.cpu().numpy()), (got, on_card)
+    out['levenshtein_ms'] = host_ms(lambda: native.levenshtein(*host))
+    out['edit_distance_card_ms'] = host_ms(
+        lambda: edit_distance(hyp, hyp_len, *refs))
+
+    lp = torch.log_softmax(logits.float(), dim=-1).cpu().numpy()
+    lens = lsize.cpu().numpy()
+    ids, n = native.beam_search(lp, lens, beam_width=EVAL_BEAM)
+    top2 = scores.topk(2, dim=1).values.cpu()
+    clear = (((top2[:, 0] - top2[:, 1]) > BEAM_MARGIN)
+             & (batch['valid'].cpu() > 0)).numpy()
+    hyp, hyp_len = hyp.cpu().numpy(), hyp_len.cpu().numpy()
+    same = np.array([ids[b, :n[b]].tolist() == hyp[b, :hyp_len[b]].tolist()
+                     for b in range(len(n))])
+    out['beam_rows_compared'] = int(clear.sum())
+    out['beam_host_ms'] = host_ms(
+        lambda: native.beam_search(lp, lens, beam_width=EVAL_BEAM), runs=3)
+    out['beam_card_ms'] = host_ms(
+        lambda: decode._beam_search(logits, lsize, EVAL_BEAM, None, 0), runs=3)
+    print(f'native: built with g++ ({native._target().name}); parse_wav RIFF '
+          f'{out["parse_riff_ms"]:.3f} ms / SPHERE {out["parse_sphere_ms"]:.3f}'
+          f' ms for {AUDIO_SECONDS:g} s (Python {out["parse_riff_python_ms"]:.3f}'
+          f' / {out["parse_sphere_python_ms"]:.3f} ms), equal within 1e-6; '
+          f'levenshtein on phase 13\'s {tuple(hyp.shape)} beam hypotheses '
+          f'{out["levenshtein_ms"]:.3f} ms, equal to edit_distance on the '
+          f'card ({out["edit_distance_card_ms"]:.3f} ms); host beam search '
+          f'W={EVAL_BEAM} {out["beam_host_ms"]:.3f} ms against the card\'s '
+          f'{out["beam_card_ms"]:.3f} ms, ids equal on {int(same[clear].sum())}'
+          f'/{int(clear.sum())} valid rows whose best two beams differ by '
+          f'more than {BEAM_MARGIN:g} ({int(same.sum())}/{len(same)} in all) '
+          f'[{card}]')
+    assert clear.sum() > 0 and same[clear].all()
+    return out
+
+
+def _db_rows(path):
+    with open(path, 'rb') as f:
+        pickle.load(f)
+        return pickle.load(f)
+
+
+def check_sweep(device, root, card):
+    """Phase 16, part 2: ``run_sweep`` of the two archs x one seed x one
+    epoch on the train data, B=32, beam eval, in f32; its launches, its
+    file read back, the resume replay (no launch, the same bytes), and the
+    same sweep on two worker threads sharing the card.  Returns the
+    readings and the launches of the first run."""
+    archs = list(P16_ARCHS.values())
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    steps, evals = loaders[1].steps, len(list(loaders[2])) + len(
+        list(loaders[3]))
+    want = expected_counts(device, steps=len(archs) * steps,
+                           evals=len(archs) * evals)
+    kw = dict(seeds=(P16_SEED,), data_root=TRAIN_DATA, batch_size=TRAIN_B,
+              epochs=1, devices=[device], progress=True)
+    out = {}
+    with deterministic_cudnn(), timed_plans() as plans:
+        reset_counts()
+        t0 = time.perf_counter()
+        (path,) = run_sweep(archs, out_dir=str(root / 'sweep'), **kw)
+        out['wall_s'] = time.perf_counter() - t0
+    launches = launch_counts()
+    assert launches == want, (launches, want)
+    out['plan_s'] = plans['s']
+    db = nbasr_torch.from_folder(root / 'sweep', max_epochs=1, devices=False)
+    rows = {}
+    for name, arch in P16_ARCHS.items():
+        info = db.full_info(arch, seed=P16_SEED)
+        assert len(info['val_per']) == 1 and np.isfinite(info['test_per'])
+        rows[name] = (info['val_per'][0], info['test_per'])
+    first = path.read_bytes()
+
+    reset_counts()
+    (again,) = run_sweep(archs, out_dir=str(root / 'sweep'), **kw)
+    assert launches_zero(launch_counts()), launch_counts()
+    assert again.read_bytes() == first
+
+    with deterministic_cudnn():
+        reset_counts()
+        t0 = time.perf_counter()
+        (threaded,) = run_sweep(archs, out_dir=str(root / 'threads'),
+                                workers=2, **kw)
+        out['wall_s_workers2'] = time.perf_counter() - t0
+    threaded_launches = launch_counts()
+    assert threaded_launches == want, (threaded_launches, want)
+    assert _db_rows(threaded) == _db_rows(path), (_db_rows(threaded),
+                                                  _db_rows(path))
+    jobs = len(archs)
+    print(f'sweep: {jobs} archs x seed {P16_SEED} x 1 epoch ({steps} train '
+          f'steps and {evals} beam eval batches a job, B={TRAIN_B}, f32): '
+          f'{out["wall_s"]:.1f} s, {out["wall_s"] / jobs:.1f} s per '
+          f'arch-epoch, planning {plans["s"]:.2f} s ({plans["plans"]} plans, '
+          f'{plans["s"] / out["wall_s"]:.0%}); launches {launches}; PER '
+          f'(val, test) {rows}; the replay launched nothing and wrote the '
+          f'same {len(first)} bytes; workers=2 on the one card '
+          f'{out["wall_s_workers2"]:.1f} s, the same rows and launches '
+          f'[{card}]')
+    out['rows'] = rows
+    return out, launches, threaded_launches
+
+
+def launches_zero(counts):
+    return all(v == 0 for c in counts.values() for v in c.values())
+
+
+def check_static_and_latency(device, root, card):
+    """Phase 16, part 3: ``static_info_pass`` on the two archs (the
+    flagship's 26,339,349 parameters), ``benchmark_pass`` on them and
+    ``unique_architectures(2)`` (18 fused launches a forward, 21 forwards
+    an arch), the latency table read back by ``from_folder``.  Returns the
+    readings and the launches."""
+    from nbasr_torch.parallel.sweep import device_key
+    archs = list(P16_ARCHS.values())
+    info = static_info_pass(archs, out_dir=str(root / 'sweep'), device=device)
+    db = nbasr_torch.from_folder(root / 'sweep', max_epochs=1,
+                                 include_static_info=True, devices=False)
+    assert db.params(FLAGSHIP) == FLAGSHIP_PARAMS, db.params(FLAGSHIP)
+    static = {name: (db.params(a), db.flops(a))
+              for name, a in P16_ARCHS.items()}
+    bench = archs + [a for a in unique_architectures(2).values()
+                     if a not in archs]
+    reset_counts()
+    t0 = time.perf_counter()
+    path = benchmark_pass(bench, out_dir=str(root / 'sweep'),
+                          repeats=BENCH_REPEATS, device=device)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = expected_counts(device, forwards=len(bench) * (BENCH_REPEATS + 1))
+    assert launches == want, (launches, want)
+    key = device_key(device)
+    assert path.name == f'nb-asr-bench-{key}.pickle'
+    db = nbasr_torch.from_folder(root / 'sweep', max_epochs=1, devices=[key])
+    ms = {}
+    for arch in bench:
+        (row,) = db.latency(arch, devices=key)
+        ms[search_space.get_model_hash(arch)] = 1e3 * row[0]
+    print(f'static info: {info.name}, (params, algorithmic flops of a B=1, '
+          f'500-frame forward) {static}; benchmark_pass: {len(bench)} archs x '
+          f'{BENCH_REPEATS} f32 forwards at B=1, T=500 in {wall:.1f} s, '
+          f'median ms per forward ' + ', '.join(
+              f'{h[:8]} {v:.3f}' for h, v in ms.items())
+          + f'; {path.name} read back by from_folder(devices=[{key!r}]); '
+          f'launches {launches} [{card}]')
+    return dict(static=static, bench_ms=ms, key=key), launches
+
+
+def _dp_model(device, seed):
+    """Phase 16 (c)'s model: the flagship in f32 with no dropout."""
+    return get_model(FLAGSHIP, use_rnn=True, dropout_rate=0.0,
+                     cell_dropout=0.0, data_norm=True, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+
+
+def _allreduce_ms(numel, device, group=None, runs=5):
+    """Median ms of one all-reduce of ``numel`` f32 on ``device`` (the
+    gradient bytes of one step in one tensor)."""
+    import torch.distributed as dist
+    flat = torch.ones(numel, dtype=torch.float32, device=device)
+    return host_ms(lambda: dist.all_reduce(flat, group=group), runs=runs)
+
+
+def _dp_rank(rank, world, device, seed, data, batch_size):
+    """One of phase 16 (c)'s gloo ranks: the gradients before clipping of
+    its half of the train batch (rank 0 returns them), its launches, and
+    the ms of an all-reduce of the step's gradients."""
+    torch.backends.cudnn.allow_tf32 = False       # f32 means f32 here too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loaders = get_dataloaders(data, batch_size=batch_size, num_shards=world,
+                              shard_index=rank)
+    batch = next(iter(loaders[1].full))
+    trainer = ParallelTrainer(loaders, device=device, verbose=False)
+    trainer.init_state(_dp_model(device, seed), seed=seed)
+    trainer.gradients(batch)                      # warm-up: plans
+    reset_counts()
+    with deterministic_cudnn():
+        grads, m = trainer.gradients(batch)
+    launches = launch_counts()
+    ms = _allreduce_ms(count_params(trainer.model), device, trainer.group)
+    return (({k: v.cpu() for k, v in grads.items()} if rank == 0 else None),
+            m, launches, ms, len(batch['valid']))
+
+
+def check_data_parallel(device, root, card):
+    """Phase 16, part 4: (a) the train twin under torchrun at --dp 1; (b)
+    ParallelTrainer over NCCL at world size 1, one bf16 step against the
+    plain Trainer's; (c) two gloo ranks on the one card against one
+    rank's gradients on the whole batch.  Returns the readings and the
+    launches."""
+    import torch.distributed as dist
+    from nbasr_torch.parallel.mesh import free_port, spawn
+    out, launches = {}, {}
+    flat = [str(v) for v in flatten(FLAGSHIP)]
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', '1', '-m', 'nbasr_torch.train', *flat,
+           '--dp', '1', '--data', TRAIN_DATA, '--batch_size', str(TRAIN_B),
+           '--epochs', '1', '--device', device.type, '--exp_folder',
+           str(root / 'dp1')]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=P16_TIMEOUT_S)
+    out['torchrun_s'] = time.perf_counter() - t0
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-4000:])
+    assert run.returncode == 0, ('torchrun --dp 1', run.returncode)
+    scores = list((root / 'dp1' / 'torch').rglob('test_scores.pickle'))
+    assert len(scores) == 1, scores
+    print(f'torchrun --nproc_per_node 1 -m nbasr_torch.train ... --dp 1: '
+          f'exit 0 in {out["torchrun_s"]:.1f} s, '
+          f'{scores[0].relative_to(root)} written; its last line: '
+          f'{run.stdout.strip().splitlines()[-1][:200]}')
+
+    # (b) world size 1 over NCCL against the plain Trainer
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    dist.init_process_group(backend, init_method=f'tcp://127.0.0.1:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+        batch = next(iter(loaders[1].full))
+        plain = Trainer(loaders, device=device)
+        plain.init_state(_train_model(device, SEED), seed=SEED)
+        par = ParallelTrainer(loaders, device=device)
+        par.init_state(_train_model(device, SEED), seed=SEED)
+        with deterministic_cudnn():
+            plain.step(batch, lr=1e-4)
+            reset_counts()
+            m = par.step(batch, lr=1e-4)
+        launches['world1_step'] = launch_counts()
+        assert launches['world1_step'] == expected_counts(device, steps=1)
+        bad = _bit_equal_states(plain, par)
+        assert not bad, bad[:5]
+        assert np.isfinite(m['ctc_loss'])
+        out['allreduce_ms_world1'] = _allreduce_ms(
+            count_params(par.model), device, par.group)
+        print(f'ParallelTrainer, world size 1 over {backend}: one bf16 '
+              f'B={TRAIN_B} step, launches {launches["world1_step"]}, '
+              f'parameters and Adam state bit-equal to the plain Trainer\'s '
+              f'step (cuDNN deterministic); all-reduce of the step\'s '
+              f'{count_params(par.model):,} f32 gradients in one tensor '
+              f'{out["allreduce_ms_world1"]:.3f} ms [{card}]')
+        del plain, par
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) two gloo ranks on the one card against one rank's whole batch
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batch = next(iter(loaders[1].full))
+    nudged = dict(batch, audio=(batch['audio'] * (1 + 1e-7 * np.random.RandomState(
+        SEED).randn(*batch['audio'].shape))).astype(np.float32))
+    single = Trainer(loaders, device=device, verbose=False)
+    single.init_state(_dp_model(device, SEED), seed=SEED)
+    single.gradients(batch)                       # warm-up: plans
+    with deterministic_cudnn():
+        want, want_m = single.gradients(batch)
+        near, _ = single.gradients(nudged)
+    want = {k: v.cpu() for k, v in want.items()}
+    near = {k: v.cpu() for k, v in near.items()}
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_rank, [device, device], (SEED, TRAIN_DATA, TRAIN_B),
+                  timeout=P16_TIMEOUT_S)
+    out['gloo_s'] = time.perf_counter() - t0
+    got, got_m, _, _, rows = ranks[0]
+    for r, (_, m, counts, ms, n) in enumerate(ranks):
+        assert counts == expected_counts(device, steps=1), (r, counts)
+        assert m['ctc_loss'] == ranks[0][1]['ctc_loss']
+    launches['gloo_rank_step'] = ranks[0][2]
+    out['allreduce_ms_gloo2'] = ranks[0][3]
+
+    def shares(a, ref):
+        return {n: float((a[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                       1e-30)
+                for n, w in ref.items()}
+
+    assert got.keys() == want.keys()
+    bounds = kernel_grad_bounds(shares(near, want))
+    honest, honest_at = over_bound(shares(got, want), bounds)
+    planted, planted_at = over_bound(
+        shares({n: 2 * g for n, g in got.items()}, want), bounds)
+    print(f'two gloo ranks on the one card, f32, dropout 0, B={rows} each: '
+          f'loss {got_m["ctc_loss"]:.6f} against one rank on B={TRAIN_B} '
+          f'{want_m["ctc_loss"]:.6f}; gradients before clipping at '
+          f'{honest:.3f} of their bound ({honest_at}), bound per tensor '
+          f'min({KERNEL_GRAD_CAP:g}, max({KERNEL_GRAD_TOL:g}, '
+          f'{KERNEL_GRAD_FACTOR:g} x the 1-ulp audio nudge)) '
+          f'{min(bounds.values()):.2e} to {max(bounds.values()):.2e}: passed; '
+          f'a planted world-size factor at {planted:.1f} of its bound '
+          f'({planted_at}): rejected; launches a rank {ranks[0][2]}; '
+          f'all-reduce of the step\'s gradients over gloo '
+          f'{out["allreduce_ms_gloo2"]:.3f} ms; {out["gloo_s"]:.1f} s with '
+          f'the processes\' start [{card}]')
+    assert planted > 1.0, ('the check passed a world-size factor', planted)
+    assert honest <= 1.0, ('two ranks against one', honest_at, honest)
+    out.update(gloo_over_bound=honest, planted_over_bound=planted,
+               loss=got_m['ctc_loss'], loss_one_rank=want_m['ctc_loss'])
+    return out, launches
+
+
+def check_cli_and_entry(device, root, card):
+    """Phase 16, part 5: the CLI's sweep, info and benchpass in
+    subprocesses, then ``entry()``'s forward (18 fused launches).  Returns
+    the readings and the entry's launches."""
+    out = {}
+    for cmd in (['sweep', '--archs', '1', '--seeds', str(P16_SEED),
+                 '--data', TRAIN_DATA, '--epochs', '1', '--batch_size',
+                 str(TRAIN_B)], ['info', '--archs', '2'],
+                ['benchpass', '--archs', '2']):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, '-m', 'nbasr_torch.cli', *cmd, '--device',
+             device.type, '--out', str(root / 'cli')], cwd=REPO,
+            capture_output=True, text=True, timeout=P16_TIMEOUT_S)
+        if run.returncode:
+            print(run.stdout[-4000:], run.stderr[-4000:])
+        assert run.returncode == 0, (cmd, run.returncode)
+        written = pathlib.Path(run.stdout.strip().splitlines()[-1])
+        assert written.exists(), written
+        out[cmd[0] + '_s'] = time.perf_counter() - t0
+        print(f'python -m nbasr_torch.cli {" ".join(cmd)}: exit 0 in '
+              f'{out[cmd[0] + "_s"]:.1f} s, wrote {written.name}')
+    fn, args = entry.entry(device=device)
+    fn(*args)                                     # warm-up: plans
+    reset_counts()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    assert launches == expected_counts(device, forwards=1), launches
+    assert bool(torch.isfinite(logits).all()) and logits.shape[0] == 2
+    print(f'entry(): the flagship forward at B=2, T=296, logits '
+          f'{tuple(logits.shape)}, launches {launches} [{card}]')
+    return out, launches
+
+
+def check_phase16(device):
+    """Phase 16.  Returns (readings, launches by part)."""
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        native_r = check_native(device, card)
+        sweep_r, sweep_l, threads_l = check_sweep(device, root, card)
+        static_r, bench_l = check_static_and_latency(device, root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_r, dp_l = check_data_parallel(device, root, card)
+        cli_r, entry_l = check_cli_and_entry(device, root, card)
+    return (dict(native=native_r, sweep=sweep_r, static=static_r,
+                 data_parallel=dp_r, cli=cli_r, card=card),
+            dict(sweep=sweep_l, sweep_workers2=threads_l, benchmark=bench_l,
+                 world1_step=dp_l['world1_step'],
+                 gloo_rank_step=dp_l['gloo_rank_step'], entry=entry_l))
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2907,6 +3387,7 @@ def main():
     eval_alpha, evaluation = timed('phase 13', check_eval, device)
     nas_rows, nas_counts, nas_search = timed('phase 14', check_nas, device)
     p15, p15_launches = timed('phase 15', check_phase15, device)
+    p16, p16_launches = timed('phase 16', check_phase16, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -3008,6 +3489,17 @@ def main():
     for entry in kernels:
         if entry['name'] in phase15:
             entry['launches_phase15'] = phase15[entry['name']]
+    # phase 16's paths: the sweep (its first run, then on two worker
+    # threads), the latency pass, the data-parallel steps and entry()
+    for entry_row in kernels:
+        key = {'fused_cell_forward': 'fused_forward',
+               'fused_cell_backward': 'fused_backward'}.get(
+                   entry_row['name'], entry_row['name'])
+        if key in p16_launches['sweep']:
+            entry_row['launches_phase16'] = {
+                part: counts[key]['kernel']
+                for part, counts in p16_launches.items()
+                if counts[key]['kernel']}
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '
@@ -3027,7 +3519,11 @@ def main():
           f'per device step, {p15["int8_serving"]["audio_s_per_s"]:.1f} '
           f'audio-s/s, {p15["int8_serving"]["resident_mb"]:.3f} MB resident; '
           f'checkpoint write {p15["checkpoint"]["write_s"]:.3f} s, read '
-          f'{p15["checkpoint"]["read_s"]:.3f} s')
+          f'{p15["checkpoint"]["read_s"]:.3f} s; sweep '
+          f'{p16["sweep"]["wall_s"] / len(P16_ARCHS):.1f} s per arch-epoch; '
+          f'benchmark_pass ' + ', '.join(
+              f'{h[:8]} {v:.3f} ms' for h, v in p16['static']['bench_ms'].items())
+          + ' a B=1 forward')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,28 +1,29 @@
-"""Subcommand CLI of the port: query / hash / viz / proxies / quantize.
+"""Subcommand CLI of the port: query / hash / sweep / static info / bench
+pass / viz / proxies / quantize.
 
 Counterpart of ``nbasr_tpu/cli.py``, with its parser:
 
     python -m nbasr_torch.cli query db/ 1 0 1 0 0 1 0 0 0 --seed 1235
     python -m nbasr_torch.cli hash 1 0 1 0 0 1 0 0 0
+    python -m nbasr_torch.cli sweep --archs 4 --seeds 1234 \
+        --data synthetic:32 --epochs 2 --out db/
+    python -m nbasr_torch.cli info --archs 4 --out db/
+    python -m nbasr_torch.cli benchpass --archs 4 --out db/
     python -m nbasr_torch.cli viz 1 0 1 0 0 1 0 0 0 --out graphs/
     python -m nbasr_torch.cli proxy synflow 1 0 1 0 0 1 0 0 0
     python -m nbasr_torch.cli quantize results/jax/<run>/best.ckpt
 
-``proxy`` runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given.  ``quantize`` reads a checkpoint of either
-trainer (the JAX trainer's flax msgpack without flax), int8-quantizes its
-parameters and writes the JAX package's ``<ckpt>.int8.npz``; it runs on the
-host.  ``sweep``, ``info`` and ``benchpass`` take the JAX package's
-arguments and raise NotImplementedError until the port has their modules.
+``sweep``, ``info``, ``benchpass`` and ``proxy`` run on the card
+(``--device cuda``, the default: for ``sweep`` every visible card, in
+groups of ``--group_size``) unless ``--device cpu`` is given.  ``info``'s
+FLOPs column is the algorithmic count, not XLA's.  ``quantize`` reads a
+checkpoint of either trainer (the JAX trainer's flax msgpack without flax),
+int8-quantizes its parameters and writes the JAX package's
+``<ckpt>.int8.npz``; it runs on the host.
 """
 
 import argparse
 import json
-
-#: The subcommands the port does not run yet, with the ROADMAP.md queue 1
-#: item that brings each.
-_LATER = {'sweep': 'Parallel and sweeps', 'info': 'Parallel and sweeps',
-          'benchpass': 'Parallel and sweeps'}
 
 
 def _arch(ints):
@@ -52,15 +53,18 @@ def main(argv=None):
     s.add_argument('--out', type=str, default='nb-asr-db')
     s.add_argument('--group_size', type=int, default=None)
     s.add_argument('--decoder', type=str, default='beam')
+    s.add_argument('--device', type=str, default='cuda')
 
     i = sub.add_parser('info', help='write params/FLOPs static-info file')
     i.add_argument('--archs', type=int, default=None)
     i.add_argument('--out', type=str, default='nb-asr-db')
+    i.add_argument('--device', type=str, default='cuda')
 
     b = sub.add_parser('benchpass', help='measure latency per arch on this device')
     b.add_argument('--archs', type=int, default=None)
     b.add_argument('--out', type=str, default='nb-asr-db')
     b.add_argument('--device_name', type=str, default=None)
+    b.add_argument('--device', type=str, default='cuda')
 
     v = sub.add_parser('viz', help='render an arch graph to DOT/PNG')
     v.add_argument('model', type=int, nargs=9)
@@ -80,10 +84,6 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
 
-    if args.cmd in _LATER:
-        raise NotImplementedError(
-            f'{args.cmd!r} is not ported yet (see ROADMAP.md, queue 1: '
-            f'{_LATER[args.cmd]})')
     if args.cmd == 'hash':
         from .search_space import get_model_hash
         print(get_model_hash(_arch(args.model)))
@@ -92,6 +92,24 @@ def main(argv=None):
         d = from_folder(args.folder, max_epochs=args.max_epochs)
         info = d.full_info(_arch(args.model), seed=args.seed)
         print(json.dumps(info, default=str, indent=2))
+    elif args.cmd == 'sweep':
+        from .parallel.sweep import run_sweep
+        paths = run_sweep(args.archs, seeds=tuple(args.seeds),
+                          data_root=args.data, out_dir=args.out,
+                          batch_size=args.batch_size, epochs=args.epochs,
+                          lr=args.lr, group_size=args.group_size,
+                          eval_decoder=args.decoder,
+                          devices=_sweep_devices(args.device))
+        print('\n'.join(map(str, paths)))
+    elif args.cmd == 'info':
+        from .parallel.sweep import static_info_pass
+        print(static_info_pass(args.archs, out_dir=args.out,
+                               device=args.device))
+    elif args.cmd == 'benchpass':
+        from .parallel.sweep import benchmark_pass
+        print(benchmark_pass(args.archs, out_dir=args.out,
+                             device_name=args.device_name,
+                             device=args.device))
     elif args.cmd == 'viz':
         from .graph_utils import show_model
         for path in show_model(_arch(args.model), out_dir=args.out):
@@ -114,6 +132,11 @@ def main(argv=None):
         qb, fb = quantized_size_bytes(qtree)
         print(json.dumps({'out': out, 'int8_bytes': qb, 'f32_bytes': fb,
                           'ratio': round(qb / fb, 3)}))
+
+
+def _sweep_devices(device):
+    """``'cuda'``: every visible card (None); else the one device named."""
+    return None if device == 'cuda' else [device]
 
 
 def _checkpoint_params(path):

@@ -1,8 +1,6 @@
 """Host-side batching: bucketing, fixed padded shapes, curriculum.
 
-The port's own, jax-free copy of ``nbasr_tpu/data/pipeline.py`` (one
-process; the JAX package's host sharding belongs to the distributed
-runners, a later slice):
+The port's own, jax-free copy of ``nbasr_tpu/data/pipeline.py``:
 
   - **Bucketing** by feature-frame count with boundary 300 and per-bucket
     batch sizes ``[min(bs,64), min(bs,48)]`` (reference
@@ -13,6 +11,11 @@ runners, a later slice):
     120-137``): short-utterance passes ([16000 samples x2 epochs], [32000
     x2]) come before the endless full-data stream; epochs are counted in
     full-dataset steps.
+  - **Host sharding** for data parallelism (``num_shards``,
+    ``shard_index``): batches stay schedule-global (every shard walks the
+    same batches, each batch size rounded up to ``num_shards``) and shard
+    *s* materialises the contiguous rows ``[s*bs/n, (s+1)*bs/n)`` of each;
+    the shards' rows, concatenated, are the unsharded schedule's batch.
 
 Batches are dicts of numpy arrays:
   ``audio [B, S]`` float32, ``feature_size [B]`` int32 (true frame counts),
@@ -84,7 +87,10 @@ class Loader:
     def __init__(self, dataset, batch_size, frontend=None,
                  bucket_boundaries=(300,), bucket_batch_caps=(64, 48),
                  shuffle=False, seed=0, max_label_len=None,
-                 max_audio_samples=None):
+                 num_shards=1, shard_index=0, max_audio_samples=None):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f'shard_index {shard_index} not in '
+                             f'[0, {num_shards})')
         self.dataset = dataset
         self.frontend = frontend or FrontendConfig()
         self.shuffle = shuffle
@@ -97,15 +103,21 @@ class Loader:
                        if len(dataset.audio[i]) < max_audio_samples]
         if not indices:
             raise ValueError('Loader has no utterances after filtering')
+        #: global indices, the same on every shard
         self.indices = indices
+        self.num_shards = num_shards
+        self.shard_index = shard_index
 
         frames = np.array([num_frames(len(dataset.audio[i]), self.frontend)
                            for i in indices])
         boundaries = list(bucket_boundaries)
         self.bucket_of = np.searchsorted(boundaries, frames, side='left')
         num_buckets = len(boundaries) + 1
-        self.batch_sizes = [min(batch_size, cap)
+        # global batch sizes, rounded up to a multiple of num_shards so that
+        # every shard holds the same number of rows
+        self.batch_sizes = [_round_up(min(batch_size, cap), num_shards)
                             for cap in bucket_batch_caps[:num_buckets]]
+        self.local_batch_sizes = [bs // num_shards for bs in self.batch_sizes]
 
         # Static padded shapes per bucket: frames pad to the boundary (or the
         # split max, rounded up) and audio samples pad accordingly.
@@ -131,8 +143,12 @@ class Loader:
                          for b, bs in enumerate(self.batch_sizes))
 
     def _make_batch(self, idxs, bucket):
+        """This shard's rows of one global batch: ``idxs`` are the global
+        batch's dataset indices, and shard *s* owns the contiguous global
+        rows ``[s*bs, (s+1)*bs)`` of the local batch size ``bs``."""
         ds, cfg = self.dataset, self.frontend
-        bs = self.batch_sizes[bucket]
+        bs = self.local_batch_sizes[bucket]
+        lo = self.shard_index * bs
         S = self.bucket_samples[bucket]
         L = self.max_label_len
         audio = np.zeros((bs, S), np.float32)
@@ -140,7 +156,10 @@ class Loader:
         labels = np.zeros((bs, L), np.int32)
         label_size = np.zeros((bs,), np.int32)
         valid = np.zeros((bs,), np.float32)
-        for r, i in enumerate(idxs):
+        for row, i in enumerate(idxs):
+            r = row - lo
+            if not 0 <= r < bs:
+                continue                      # another shard's row
             a, l = ds.audio[i], ds.labels[i]
             audio[r, :len(a)] = a[:S]
             feature_size[r] = num_frames(min(len(a), S), cfg)
@@ -194,10 +213,13 @@ class CurriculumStream:
 
 
 def get_dataloaders(root, batch_size=64, curriculum=DEFAULT_CURRICULUM,
-                    seed=0, splits=('TRAIN', 'VAL', 'TEST')):
+                    num_shards=1, shard_index=0, seed=0,
+                    splits=('TRAIN', 'VAL', 'TEST')):
     """``(encoder, train, val, test)`` like the reference facade.  ``root``
     is a TIMIT directory or ``'synthetic[:N]'`` for the built-in fake corpus
-    (N utterances in TRAIN, N//4 in VAL and TEST)."""
+    (N utterances in TRAIN, N//4 in VAL and TEST).  With ``num_shards`` > 1
+    every split, the eval splits too, is this ``shard_index``'s shard of
+    the schedule-global batches (:class:`Loader`)."""
     encoder = PhonemeEncoder(48)
 
     def make_dataset(split):
@@ -213,14 +235,15 @@ def get_dataloaders(root, batch_size=64, curriculum=DEFAULT_CURRICULUM,
     for split in splits:
         ds = make_dataset(split)
         is_train = split == 'TRAIN'
-        full = Loader(ds, batch_size, shuffle=is_train, seed=seed)
+        shard = dict(num_shards=num_shards, shard_index=shard_index)
+        full = Loader(ds, batch_size, shuffle=is_train, seed=seed, **shard)
         if is_train and curriculum:
             stages = []
             for max_samples, epochs in curriculum:
                 try:
                     stages.append((Loader(
                         ds, batch_size, shuffle=True, seed=seed + 101,
-                        max_label_len=full.max_label_len,
+                        max_label_len=full.max_label_len, **shard,
                         max_audio_samples=max_samples), epochs))
                 except ValueError:
                     pass  # no utterances under this limit (tiny synthetic sets)

@@ -1,7 +1,8 @@
 """TIMIT corpus reading: wav audio (RIFF or NIST SPHERE) + .PHN transcripts.
 
-The port's own copy of ``nbasr_tpu/data/timit.py``, without its optional
-C++ parser.  Host-side, numpy-only.  Replaces the reference's TF reader
+The port's own copy of ``nbasr_tpu/data/timit.py``, with its C++ parser
+(:mod:`nbasr_torch.native`) as the fast path of :func:`read_wav`.
+Host-side.  Replaces the reference's TF reader
 (``training/tf/datasets/audio_sentence_timit.py``) and torch reader
 (``training/torch/timit.py:14-54``) with one implementation that reads
 *both* sox-converted ``*.RIFF.WAV`` files and the original NIST SPHERE
@@ -71,9 +72,16 @@ def _parse_riff(data):
     return audio, sample_rate
 
 
-def read_wav(path):
-    """Read a TIMIT wav (RIFF or NIST SPHERE) -> (float32 audio in [-1,1], rate)."""
+def read_wav(path, use_native=True):
+    """Read a TIMIT wav (RIFF or NIST SPHERE) -> (float32 audio in [-1,1], rate).
+
+    Uses the C++ parser (:mod:`nbasr_torch.native`) where it is built, the
+    numpy parser otherwise."""
     data = pathlib.Path(path).read_bytes()
+    if use_native:
+        from .. import native
+        if native.available():
+            return native.parse_wav(data)
     if data[:8] == b'NIST_1A\n':
         return _parse_sphere(data)
     return _parse_riff(data)

@@ -5,7 +5,9 @@ interface, compiled by ``nvcc`` for Hopper (``sm_90a``) at first use into
 ``build/nbasr_torch/`` beside the package (listed in ``.gitignore``).  The
 file name carries a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  :func:`build` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once.  :data:`LOCK` serialises building and
+loading across threads (a threaded sweep's trainers reach :func:`load` on
+their first step together), and each build writes its own temporary file.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
@@ -16,9 +18,11 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
-__all__ = ['build', 'load', 'function', 'check', 'BUILD_DIR', 'NVCC_FLAGS']
+__all__ = ['build', 'load', 'function', 'check', 'count_launch', 'BUILD_DIR',
+           'NVCC_FLAGS', 'LOCK']
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
@@ -27,6 +31,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LIBS = {}
+#: Held while a library is built or loaded (reentrant: :func:`load` builds).
+LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts, key):
+    """``counts[key] += 1`` under a lock: the kernels' launch counters are
+    read as exact counts of runs that launch from several threads."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def _nvcc():
@@ -54,6 +68,11 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
     seconds that library's nvcc took and holds ptxas's register and
     shared-memory report, empty for a library found already built.
     """
+    with LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names):
     out, procs = {}, {}
     t0 = time.perf_counter()
     for name in names:
@@ -62,7 +81,8 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
             out[name] = (target, '')
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f'{target.name}.{os.getpid()}.tmp')
+        tmp = target.with_name(
+            f'{target.name}.{os.getpid()}.{threading.get_ident()}.tmp')
         log = tmp.with_suffix('.log')
         cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / f'{name}.cu')]
         with open(log, 'w') as f:       # a file: ptxas's report may fill a pipe
@@ -91,10 +111,14 @@ def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
 
 def load(name):
     """The ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
-    if name not in _LIBS:
-        path, _ = build((name,))[name]
-        _LIBS[name] = ctypes.CDLL(str(path))
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is None:
+        with LOCK:
+            if name not in _LIBS:
+                path, _ = build((name,))[name]
+                _LIBS[name] = ctypes.CDLL(str(path))
+            lib = _LIBS[name]
+    return lib
 
 
 def function(name, fn_name, argtypes, restype=ctypes.c_int):

@@ -104,7 +104,7 @@ def ctc_loss_pallas(logits, logit_len, labels, label_len, blank=0):
 
 def alpha_scan_reference(em, skip_ok):
     """The plain version of :func:`alpha_scan_pallas`."""
-    LAUNCHES['alpha']['plain'] += 1
+    _build.count_launch(LAUNCHES['alpha'], 'plain')
     S = em.shape[2]
     cols = torch.arange(S, device=em.device)
     alpha = torch.where(cols < 2, em[0], _NEG_INF)
@@ -119,7 +119,7 @@ def alpha_scan_reference(em, skip_ok):
 
 def beta_scan_reference(em, skip_ok, final_states):
     """The plain version of :func:`beta_scan_pallas`."""
-    LAUNCHES['beta']['plain'] += 1
+    _build.count_launch(LAUNCHES['beta'], 'plain')
     skip_next = _skip_next(skip_ok)
     beta = torch.where(final_states, 0.0, _NEG_INF).to(em.dtype)
     out = [beta]
@@ -250,7 +250,7 @@ def _launch_alpha(em, skip_ok):
         err = fn(T, B, S, em.data_ptr(), skip.data_ptr(), alphas.data_ptr(),
                  _ptr(state), ctypes.cast(plan, _P), _stream(em))
     _build.check(err, 'ctc', 'CTC alpha')
-    LAUNCHES['alpha']['kernel'] += 1
+    _build.count_launch(LAUNCHES['alpha'], 'kernel')
     return alphas
 
 
@@ -265,5 +265,5 @@ def _launch_beta(em, skip_ok, final_states):
                  betas.data_ptr(), _ptr(state), ctypes.cast(plan, _P),
                  _stream(em))
     _build.check(err, 'ctc', 'CTC beta')
-    LAUNCHES['beta']['kernel'] += 1
+    _build.count_launch(LAUNCHES['beta'], 'kernel')
     return betas

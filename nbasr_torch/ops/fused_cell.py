@@ -284,7 +284,7 @@ def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
     f32, node outputs rounded to ``x.dtype``, f32 LayerNorm statistics, the
     result rounded to ``x.dtype``.  ``save=True`` returns ``(y, outs,
     mults)`` as :func:`fused_cell_train_forward` does."""
-    LAUNCHES['plain'] += 1
+    _build.count_launch(LAUNCHES, 'plain')
     B, T, C = x.shape
     n = len(spec.nodes)
     if spec.dropping:
@@ -344,7 +344,7 @@ def fused_cell_backward_reference(spec, x, outs, mults, dy, weights, ln):
     buffers in f32, db from the f32 ``dz``, ``dz`` rounded to x's dtype
     before the dW and dx products, dW rounded to x's dtype, dx rounded to
     x's dtype.  Returns what :func:`fused_cell_backward` returns."""
-    BACKWARD_LAUNCHES['plain'] += 1
+    _build.count_launch(BACKWARD_LAUNCHES, 'plain')
     B, T, C = x.shape
     n = len(spec.nodes)
     inputs = [x] + list(outs.unbind(0))
@@ -649,7 +649,7 @@ def _launch(spec, x, weights, ln, seed, save):
                  int(spec.use_norm), spec.ln_eps, seed_ptr, thr, keep_scale,
                  mults.data_ptr() if save else None, stream)
     _build.check(err, 'fused_cell', 'fused cell forward')
-    LAUNCHES['kernel'] += 1
+    _build.count_launch(LAUNCHES, 'kernel')
     return (y, scratch, mults) if save else (y, None, None)
 
 
@@ -727,5 +727,5 @@ def _launch_backward(spec, x, outs, mults, dy, weights, ln):
                  dln[0].data_ptr() if dln else None,
                  dln[1].data_ptr() if dln else None, work.data_ptr(), stream)
     _build.check(err, 'fused_cell_bwd', 'fused cell backward')
-    BACKWARD_LAUNCHES['kernel'] += 1
+    _build.count_launch(BACKWARD_LAUNCHES, 'kernel')
     return dx, dweights, dln

@@ -171,7 +171,7 @@ def _split_ncw(y, groups):
 
 def conv_forward_reference(xs, w, bias, lpad, dilation, out):
     """The plain version of :func:`conv_forward`."""
-    LAUNCHES['forward']['plain'] += 1
+    _build.count_launch(LAUNCHES['forward'], 'plain')
     _, _, _, G, K, _ = _dims(xs, w)
     xp = F.pad(_ncw(xs), (lpad, _rpad(K, lpad, dilation)))
     acc = F.conv1d(xp, w.float().permute(2, 1, 0), dilation=dilation,
@@ -183,7 +183,7 @@ def conv_forward_reference(xs, w, bias, lpad, dilation, out):
 
 def conv_dx_reference(dz, w, lpad, dilation, out):
     """The plain version of :func:`conv_dx`."""
-    LAUNCHES['dx']['plain'] += 1
+    _build.count_launch(LAUNCHES['dx'], 'plain')
     B, _, T, G = dz.shape
     K, ci, c_out = w.shape
     span = (K - 1) * dilation
@@ -195,7 +195,7 @@ def conv_dx_reference(dz, w, lpad, dilation, out):
 
 def conv_dw_reference(xs, dz, w, lpad, dilation):
     """The plain version of :func:`conv_dw`."""
-    LAUNCHES['dw']['plain'] += 1
+    _build.count_launch(LAUNCHES['dw'], 'plain')
     _, _, _, G, K, _ = _dims(xs, w)
     xp = F.pad(_ncw(xs), (lpad, _rpad(K, lpad, dilation)))
     dw = torch.nn.grad.conv1d_weight(xp, tuple(w.permute(2, 1, 0).shape),
@@ -635,7 +635,7 @@ def _launch_forward(xs, w, bias, lpad, dilation, out):
                w.data_ptr(), None if bias is None else bias.data_ptr(),
                out.data_ptr(), _strides(out), plan, _stream(xs))
     _build.check(err, 'grouped_conv', 'grouped conv forward')
-    LAUNCHES['forward']['kernel'] += 1
+    _build.count_launch(LAUNCHES['forward'], 'kernel')
     return out
 
 
@@ -656,7 +656,7 @@ def _launch_dx(dz, w, lpad, dilation, out):
     err = _run(fn, dz.device, *dims, dz.data_ptr(), _strides(dz),
                w.data_ptr(), out.data_ptr(), _strides(out), plan, _stream(dz))
     _build.check(err, 'grouped_conv', 'grouped conv dx')
-    LAUNCHES['dx']['kernel'] += 1
+    _build.count_launch(LAUNCHES['dx'], 'kernel')
     return out
 
 
@@ -677,7 +677,7 @@ def _launch_dw(xs, dz, w, lpad, dilation):
                None if work is None else work.data_ptr(), plan_ints,
                _stream(xs))
     _build.check(err, 'grouped_conv', 'grouped conv dW')
-    LAUNCHES['dw']['kernel'] += 1
+    _build.count_launch(LAUNCHES['dw'], 'kernel')
     return dw
 
 

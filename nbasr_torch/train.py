@@ -13,8 +13,18 @@ decodes with the merged-prefix beam search, W=12, as ``train.py`` does
 the JAX package's run of the same name (``<exp_folder>/jax/<exp_name>``)
 left ``latest.ckpt``/``best.ckpt``, they are copied over and the run
 resumes from them (``Trainer.load`` reads flax checkpoints) unless
-``--reset`` is given.  The ``--dp/--tp`` meshes are a later slice of the
-port (``ROADMAP.md``).
+``--reset`` is given.
+
+``--dp N`` trains data-parallel, one process per device, through
+:class:`nbasr_torch.parallel.ParallelTrainer` (NCCL on the cards, gloo with
+``--device cpu``), each rank on its shard of every batch:
+
+    torchrun --nproc_per_node N -m nbasr_torch.train 1 0 1 0 0 1 0 0 0 \
+        --dp N --data TIMIT
+
+``--batch_size`` is the global batch.  Only rank 0 writes the run's files.
+``--tp`` above 1 (tensor parallelism) is the last port slice of
+``ROADMAP.md``.
 """
 
 import argparse
@@ -22,6 +32,7 @@ import pathlib
 import shutil
 
 import torch
+import torch.distributed as dist
 
 from .data.pipeline import get_dataloaders
 from .models.asr import get_model, resolve_device
@@ -42,9 +53,10 @@ def main(argv=None):
     parser.add_argument('--lr', type=float, default=0.0001)
     parser.add_argument('--dropout', type=float, default=0.2)
     parser.add_argument('--dp', type=int, default=None,
-                        help='not ported yet (ROADMAP.md)')
+                        help='data-parallel processes (run under torchrun '
+                             '--nproc_per_node DP)')
     parser.add_argument('--tp', type=int, default=1,
-                        help='not ported yet (ROADMAP.md)')
+                        help='tensor parallelism: not ported yet (ROADMAP.md)')
     parser.add_argument('--decoder', type=str, default='beam',
                         choices=['beam', 'greedy'])
     parser.add_argument('--init_scheme', type=str, default=None,
@@ -71,11 +83,30 @@ def main(argv=None):
                              "'native' the JAX package's XLA lowerings in "
                              "stock PyTorch")
     args = parser.parse_args(argv)
-    if args.dp or args.tp != 1:
-        parser.error('--dp/--tp: the distributed runners are not ported yet '
-                     '(see ROADMAP.md)')
+    if args.tp != 1:
+        from .parallel.mesh import TP_LATER
+        parser.error(f'--tp {args.tp}: {TP_LATER}')
+    if args.dp:
+        from .parallel.mesh import initialize_distributed, local_device
+        device = local_device(args.device)
+        if device.type == 'cuda':
+            torch.cuda.set_device(device)
+        rank, world = initialize_distributed(device=device)
+        if not dist.is_initialized() or world != args.dp:
+            parser.error(f'--dp {args.dp} needs as many processes in one '
+                         f'group, one per device: run under torchrun '
+                         f'--nproc_per_node {args.dp}')
+        try:
+            return _train(args, device, rank, world)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    return _train(args, resolve_device(args.device))
 
-    device = resolve_device(args.device)
+
+def _train(args, device, rank=0, world=1):
+    """The run of ``main``'s arguments on ``device``: data-parallel when
+    ``args.dp`` is set, rank ``rank`` of ``world``."""
     if args.dtype is None:
         args.dtype = 'bfloat16' if device.type == 'cuda' else 'float32'
     if device.type == 'cuda' and args.dtype == 'float32':
@@ -86,12 +117,15 @@ def main(argv=None):
     if not args.exp_name:
         flat = '_'.join(map(str, args.model))
         args.exp_name = f'{flat}_b{args.batch_size}_rnn{int(args.rnn)}'
-    print(f'Using backend: torch on {device}')
-    print(f'    Model vec: {arch}')
-    print(f'    Training for {args.epochs} epochs, batch {args.batch_size}, '
-          f'lr {args.lr}, dropout {args.dropout}')
+    if rank == 0:
+        print(f'Using backend: torch on {device}'
+              + (f', data-parallel over {world} processes' if args.dp else ''))
+        print(f'    Model vec: {arch}')
+        print(f'    Training for {args.epochs} epochs, batch '
+              f'{args.batch_size}, lr {args.lr}, dropout {args.dropout}')
 
-    dataloaders = get_dataloaders(args.data, batch_size=args.batch_size)
+    dataloaders = get_dataloaders(args.data, batch_size=args.batch_size,
+                                  num_shards=world, shard_index=rank)
     model_kw = {'init_scheme': args.init_scheme} if args.init_scheme else {}
     model = get_model(
         arch, use_rnn=args.rnn, dropout_rate=args.dropout, data_norm=True,
@@ -100,12 +134,19 @@ def main(argv=None):
         generator=torch.Generator().manual_seed(args.seed), **model_kw)
     trainer_kw = {} if args.adam_eps is None else {'adam_eps': args.adam_eps}
     save_dir = pathlib.Path(args.exp_folder) / 'torch'
-    if not args.reset:
+    if not args.reset and rank == 0:
         adopt_jax_run(pathlib.Path(args.exp_folder) / 'jax' / args.exp_name,
                       save_dir / args.exp_name)
-    trainer = get_trainer(dataloaders, get_loss(), device=device,
-                          save_dir=save_dir, eval_decoder=args.decoder,
-                          **trainer_kw)
+    if args.dp:
+        from .parallel import ParallelTrainer
+        dist.barrier()              # rank 0 has adopted the JAX run's files
+        trainer = ParallelTrainer(dataloaders, get_loss(), device=device,
+                                  save_dir=save_dir,
+                                  eval_decoder=args.decoder, **trainer_kw)
+    else:
+        trainer = get_trainer(dataloaders, get_loss(), device=device,
+                              save_dir=save_dir, eval_decoder=args.decoder,
+                              **trainer_kw)
     return trainer.train(model, epochs=args.epochs, lr=args.lr,
                          reset=args.reset, model_name=args.exp_name,
                          seed=args.seed)

@@ -35,12 +35,15 @@ def conv_l2(params):
 
 def get_loss():
     """``loss(logits, logits_size, encodeds, encodeds_size, metrics=None,
-    valid=None)`` -> the mean normalised CTC loss over the valid rows; a
-    ``metrics`` dict receives ``{'ctc_loss': (sum, count)}`` (detached).
-    ``valid`` masks the padding rows of partial batches."""
+    valid=None, denominator=None)`` -> the mean normalised CTC loss over the
+    valid rows; a ``metrics`` dict receives ``{'ctc_loss': (sum, count)}``
+    (detached).  ``valid`` masks the padding rows of partial batches.
+    ``denominator`` replaces this batch's count of valid rows: under data
+    parallelism, the global batch's (the JAX trainer's psum'd denominator,
+    ``nbasr_tpu/training/trainer.py:190-196``)."""
 
     def loss(logits, logits_size, encodeds, encodeds_size, metrics=None,
-             valid=None):
+             valid=None, denominator=None):
         per_sample = normalized_ctc_loss(logits, logits_size, encodeds,
                                          encodeds_size)
         if valid is None:
@@ -48,6 +51,8 @@ def get_loss():
         per_sample = per_sample * valid
         if metrics is not None:
             metrics['ctc_loss'] = (per_sample.detach().sum(), valid.sum())
-        return per_sample.sum() / valid.sum().clamp(min=1.0)
+        if denominator is None:
+            denominator = valid.sum()
+        return per_sample.sum() / denominator.clamp(min=1.0)
 
     return loss

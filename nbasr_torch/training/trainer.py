@@ -29,6 +29,13 @@ files the JAX trainer writes (:mod:`nbasr_torch.checkpoint`), so
 its folder; :func:`nbasr_torch.checkpoint.save_flax` writes one the JAX
 trainer loads.  Not ported yet (``ROADMAP.md``): the profiler hook; the
 eval prewarm hides an XLA compile and has no counterpart here.
+
+Data parallelism (:class:`nbasr_torch.parallel.ParallelTrainer`) overrides
+three hooks: :meth:`Trainer._objective` (the loss of the global batch),
+:meth:`Trainer._sum_metrics` (metric pairs summed over the ranks) and
+:attr:`Trainer.is_lead` (only the lead process writes files); the train
+step's forward runs through :attr:`Trainer.net`, the model here and its
+``DistributedDataParallel`` wrapper there.
 """
 
 import json
@@ -98,6 +105,8 @@ class Trainer:
                                            device=self.device)
                            if isinstance(encoder, PhonemeEncoder) else None)
         self.model = None
+        #: the module the train step's forward runs through
+        self.net = None
         self.optimizer = None
         self.generator = None
         #: train steps taken, those skipped for non-finite gradients, and
@@ -120,6 +129,24 @@ class Trainer:
         feats = log_mel_spectrogram(batch['audio'], self.frontend, self.mel_mat)
         return feats, batch['feature_size']
 
+    @property
+    def is_lead(self):
+        """Whether this process writes the run's files (checkpoints,
+        TensorBoard, ``metrics.jsonl``, the score pickles)."""
+        return True
+
+    def _objective(self, logits, lsize, batch, m):
+        """The training loss of a placed batch's logits: the normalised
+        CTC loss plus the conv L2; ``m`` receives the metric pairs."""
+        ctc = self.loss(logits, lsize, batch['labels'], batch['label_size'],
+                        metrics=m, valid=batch['valid'])
+        return ctc + conv_l2(self.model)
+
+    def _sum_metrics(self, m):
+        """A step's (num, den) pairs summed over the data-parallel ranks:
+        one process's own here."""
+        return m
+
     def _loss_and_grads(self, batch):
         """Forward and backward of the training loss on a placed batch; the
         gradients land in ``.grad``.  Returns the step's metric pairs."""
@@ -127,13 +154,11 @@ class Trainer:
         for p in self.model.parameters():
             p.grad = None
         feats, fsize = self._features(batch)
-        logits = self.model(feats, fsize, generator=self.generator)
+        logits = self.net(feats, fsize, generator=self.generator)
         lsize = logits_length(fsize, feats.shape[1], logits.shape[1])
         m = {}
-        ctc = self.loss(logits, lsize, batch['labels'], batch['label_size'],
-                        metrics=m, valid=batch['valid'])
-        (ctc + conv_l2(self.model)).backward()
-        return m
+        self._objective(logits, lsize, batch, m).backward()
+        return self._sum_metrics(m)
 
     def _update(self, lr):
         """clip_by_global_norm, then Adam, then ×(−lr), as the optax chain
@@ -201,7 +226,7 @@ class Trainer:
             ref39, hyp39 = labels, hyp
         ler = edit_distance(hyp39, hyp_len, ref39, label_size) * valid
         m.update(wer=(wer.sum(), den), ler=(ler.sum(), den))
-        return accumulate(acc, m)
+        return accumulate(acc, self._sum_metrics(m))
 
     # ------------------------------------------------------------------
     # reference API
@@ -214,7 +239,7 @@ class Trainer:
         ``seed + 1``."""
         if any(p.device != self.device for p in model.parameters()):
             raise ValueError(f'the model is not on {self.device}')
-        self.model = model
+        self.model = self.net = model
         self.optimizer = torch.optim.Adam(
             model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=self.adam_eps)
         self.generator = torch.Generator().manual_seed(seed + 1)
@@ -281,6 +306,8 @@ class Trainer:
         ``test_scores.pickle`` under ``save_dir``.  Returns ``(history,
         test_scores)``."""
         self.init_state(model, seed=seed)
+        # every process loads on resume; only the lead one writes
+        lead = self.is_lead
         out_dir = latest_ckpt = best_ckpt = None
         start_epoch, best_val = 1, None
         if self.save_dir is not None:
@@ -310,7 +337,7 @@ class Trainer:
         stream = (iter(self.data_train) if hasattr(self.data_train, 'full')
                   else forever(self.data_train))
         tb = None
-        if out_dir is not None and self.tensorboard:
+        if out_dir is not None and self.tensorboard and lead:
             tb = SummaryWriter(str(out_dir / 'tb'))
         for epoch in range(start_epoch, epochs + 1):
             t0 = time.time()
@@ -340,9 +367,9 @@ class Trainer:
             if best_val is None or val_m['ler'] <= best_val:
                 best_val = val_m['ler']
                 self.remember_best()
-                if best_ckpt:
+                if best_ckpt and lead:
                     self.save(best_ckpt, epoch=epoch, best_val=best_val)
-            if latest_ckpt:
+            if latest_ckpt and lead:
                 self.save(latest_ckpt, epoch=epoch, best_val=best_val)
             if tb is not None:
                 tb.scalars({'epoch_ctc_loss': train_m['ctc_loss'],
@@ -351,7 +378,7 @@ class Trainer:
                             'epoch_val_ler': val_m['ler'],
                             'lr': epoch_lr}, step=epoch)
                 tb.flush()
-            if out_dir:
+            if out_dir and lead:
                 with open(out_dir / 'metrics.jsonl', 'a') as f:
                     f.write(json.dumps({
                         'epoch': epoch, 'lr': epoch_lr,
@@ -360,7 +387,7 @@ class Trainer:
                         'val_wer': val_m['wer'], 'val_ler': val_m['ler'],
                         'nonfinite_steps': notfinite,
                         'seconds': history['epoch_seconds'][-1]}) + '\n')
-            if self.verbose:
+            if self.verbose and lead:
                 print(f'Epoch {epoch}: loss {train_m["ctc_loss"]:.4f} '
                       f'val_loss {val_m["ctc_loss"]:.4f} '
                       f'val_per {val_m["ler"]:.4f} lr {epoch_lr:.2e} '
@@ -371,9 +398,9 @@ class Trainer:
         self.recall_best()
         test_m = self.evaluate(self.data_test)
         test_scores = {f'val_{k}': v for k, v in test_m.items()}
-        if self.verbose:
+        if self.verbose and lead:
             print('Test:', test_scores)
-        if out_dir:
+        if out_dir and lead:
             with open(out_dir / 'scores.pickle', 'wb') as f:
                 pickle.dump(history, f)
             with open(out_dir / 'test_scores.pickle', 'wb') as f:

@@ -35,7 +35,10 @@ def test_every_module_imports_without_jax():
             'nbasr_torch.search_space', 'nbasr_torch.graph_utils',
             'nbasr_torch.dataset', 'nbasr_torch.search', 'nbasr_torch.cli',
             'nbasr_torch.version', 'nbasr_torch.models.proxies',
-            'nbasr_torch.checkpoint', 'nbasr_torch.quant'} <= set(mods)
+            'nbasr_torch.checkpoint', 'nbasr_torch.quant',
+            'nbasr_torch.native', 'nbasr_torch.parallel.mesh',
+            'nbasr_torch.parallel.train_parallel',
+            'nbasr_torch.parallel.sweep', 'nbasr_torch.entry'} <= set(mods)
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             f'print(sorted(m for m in sys.modules '
@@ -86,3 +89,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         main(['1', '0', '1', '0', '0', '1', '0', '0', '0', '--data',
               'synthetic:4'])
+    from nbasr_torch import cli, entry
+    from nbasr_torch.parallel import ParallelTrainer, sweep
+    for cmd in (['sweep', '--archs', '1'], ['info', '--archs', '1'],
+                ['benchpass', '--archs', '1']):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            cli.main(cmd)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        sweep.benchmark_pass(1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ParallelTrainer(loaders)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        entry.entry()

@@ -297,16 +297,29 @@ def test_cli_viz_writes_what_jax_writes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('cmd', [
-    ['sweep', '--archs', '2'], ['info'], ['benchpass'],
+    ['sweep', '--archs', '2', '--seeds', '1', '--epochs', '1'],
+    ['info', '--archs', '2'], ['benchpass', '--archs', '2'],
     ['quantize', 'best.ckpt']], ids=lambda c: c[0])
-def test_cli_later_commands_are_refused(cmd, tmp_path, monkeypatch):
-    if cmd[0] == 'quantize':     # ported now: it goes to read the checkpoint
-        monkeypatch.chdir(tmp_path)
+def test_cli_later_commands_are_refused(cmd, tmp_path, monkeypatch, capsys):
+    """No subcommand is refused any more: ``quantize`` goes to read its
+    checkpoint, and ``sweep``, ``info`` and ``benchpass`` run with
+    ``--device cpu`` and write their files (the sweep's training faked,
+    the latency pass cut to one B=1 forward of 32 frames a timing)."""
+    monkeypatch.chdir(tmp_path)
+    if cmd[0] == 'quantize':
         with pytest.raises(FileNotFoundError, match='best.ckpt'):
             cli.main(cmd)
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        cli.main(cmd)
+    import functools
+    from nbasr_torch.parallel import sweep
+    monkeypatch.setattr(sweep, '_train_one', lambda *a: ([0.5], 0.25))
+    monkeypatch.setattr(sweep, 'benchmark_pass', functools.partial(
+        sweep.benchmark_pass, feature_frames=32, repeats=1))
+    cli.main([*cmd, '--device', 'cpu', '--out', 'db'])
+    (path,) = [w for w in capsys.readouterr().out.split()
+               if w.endswith('.pickle')]
+    assert pathlib.Path(path).parent == pathlib.Path('db')
+    assert pathlib.Path(path).stat().st_size > 0
 
 
 def test_facade():
