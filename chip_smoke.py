@@ -138,7 +138,25 @@ prints no result):
    the plain Trainer's; two gloo ranks on the one card (f32, dropout 0,
    B=16 each), their gradients before clipping within phase 8's bound of
    one rank's on B=32, a planted world-size factor rejected; the CLI's
-   sweep, info and benchpass in subprocesses; entry()'s forward.
+   sweep, info and benchpass in subprocesses; entry()'s forward;
+17. tensor parallelism and seq_parallel_apply: (a) the fused forward and
+   backward kernels at the tp=2 shard shapes (C/2 = 300-600 channels in 50
+   groups, no LayerNorm, dropout 0.2 at channel offset c0 = C/2), f32 and
+   bf16, against their plain versions (masks exact, two calls bit-equal);
+   (b) the full-width flagship at tp=2 on two gloo ranks of the one card
+   (f32, B=16, cell dropout 0.2, 'auto'): the gathered gradients before
+   clipping against one process's on the same masks, each tensor within
+   min(0.1, max(1e-3, 4 x the largest move of four witnesses: three 1e-7
+   audio nudges and the other cell kernels)), a planted sliced-gradient
+   fault rejected, 18 + 18 fused launches at shard
+   shapes and 1 + 1 CTC a rank, no plain call, every local shape as
+   param_spec says; (c) the same at dp=2 x tp=2 on four gloo ranks
+   (global B=32, dropout 0), and one 'pallas' tp=2 step at B=8 (54 + 54 +
+   54 grouped launches a rank) against one process's 'pallas' step; (d)
+   five bf16 tp=2 steps at B=32 timed, with the tensor-parallel
+   collectives' share of the wall; (e) seq_parallel_apply on four gloo
+   ranks (f32, B=2, T=2176), 'chain' and 'gather', against the unsharded
+   forward, 18 launches of #1 a rank, and the wall of a call against it.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -622,7 +640,8 @@ def check_masks(spec, got, want, seed, B, T, C):
             continue
         if spec.dropping:
             counter += 1
-            dropped = fused_cell.dropout_bits(seed, counter, B, T, C) >= thr
+            dropped = fused_cell.dropout_bits(
+                seed, counter, B, T, C, c0=spec.channel_offset) >= thr
             assert not bool(got[i][dropped].any()), ('kept a dropped element', i)
             assert not bool(want[i][dropped].any()), ('kept a dropped element', i)
         flips += int((got[i] != want[i]).sum())
@@ -3337,6 +3356,462 @@ def check_phase16(device):
                  gloo_rank_step=dp_l['gloo_rank_step'], entry=entry_l))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism and seq_parallel_apply
+# ---------------------------------------------------------------------------
+
+P17_TP = 2
+P17_B = 16              # (b): the tp=2 f32 step's batch
+P17_DP_B = 32           # (c): dp=2 x tp=2, the global batch
+P17_PALLAS_B = 8
+P17_TIMED_STEPS = 5
+P17_SEQ_B, P17_SEQ_T = 2, 2176    # a shard of 544 frames > the halo of 532
+#: seq_parallel_apply against the unsharded forward, of max|logits|: the
+#: windows sum in other orders only where the LayerNorms and the LSTM do
+P17_SEQ_TOL = 1e-4
+P17_TIMEOUT_S = 600
+#: seeds of the 1e-7 audio nudge among phase 17's gradient witnesses
+P17_NUDGES = 3
+# Phase 17 holds the gathered gradients of a parallel step to phase 8's
+# rule, min(0.1, max(1e-3, factor x witness)) of each tensor's max, on the
+# largest move of its witnesses: three 1e-7 nudges of the audio, the cells
+# in the other kernels, and for 'auto' the cells' LayerNorm outside the
+# fused kernel in the shard's arithmetic.  The factor is 4 where phase 8
+# takes 2: on an H100 (700 W) the tp=2 'auto' step moved one tensor,
+# block3_cell0's first conv kernel gradient, 1.317e-2 of its max where the
+# largest witness moved it 5.915e-3 (2.23x); every other tensor of that
+# step, and every tensor of the 'pallas' tp=2 and dp=2 x tp=2 steps, read
+# at most 1.71x.  A planted sliced-gradient fault moves a tensor 1.0 of
+# its max.
+P17_WITNESS_FACTOR = 4.0
+
+
+@torch.no_grad()
+def check_shard_kernels(device):
+    """Phase 17 (a): kernel #1 (and #2) at the tp=2 shard shapes: the
+    flagship cell on C/2 = 300/400/500/600 channels in 50 groups, no
+    LayerNorm, dropout 0.2 at channel offset c0 = C/2 (model rank 1), f32
+    and bf16, against the plain versions (masks exact, two calls
+    bit-equal); the shard's dropped elements are the whole cell's on its
+    channels."""
+    seed = torch.tensor(TRAIN_SEED, dtype=torch.int32, device=device)
+    checker = TrainKernelCheck(seed)
+    for C_full, T in TRAIN_WIDTHS:
+        C = C_full // P17_TP
+        g = torch.Generator().manual_seed(SEED + C + T)
+        x32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+        dy32 = torch.randn((CHECK_B, T, C), generator=g).to(device)
+        cell = make_cell(C, SPECS['flagship no-norm'], device,
+                         groups=WIDE_GROUPS)
+        spec = FusedCellSpec(cell.spec.nodes, dropout_rate=DROPOUT,
+                             train=True, use_norm=False, channel_offset=C)
+        for dtype in (torch.float32, torch.bfloat16):
+            checker.check(f'shard c0={C}', spec, x32.to(dtype),
+                          dy32.to(dtype), *cell.operands(dtype))
+        whole = fused_cell.dropout_bits(seed, 1, CHECK_B, T, C_full)
+        assert torch.equal(whole[..., C:], fused_cell.dropout_bits(
+            seed, 1, CHECK_B, T, C, c0=C)), 'shard masks'
+    return checker
+
+
+def _p17_model(device, seed, dropout, **kw):
+    """The full-width flagship of phase 17, f32 unless ``kw`` says."""
+    return get_model(FLAGSHIP, use_rnn=True, dropout_rate=dropout,
+                     cell_dropout=dropout, data_norm=True, device=device,
+                     generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def _two_pass_norm(norm, x):
+    """``norm`` (a cell's LayerNorm) as a channel-parallel shard's
+    DistributedLayerNorm writes it, on one shard: two-pass f32 statistics
+    in elementary ops, the backward by autograd."""
+    xf = x.float()
+    mu = xf.sum(-1, keepdim=True) / xf.shape[-1]
+    d = xf - mu
+    var = torch.square(d).sum(-1, keepdim=True) / xf.shape[-1]
+    return (d * torch.rsqrt(var + norm.epsilon) * norm.scale
+            + norm.bias).to(x.dtype)
+
+
+def _norm_outside_kernels(model):
+    """Take every cell's LayerNorm out of its fused kernel, as a
+    channel-parallel shard runs its cells: the kernel without LayerNorm,
+    then the shard's LayerNorm arithmetic on the whole row
+    (:func:`_two_pass_norm`)."""
+    for cell in model.modules():
+        if isinstance(cell, SearchCell) and cell.spec.use_norm:
+            for attr in ('spec', 'train_spec'):
+                s = getattr(cell, attr)
+                setattr(cell, attr, FusedCellSpec(
+                    s.nodes, dropout_rate=s.dropout_rate, train=s.train,
+                    ln_eps=s.ln_eps, use_norm=False,
+                    channel_offset=s.channel_offset))
+            cell.norm.forward = functools.partial(_two_pass_norm, cell.norm)
+    return model
+
+
+def _p17_reference(device, seed, B, dropout, grouped_impl='auto'):
+    """One process's f32 gradients before clipping on ``B`` rows (on the
+    dropout masks of the ranks' stream), and witnesses of how far the same
+    function moves them: the audio nudged by one part in 10^7 (three
+    draws), the cells in the other kernels (``'pallas'`` for ``'auto'``
+    and back: the same function with its sums and LayerNorm statistics
+    taken in other orders, as tensor parallelism takes them), and for
+    ``'auto'`` the cells' LayerNorm outside the fused kernel (the one
+    change of a cell's arithmetic that tensor parallelism makes beyond
+    its channel split): (gradients, {witness: gradients}, loss), on the
+    CPU."""
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=B)
+    batch = next(iter(loaders[1].full))
+    nudged = [dict(batch, audio=(batch['audio'] * (
+        1 + 1e-7 * np.random.RandomState(SEED + s).randn(
+            *batch['audio'].shape))).astype(np.float32))
+        for s in range(P17_NUDGES)]
+    other = 'pallas' if grouped_impl == 'auto' else 'auto'
+    names = [f'nudge {s}' for s in range(P17_NUDGES)] + [f'{other} cells']
+    runs = [(grouped_impl, (batch, *nudged), None), (other, (batch,), None)]
+    if grouped_impl == 'auto':
+        names.append('norm outside the kernel')
+        runs.append((grouped_impl, (batch,), _norm_outside_kernels))
+    out, loss = [], None
+    for impl, batches, change in runs:
+        model = _p17_model(device, seed, dropout, grouped_impl=impl)
+        single = Trainer(loaders, device=device, verbose=False)
+        single.init_state(change(model) if change else model, seed=seed)
+        state = single.generator.get_state()
+        single.gradients(batch)                   # warm-up: plans
+        with deterministic_cudnn():
+            for b in batches:
+                single.generator.set_state(state)
+                grads, m = single.gradients(b)
+                out.append({k: v.cpu() for k, v in grads.items()})
+                loss = m['ctc_loss'] if loss is None else loss
+        del single, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out[0], dict(zip(names, out[1:])), loss
+
+
+def _p17_shares(got, want):
+    return {n: float((got[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-30)
+            for n, w in want.items()}
+
+
+def _p17_local_shapes_ok(model, tp):
+    """Every parameter's local shape is what ``param_spec`` says."""
+    from nbasr_torch.parallel.mesh import param_spec
+    for name, p in model.named_parameters():
+        full = model.tp_full_shapes[name]
+        pl = param_spec(name, torch.empty(full, device='meta'), tp)[1]
+        want = list(full)
+        if pl.is_shard():
+            want[pl.dim] //= tp
+        if list(p.shape) != want:
+            return name
+    return None
+
+
+def _p17_gradients(trainer, batch, fault=False):
+    """The gathered gradients (on the CPU, rank 0's; None elsewhere), the
+    loss and the launches of one ``gradients`` call, on the masks the
+    trainer's generator holds now; ``fault`` leaves the sliced parameters'
+    gradients unsummed over 'model'."""
+    import torch.distributed as dist
+    from nbasr_torch.parallel import tensor
+    state = trainer.generator.get_state()
+    if fault:
+        trainer._sum_sliced_grads = lambda: None
+    _p17_reset()
+    with deterministic_cudnn():
+        grads, m = trainer.gradients(batch)
+    launches = _p17_counts()
+    trainer.__dict__.pop('_sum_sliced_grads', None)
+    trainer.generator.set_state(state)
+    full = tensor.gather_named(trainer.model, grads)
+    return ({k: v.cpu() for k, v in full.items()} if dist.get_rank() == 0
+            else None, m['ctc_loss'], launches)
+
+
+def _p17_reset():
+    reset_counts()
+    grouped_conv.reset_launches()
+
+
+def _p17_counts():
+    """Phase 16's launch counts and the grouped conv kernels'."""
+    return {**launch_counts(), **{f'gconv_{k}': dict(v) for k, v in
+                                  grouped_conv.LAUNCHES.items()}}
+
+
+def _p17_expected(device, steps=0, forwards=0, grouped=0):
+    """Launch counts of ``steps`` fused train steps and ``forwards``
+    forwards, or (``grouped``) of that many grouped train steps."""
+    used, other = (('kernel', 'plain') if device.type == 'cuda'
+                   else ('plain', 'kernel'))
+    count = lambda n: {used: n, other: 0}
+    out = {**expected_counts(device, forwards=forwards, steps=steps),
+           **{f'gconv_{k}': count(0) for k in GCONV_KERNELS}}
+    if grouped:
+        out.update({f'gconv_{k}': count(3 * FUSED_CELLS * grouped)
+                    for k in GCONV_KERNELS},
+                   fused_forward=count(0), fused_backward=count(0),
+                   ctc_alpha=count(grouped), ctc_beta=count(grouped))
+    return out
+
+
+def _p17_timed_collectives(tensor, spent):
+    """Wrap the tensor-parallel collectives so ``spent[0]`` adds up their
+    seconds (the card synchronised around each)."""
+    depth = [0]
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            depth[0] += 1
+            if depth[0] == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    torch.cuda.synchronize()
+                    spent[0] += time.perf_counter() - t0
+        return wrapper
+    for name in ('_all_gather', '_all_reduce', '_reduce_scatter'):
+        setattr(tensor, name, timed(getattr(tensor, name)))
+
+
+def _p17_tp_rank(rank, world, device, seed):
+    """Phase 17 (b), the 'pallas' step of (c), and (d), on one of two gloo
+    ranks at (dp, tp) = (1, 2)."""
+    from nbasr_torch.parallel import make_mesh, tensor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(dp=1, tp=world)
+    out = {}
+    for name, B, dropout, impl in (('auto', P17_B, DROPOUT, 'auto'),
+                                   ('pallas', P17_PALLAS_B, DROPOUT,
+                                    'pallas')):
+        loaders = get_dataloaders(TRAIN_DATA, batch_size=B)
+        batch = next(iter(loaders[1].full))
+        trainer = ParallelTrainer(loaders, device=device, mesh=mesh,
+                                  verbose=False)
+        trainer.init_state(_p17_model(device, seed, dropout,
+                                      grouped_impl=impl), seed=seed)
+        state = trainer.generator.get_state()
+        trainer.gradients(batch)                  # warm-up: plans
+        trainer.generator.set_state(state)
+        grads, loss, launches = _p17_gradients(trainer, batch)
+        reading = dict(grads=grads, loss=loss, launches=launches,
+                       shape_fault=_p17_local_shapes_ok(trainer.model, world),
+                       channel_cells=sum(isinstance(m, tensor.ChannelCell)
+                                         for m in trainer.model.modules()))
+        if name == 'auto':
+            reading['fault'] = _p17_gradients(trainer, batch, fault=True)[0]
+        out[name] = reading
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d) one bf16 step at the train step's batch, timed
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B)
+    batch = next(iter(loaders[1].full))
+    trainer = ParallelTrainer(loaders, device=device, mesh=mesh,
+                              verbose=False)
+    trainer.init_state(_p17_model(device, seed, DROPOUT,
+                                  compute_dtype=torch.bfloat16), seed=seed)
+    for _ in range(2):
+        trainer.step(batch, lr=1e-4)              # warm-up: plans
+    spent = [0.0]
+    _p17_timed_collectives(tensor, spent)
+    tensor.reset_staged()
+    _p17_reset()
+    walls = []
+    for _ in range(P17_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch, lr=1e-4)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out['bf16'] = dict(step_ms=1e3 * float(np.median(walls)),
+                       collective_ms=1e3 * spent[0] / P17_TIMED_STEPS,
+                       staged=dict(tensor.STAGED), launches=_p17_counts(),
+                       loss=m['ctc_loss'])
+    return out
+
+
+def _p17_seq_feats(device):
+    feats = torch.as_tensor(np.random.RandomState(SEED).randn(
+        P17_SEQ_B, P17_SEQ_T, 80).astype(np.float32), device=device)
+    sizes = torch.as_tensor([P17_SEQ_T, P17_SEQ_T - 300], dtype=torch.int32,
+                            device=device)
+    return feats, sizes
+
+
+def _p17_four_rank(rank, world, device, seed):
+    """Phase 17 (c) at dp=2 x tp=2, then (e) seq_parallel_apply, on one of
+    four gloo ranks."""
+    import torch.distributed as dist
+    from nbasr_torch.parallel import make_mesh, seq_parallel_apply
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(dp=2, tp=2)
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=P17_DP_B, num_shards=2,
+                              shard_index=rank // 2)
+    batch = next(iter(loaders[1].full))
+    trainer = ParallelTrainer(loaders, device=device, mesh=mesh,
+                              verbose=False)
+    trainer.init_state(_p17_model(device, seed, 0.0), seed=seed)
+    trainer.gradients(batch)                      # warm-up: plans
+    grads, loss, launches = _p17_gradients(trainer, batch)
+    out = dict(grads=grads, loss=loss, launches=launches,
+               rows=len(batch['valid']))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _p17_model(device, seed, 0.0).eval()
+    feats, sizes = _p17_seq_feats(device)
+    L = P17_SEQ_T // world
+    shard = feats[:, rank * L:(rank + 1) * L].contiguous()
+    for mode in ('chain', 'gather'):
+        with torch.no_grad():
+            seq_parallel_apply(model, shard, sizes, lstm_mode=mode)  # plans
+            dist.barrier()
+            _p17_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = seq_parallel_apply(model, shard, sizes, lstm_mode=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[mode] = dict(logits=logits.cpu(), wall_ms=1e3 * wall,
+                         launches=_p17_counts())
+    return out
+
+
+def check_phase17(device):
+    """Phase 17.  Returns (readings, launches by part)."""
+    from nbasr_torch.parallel.mesh import spawn
+    card = card_line()
+    t0 = time.perf_counter()
+    checker = check_shard_kernels(device)
+    out = dict(card=card, shard_kernels=dict(
+        errors={k: {str(d)[6:]: v for d, v in e.items()}
+                for k, e in checker.errors.items()},
+        gate_flips=checker.flips, compared=checker.compared,
+        seconds=time.perf_counter() - t0))
+    print(f'phase 17 (a): kernel #1 and #2 at the tp=2 shard shapes (C/2 = '
+          f'300-600, 50 groups, no LayerNorm, dropout {DROPOUT} at c0 = C/2) '
+          f'within their bounds, masks exact, two calls bit-equal; errors '
+          f'{out["shard_kernels"]["errors"]} [{card}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: _p17_reference(device, SEED, B, d, impl) for k, B, d, impl in (
+        ('auto', P17_B, DROPOUT, 'auto'),
+        ('pallas', P17_PALLAS_B, DROPOUT, 'pallas'),
+        ('dp2', P17_DP_B, 0.0, 'auto'))}
+    feats, sizes = _p17_seq_feats(device)
+    model = _p17_model(device, SEED, 0.0).eval()
+    with torch.no_grad():
+        model(feats, sizes)                       # warm-up: plans
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain_logits = model(feats, sizes)
+        torch.cuda.synchronize()
+        unsharded_ms = 1e3 * (time.perf_counter() - t1)
+    plain_logits = plain_logits.cpu()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    two = spawn(_p17_tp_rank, [device] * 2, (SEED,), timeout=P17_TIMEOUT_S)
+    out['two_ranks_s'] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    four = spawn(_p17_four_rank, [device] * 4, (SEED,),
+                 timeout=P17_TIMEOUT_S)
+    out['four_ranks_s'] = time.perf_counter() - t1
+
+    expected_step = _p17_expected(device, steps=1)
+    launches = {}
+    for label, reading, ref in (('tp2_auto', two[0]['auto'], want['auto']),
+                                ('tp2_pallas', two[0]['pallas'],
+                                 want['pallas']),
+                                ('dp2_tp2', four[0], want['dp2'])):
+        grads, witnesses, loss = ref
+        moves = {k: _p17_shares(w, grads) for k, w in witnesses.items()}
+        bounds = {n: min(KERNEL_GRAD_CAP, max(
+            KERNEL_GRAD_TOL, P17_WITNESS_FACTOR * max(m[n] for m in
+                                                      moves.values())))
+            for n in grads}
+        honest, at = over_bound(_p17_shares(reading['grads'], grads), bounds)
+        row = dict(over_bound=honest, at=at, loss=reading['loss'],
+                   loss_one_process=loss,
+                   share=_p17_shares(reading['grads'], grads)[at])
+        if 'fault' in reading:
+            row['planted'], row['planted_at'] = over_bound(
+                _p17_shares(reading['fault'], grads), bounds)
+            assert row['planted'] > 1.0, ('a sliced-gradient fault passed',
+                                          row['planted'])
+        print(f'phase 17 {label}: gathered f32 gradients before clipping at '
+              f'{honest:.3f} of their bound ({at}: share {row["share"]:.3e}; '
+              + ', '.join(f'{k} {m[at]:.3e}' for k, m in moves.items())
+              + f'), bound min({KERNEL_GRAD_CAP:g}, max({KERNEL_GRAD_TOL:g}, '
+              f'{P17_WITNESS_FACTOR:g} x the largest witness)); loss '
+              f'{reading["loss"]:.6f} against one process\'s {loss:.6f}'
+              + (f'; a planted sliced-gradient fault at '
+                 f'{row["planted"]:.1f} of its bound ({row["planted_at"]}): '
+                 f'rejected' if 'planted' in row else '')
+              + f'; launches a rank {reading["launches"]} [{card}]')
+        assert honest <= 1.0, (label, at, honest)
+        out[label] = row
+    for r, ranks in enumerate(two):
+        assert ranks['auto']['launches'] == expected_step, (r, ranks['auto'])
+        assert ranks['pallas']['launches'] == _p17_expected(
+            device, grouped=1), (r, ranks['pallas']['launches'])
+        for impl in ('auto', 'pallas'):
+            assert ranks[impl]['shape_fault'] is None, ranks[impl]
+            assert ranks[impl]['channel_cells'] == FUSED_CELLS, ranks[impl]
+        assert ranks['bf16']['launches'] == _p17_expected(
+            device, steps=P17_TIMED_STEPS), ranks['bf16']
+    for r, ranks in enumerate(four):
+        assert ranks['launches'] == expected_step, (r, ranks['launches'])
+    launches['tp2_step'] = two[0]['auto']['launches']
+    launches['tp2_pallas_step'] = two[0]['pallas']['launches']
+    launches['dp2_tp2_step'] = four[0]['launches']
+    launches['bf16_steps'] = two[0]['bf16']['launches']
+    bf16 = two[0]['bf16']
+    out['bf16_step'] = {k: v for k, v in bf16.items() if k != 'launches'}
+    print(f'phase 17 (d): one bf16 tp=2 step, B={TRAIN_B}, on two gloo ranks '
+          f'of the one card: {bf16["step_ms"]:.3f} ms (median of '
+          f'{P17_TIMED_STEPS}), the tensor-parallel collectives '
+          f'{bf16["collective_ms"]:.3f} ms of it '
+          f'({bf16["collective_ms"] / bf16["step_ms"]:.1%}), '
+          f'{bf16["staged"]["copies"] / P17_TIMED_STEPS:.0f} host copies '
+          f'({bf16["staged"]["bytes"] / P17_TIMED_STEPS / 1e6:.1f} MB) a step '
+          f'through gloo [{card}]')
+
+    scale = float(plain_logits.abs().max())
+    for mode in ('chain', 'gather'):
+        got = torch.cat([r[mode]['logits'] for r in four], dim=1)
+        assert got.shape == plain_logits.shape, (got.shape, plain_logits.shape)
+        err = float((got - plain_logits).abs().max()) / scale
+        walls = [r[mode]['wall_ms'] for r in four]
+        for r in four:
+            assert r[mode]['launches'] == _p17_expected(
+                device, forwards=1), r[mode]['launches']
+        launches[f'seq_{mode}'] = four[0][mode]['launches']
+        out[f'seq_{mode}'] = dict(err=err, wall_ms=max(walls),
+                                  unsharded_ms=unsharded_ms)
+        print(f'phase 17 (e): seq_parallel_apply ({mode}) on 4 gloo ranks, '
+              f'f32, B={P17_SEQ_B}, T={P17_SEQ_T}: logits at {err:.2e} of '
+              f'max|logits| of the unsharded forward (tol {P17_SEQ_TOL:g}); '
+              f'{max(walls):.3f} ms a call (the slowest rank) against '
+              f'{unsharded_ms:.3f} ms unsharded; launches a rank '
+              f'{four[0][mode]["launches"]["fused_forward"]} [{card}]')
+        assert err <= P17_SEQ_TOL, (mode, err)
+    return out, launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3388,6 +3863,7 @@ def main():
     nas_rows, nas_counts, nas_search = timed('phase 14', check_nas, device)
     p15, p15_launches = timed('phase 15', check_phase15, device)
     p16, p16_launches = timed('phase 16', check_phase16, device)
+    p17, p17_launches = timed('phase 17', check_phase17, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -3500,6 +3976,17 @@ def main():
                 part: counts[key]['kernel']
                 for part, counts in p16_launches.items()
                 if counts[key]['kernel']}
+    # phase 17's paths: the tp=2 and dp=2 x tp=2 f32 steps ('auto'), the
+    # tp=2 'pallas' step, the 5 timed bf16 tp=2 steps, seq_parallel_apply
+    # in both modes (rank 0's counts; every rank's are checked equal)
+    for entry_row in kernels:
+        key = {'fused_cell_forward': 'fused_forward',
+               'fused_cell_backward': 'fused_backward'}.get(
+                   entry_row['name'], entry_row['name'].replace(
+                       'grouped_conv_', 'gconv_'))
+        entry_row['launches_phase17'] = {
+            part: counts[key]['kernel'] for part, counts in p17_launches.items()
+            if counts[key]['kernel']}
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '
@@ -3523,7 +4010,11 @@ def main():
           f'{p16["sweep"]["wall_s"] / len(P16_ARCHS):.1f} s per arch-epoch; '
           f'benchmark_pass ' + ', '.join(
               f'{h[:8]} {v:.3f} ms' for h, v in p16['static']['bench_ms'].items())
-          + ' a B=1 forward')
+          + ' a B=1 forward; tensor parallelism: a bf16 tp=2 step '
+          f'{p17["bf16_step"]["step_ms"]:.3f} ms on two gloo ranks of one '
+          f'card, seq_parallel_apply {p17["seq_chain"]["wall_ms"]:.3f} ms '
+          f'(chain) against {p17["seq_chain"]["unsharded_ms"]:.3f} ms '
+          'unsharded')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

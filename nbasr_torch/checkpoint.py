@@ -378,23 +378,28 @@ def _adam_state(opt_state, at):
     return found[0]
 
 
-def _by_parameter(model, state, what, at):
-    """A state dict as one tensor per parameter of ``model``, on the
-    parameter's device; every parameter must be there, and nothing else."""
-    names = dict(model.named_parameters())
-    if state.keys() != names.keys():
+def _by_parameter(shapes, state, what, at):
+    """A state dict as one tensor per parameter of the whole model
+    (``shapes``: ``{name: shape}``); every parameter must be there, and
+    nothing else."""
+    if state.keys() != shapes.keys():
         raise ValueError(
             f'{at}: {what} does not fit the model: missing '
-            f'{sorted(names.keys() - state.keys())}, unexpected '
-            f'{sorted(state.keys() - names.keys())}')
-    out = {}
-    for name, p in names.items():
-        t = state[name]
-        if t.shape != p.shape:
+            f'{sorted(shapes.keys() - state.keys())}, unexpected '
+            f'{sorted(state.keys() - shapes.keys())}')
+    for name, shape in shapes.items():
+        if tuple(state[name].shape) != tuple(shape):
             raise ValueError(f'{at}: {what} {name} has shape '
-                             f'{tuple(t.shape)}, the model {tuple(p.shape)}')
-        out[name] = t.to(device=p.device, dtype=p.dtype)
-    return out
+                             f'{tuple(state[name].shape)}, the model '
+                             f'{tuple(shape)}')
+    return {name: state[name] for name in shapes}
+
+
+def _parameter_order(trainer):
+    """The model's parameter names in the optimizer's order."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    return [names[id(p)] for g in trainer.optimizer.param_groups
+            for p in g['params']]
 
 
 def load_flax(trainer, path):
@@ -408,7 +413,9 @@ def load_flax(trainer, path):
     ``total_notfinite`` ``nonfinite_steps``.  ``rng`` is read and not used:
     the JAX trainer's dropout stream (``jax.random`` keys) and the port's
     (a ``torch.Generator``) are different streams, so the trainer's
-    generator is left as it is."""
+    generator is left as it is.  The whole model's state goes through
+    ``trainer.load_full_state``, so a tensor-parallel trainer takes its
+    slices."""
     path = pathlib.Path(path)
     raw = unpackb(path.read_bytes())
     at = str(path)
@@ -416,24 +423,20 @@ def load_flax(trainer, path):
                                          'rng'} <= set(raw):
         raise ValueError(f'{at}: not a JAX trainer checkpoint (keys '
                          f'{sorted(raw) if isinstance(raw, dict) else type(raw)})')
-    model, opt = trainer.model, trainer.optimizer
+    shapes = trainer.full_shapes()
     count, mu, nu = adam_from_flax(_adam_state(raw['opt_state'], at))
-    params = _by_parameter(model, from_flax({'params': raw['params']}),
+    params = _by_parameter(shapes, from_flax({'params': raw['params']}),
                            'params', at)
-    mu = _by_parameter(model, mu, 'Adam mu', at)
-    nu = _by_parameter(model, nu, 'Adam nu', at)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(params[name])
-    index = {id(p): i for i, p in enumerate(
-        p for g in opt.param_groups for p in g['params'])}
-    names = {id(p): n for n, p in model.named_parameters()}
-    state = {index[id(p)]: {'step': torch.tensor(float(count)),
-                            'exp_avg': mu[names[id(p)]].clone(),
-                            'exp_avg_sq': nu[names[id(p)]].clone()}
-             for g in opt.param_groups for p in g['params']}
-    opt.load_state_dict({'state': state,
-                         'param_groups': opt.state_dict()['param_groups']})
+    mu = _by_parameter(shapes, mu, 'Adam mu', at)
+    nu = _by_parameter(shapes, nu, 'Adam nu', at)
+    state = {i: {'step': torch.tensor(float(count)),
+                 'exp_avg': mu[name].clone(), 'exp_avg_sq': nu[name].clone()}
+             for i, name in enumerate(_parameter_order(trainer))}
+    buffers = dict(trainer.model.named_buffers())
+    trainer.load_full_state(
+        {**buffers, **params},
+        {'state': state,
+         'param_groups': trainer.optimizer.state_dict()['param_groups']})
     trainer.step_count = int(raw['step'])
     trainer.nonfinite_steps = int(raw['opt_state']['total_notfinite'])
     trainer.nonfinite_run = int(raw['opt_state'].get('notfinite_count', 0))
@@ -454,14 +457,18 @@ def save_flax(trainer, path, rng_impl='rbg', **meta):
     ``rng`` is the JAX key data of ``seed + 1`` (the JAX trainer's initial
     dropout key) for ``rng_impl``, the JAX trainer's default ``'rbg'``
     giving uint32 ``[4]`` (``'threefry2x32'`` ``[2]``): the port's
-    generator state has no JAX counterpart."""
+    generator state has no JAX counterpart.  The whole model's state comes
+    from ``trainer.full_state``: every process of a parallel run calls
+    this, and the lead one writes."""
     path = pathlib.Path(path)
-    model, opt = trainer.model, trainer.optimizer
+    model_state, opt_state = trainer.full_state()
+    if not getattr(trainer, 'is_lead', True):
+        return
     params, mu, nu = {}, {}, {}
     count = 0
-    for name, p in model.named_parameters():
-        params[name] = p
-        st = opt.state.get(p, {})
+    for i, name in enumerate(_parameter_order(trainer)):
+        p = params[name] = model_state[name]
+        st = opt_state['state'].get(i, {})
         if st:
             count = max(count, int(st['step']))
         mu[name] = st.get('exp_avg', torch.zeros_like(p))

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ['from_flax', 'to_flax', 'adam_from_flax', 'adam_to_flax',
-           'is_conv_param']
+           'is_conv_param', 'flax_key']
 
 _STATS = ('data_norm.mean', 'data_norm.variance')
 
@@ -41,6 +41,17 @@ def is_conv_param(key):
     path — and its leaf name)."""
     head, _, leaf = key.rpartition('.')
     return head == 'conv' or head.endswith('.conv'), leaf
+
+
+def flax_key(key):
+    """``(flax path joined with '.', transposed)`` of a state-dict key:
+    an ``nn.Conv``'s ``weight`` is flax's ``kernel`` with its axes
+    reversed (``[cout, cin, K]`` against ``[K, cin, cout]``), every other
+    key keeps its name and layout."""
+    conv, leaf = is_conv_param(key)
+    if conv and leaf == 'weight':
+        return key[:-len('weight')] + 'kernel', True
+    return key, False
 
 
 def from_flax(variables):

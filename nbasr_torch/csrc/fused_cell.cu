@@ -22,8 +22,10 @@
 //
 // Dropout: keep iff bits < threshold, where bits is the JAX kernel's
 // interpret-mode hash (_Prng.bits) of (seed, batch row b, node counter, t,
-// c) in uint32 arithmetic; the counter runs 1, 2, ... over the conv and
-// linear nodes.  The TPU's hardware generator cannot be reproduced; this
+// c0 + c) in uint32 arithmetic, c0 the channel offset of a tensor-parallel
+// shard (0 for a whole cell), so that a shard of C/tp channels draws the
+// whole cell's masks on its channels; the counter runs 1, 2, ... over the
+// conv and linear nodes.  The TPU's hardware generator cannot be reproduced; this
 // hash can, so the kernel, its plain version and the JAX package in
 // interpret mode draw the same mask.  A training forward (mults != null)
 // also writes each conv or linear node's multiplier, gate * keep / (1 - p)
@@ -202,6 +204,7 @@ struct NodeEpilogue {
   unsigned counter;   // this node's draw: 1, 2, ... over conv/linear nodes
   T* mult;            // [B, T, C] multiplier of this node, or null
   int t_len, C;
+  int c0;             // the hash's channel offset: a shard's first channel
 
   // The dropout hash's key of row (b, t): what the outputs of one row share.
   __device__ __forceinline__ unsigned row_key(int b, int t) const {
@@ -221,7 +224,7 @@ struct NodeEpilogue {
     if constexpr (kTrain) {
       float g = (a > 0.0f && a < 20.0f) ? 1.0f : ((a == 0.0f || a == 20.0f) ? 0.5f : 0.0f);
       if (seed) {
-        const bool keep = dropout_bits(key, static_cast<unsigned>(c)) < threshold;
+        const bool keep = dropout_bits(key, static_cast<unsigned>(c0 + c)) < threshold;
         y = keep ? y * inv_keep : 0.0f;
         g = keep ? g * inv_keep : 0.0f;
       }
@@ -483,8 +486,8 @@ template <typename T, bool kTrain>
 int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
              const void* const* weights, const void* const* biases, const void* x,
              void* scratch, void* y, const float* ln_scale, const float* ln_shift, int use_norm,
-             float eps, const int* seed, unsigned threshold, float inv_keep, T* mults,
-             cudaStream_t stream) {
+             float eps, const int* seed, unsigned threshold, float inv_keep, int c0,
+             T* mults, cudaStream_t stream) {
   const long long rows = static_cast<long long>(batch) * t_len;
   const long long numel = rows * C;
   if (rows == 0) return cudaSuccess;
@@ -513,7 +516,8 @@ int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
                                 nd[0] == kZero ? 0u : ++counter,
                                 mults ? mults + n * numel : nullptr,
                                 t_len,
-                                C};
+                                C,
+                                c0};
     if (nd[0] == kConv) {
       ConvEpilogue<T, kTrain> conv;
       static_cast<NodeEpilogue<T, kTrain>&>(conv) = epi;
@@ -563,14 +567,14 @@ template <typename T>
 int run(int batch, int t_len, int C, int n_nodes, const int* desc, const void* const* weights,
         const void* const* biases, const void* x, void* scratch, void* y, const float* ln_scale,
         const float* ln_shift, int use_norm, float eps, const int* seed, unsigned threshold,
-        float inv_keep, void* mults, cudaStream_t stream) {
+        float inv_keep, int c0, void* mults, cudaStream_t stream) {
   if (seed || mults)
     return run_cell<T, true>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y,
-                             ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep,
+                             ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep, c0,
                              static_cast<T*>(mults), stream);
   return run_cell<T, false>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y,
-                            ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep, nullptr,
-                            stream);
+                            ln_scale, ln_shift, use_norm, eps, seed, threshold, inv_keep, c0,
+                            nullptr, stream);
 }
 
 // The fewer resident blocks per SM of a conv node's two instantiations.
@@ -589,7 +593,8 @@ int conv_occupancy(int threads, int smem) {
 // nodes); weights[n] and biases[n] are node n's weight (activation dtype)
 // and f32 bias, null for a zero node.  scratch holds n_nodes [B, T, C]
 // buffers of the activation dtype.  seed (device int32 [2]) turns dropout
-// on, with keep iff bits < threshold and kept values scaled by inv_keep;
+// on, with keep iff bits < threshold and kept values scaled by inv_keep,
+// the hash taking channel c as c0 + c (a tensor-parallel shard's offset);
 // mults (n_nodes [B, T, C] buffers of the activation dtype), when given,
 // receives each conv or linear node's multiplier for the backward, and
 // scratch then holds every node's output (without a LayerNorm the last
@@ -600,9 +605,10 @@ extern "C" int nbasr_fused_cell_forward(int bf16, int batch, int t_len, int C, i
                                         const void* const* biases, const void* x, void* scratch,
                                         void* y, const void* ln_scale, const void* ln_shift,
                                         int use_norm, float eps, const void* seed,
-                                        unsigned threshold, float inv_keep, void* mults,
-                                        void* stream) {
-  if (n_nodes < 1 || n_nodes >= kMaxOutputs || !desc || batch < 0 || t_len < 0 || C < 1)
+                                        unsigned threshold, float inv_keep, int c0,
+                                        void* mults, void* stream) {
+  if (n_nodes < 1 || n_nodes >= kMaxOutputs || !desc || batch < 0 || t_len < 0 || C < 1 ||
+      c0 < 0)
     return cudaErrorInvalidValue;
   static_assert(sizeof(FwdPlan) == gconv::kFwdPlanInts * sizeof(int),
                 "FwdPlan is kFwdPlanInts ints");
@@ -612,9 +618,9 @@ extern "C" int nbasr_fused_cell_forward(int bf16, int batch, int t_len, int C, i
   const auto sd = static_cast<const int*>(seed);
   if (bf16)
     return run<__nv_bfloat16>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y, sc,
-                              sh, use_norm, eps, sd, threshold, inv_keep, mults, s);
+                              sh, use_norm, eps, sd, threshold, inv_keep, c0, mults, s);
   return run<float>(batch, t_len, C, n_nodes, desc, weights, biases, x, scratch, y, sc, sh,
-                    use_norm, eps, sd, threshold, inv_keep, mults, s);
+                    use_norm, eps, sd, threshold, inv_keep, c0, mults, s);
 }
 
 // Resident blocks per SM of the conv node kernel with a plan's register

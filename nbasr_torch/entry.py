@@ -3,11 +3,10 @@ full-width flagship's forward on the card, and a multi-process dry run of
 the data-parallel train and eval steps.
 
     python -m nbasr_torch.entry          # the forward, on the card
-    python -m nbasr_torch.entry 2        # the dry run, 2 gloo processes
+    python -m nbasr_torch.entry 4        # the dry run, 4 gloo processes
 
-The JAX package's dry run takes tp=2 where the device count is even; the
-port's is data-parallel only (dp=n, tp=1): tensor parallelism is the last
-port slice of ``ROADMAP.md``.
+The dry run takes tp=2 where the process count is even, as the JAX
+package's does (``__graft_entry__.py:34``), dp = n / tp.
 """
 
 import math
@@ -47,15 +46,16 @@ def entry(device='cuda'):
     return forward, (feats, sizes)
 
 
-def _dryrun_rank(rank, world, device, model_kwargs):
+def _dryrun_rank(rank, world, device, model_kwargs, tp):
     from .data.pipeline import get_dataloaders
     from .parallel.train_parallel import ParallelTrainer
     from .training import get_loss
-    loaders = get_dataloaders(f'synthetic:{4 * world}', batch_size=2 * world,
-                              curriculum=(), num_shards=world,
-                              shard_index=rank)
-    trainer = ParallelTrainer(loaders, get_loss(), device=device,
-                              eval_decoder='greedy', verbose=False)
+    dp = world // tp
+    loaders = get_dataloaders(f'synthetic:{4 * dp}', batch_size=2 * dp,
+                              curriculum=(), num_shards=dp,
+                              shard_index=rank // tp)
+    trainer = ParallelTrainer(loaders, get_loss(), device=device, dp=dp,
+                              tp=tp, eval_decoder='greedy', verbose=False)
     trainer.init_state(_flagship(device, **model_kwargs), seed=0)
     batch = next(iter(loaders[1]))
     return (trainer.step(batch, training=True, lr=1e-4),
@@ -66,16 +66,19 @@ def dryrun_multichip(n_devices, model_kwargs=None, timeout=None):
     """``n_devices`` gloo processes on the CPU, one
     :class:`~nbasr_torch.parallel.ParallelTrainer` train step and one eval
     step of the flagship (``model_kwargs`` overrides its widths) over a
-    dp=n, tp=1 mesh.  Returns rank 0's (train, eval) metrics."""
+    ('data', 'model') mesh with tp=2 where ``n_devices`` is even (else 1),
+    dp = n / tp.  Returns rank 0's (train, eval) metrics."""
     from .parallel.mesh import spawn
+    tp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     train, evaluation = spawn(_dryrun_rank, ['cpu'] * n_devices,
-                              (model_kwargs or {},), timeout=timeout)[0]
+                              (model_kwargs or {}, tp), timeout=timeout)[0]
     if not (math.isfinite(train['ctc_loss'])
             and math.isfinite(evaluation['ctc_loss'])):
         raise FloatingPointError(f'dryrun_multichip({n_devices}): '
                                  f'{train} {evaluation}')
-    print(f'dryrun_multichip({n_devices}): mesh {{data: {n_devices}, '
-          f'model: 1}} train ctc_loss={train["ctc_loss"]:.4f} '
+    print(f'dryrun_multichip({n_devices}): mesh {{data: '
+          f'{n_devices // tp}, model: {tp}}} train '
+          f'ctc_loss={train["ctc_loss"]:.4f} '
           f'eval ler={evaluation["ler"]:.4f}')
     return train, evaluation
 

@@ -130,7 +130,7 @@ class SearchCell(nn.Module):
             else:
                 w, b = p.conv_kernel_grouped, p.conv_bias
             weights += [w.to(dtype), b]
-        ln = (self.norm.scale, self.norm.bias) if self.norm is not None else None
+        ln = (self.norm.scale, self.norm.bias) if self.spec.use_norm else None
         return weights, ln
 
     @property
@@ -156,8 +156,11 @@ class SearchCell(nn.Module):
             seed = self.draw_seed(generator, x.device)
         if self.fused:
             spec = self.train_spec if self.training else self.spec
-            return fused_cell_forward(spec, x.contiguous(),
-                                      *self.operands(x.dtype), seed=seed)
+            y = fused_cell_forward(spec, x.contiguous(),
+                                   *self.operands(x.dtype), seed=seed)
+            # a norm outside the kernel: a tensor-parallel shard's
+            # (nbasr_torch.parallel.tensor.DistributedLayerNorm)
+            return y if spec.use_norm or self.norm is None else self.norm(y)
         outputs = [x]
         counter = 0
         for name, node in zip(self._op_names, self.spec.nodes):

@@ -60,13 +60,14 @@ def relu20(x):
     return _Relu20.apply(x)
 
 
-def hash_dropout(y, rate, seed, counter, groups=None):
+def hash_dropout(y, rate, seed, counter, groups=None, c0=0):
     """Dropout of a cell op's output with the fused cell's stateless hash:
     the bits of :func:`~nbasr_torch.ops.fused_cell.dropout_bits` for draw
     ``counter`` of the cell's CPU ``seed`` (int32 ``[2]``), in the dense
     ``(t, c_full)`` coordinates, so the unfused paths drop what the fused
     cell drops.  ``y`` is ``[B, T, C]``, or the split layout ``[B, c, T,
-    G]`` when ``groups`` is given (the mask is permuted to it).  flax's
+    G]`` when ``groups`` is given (the mask is permuted to it); ``c0``
+    is a channel shard's first channel in the whole cell.  flax's
     ``nn.Dropout`` divides by ``1 - rate``; this multiplies by that
     reciprocal rounded to f32, as the fused cell does: at most 1 ulp apart.
     Plain torch ops, as the JAX package leaves dropout to XLA."""
@@ -75,8 +76,8 @@ def hash_dropout(y, rate, seed, counter, groups=None):
     else:
         B, c, T, G = y.shape
         C = c * G
-    keep = dropout_bits(seed, counter, B, T, C, y.device) < keep_threshold(
-        rate)
+    keep = dropout_bits(seed, counter, B, T, C, y.device, c0) < \
+        keep_threshold(rate)
     if groups is not None:
         keep = to_split(keep, groups)
     return torch.where(keep, y * inv_keep(rate),
@@ -315,6 +316,8 @@ class GroupedPadConvRelu(nn.Module):
         if impl not in CELL_CONV_IMPLS + ('fused',):
             raise ValueError(f'unknown cell conv impl: {impl!r}')
         self.groups = groups
+        #: the dropout hash's first channel (a tensor-parallel shard's)
+        self.channel_offset = 0
         self.dilation = dilation
         self.dropout_rate = dropout_rate
         if impl != 'fused' and groups == 1:
@@ -361,7 +364,8 @@ class GroupedPadConvRelu(nn.Module):
                                           self.dilation) + b)
         if seed is not None:
             y = hash_dropout(y, self.dropout_rate, seed, counter,
-                             self.groups if self.split else None)
+                             self.groups if self.split else None,
+                             self.channel_offset)
         return y
 
 

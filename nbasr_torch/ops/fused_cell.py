@@ -19,7 +19,10 @@ Dropout draws its bits from the JAX kernel's interpret-mode generator
 (``_Prng.bits``): a stateless hash of (seed, batch row, node, t, c) in
 uint32 arithmetic.  The kernel, the plain version and the JAX package in
 interpret mode therefore draw the same mask from the same seed, and the
-backward needs no stored generator state.
+backward needs no stored generator state.  A tensor-parallel shard of a
+cell (``FusedCellSpec.channel_offset`` ``c0``) hashes its channel ``c`` as
+the whole cell's ``c0 + c``, so its masks are the whole cell's on its
+channels.
 
 A training forward keeps every node output and every node's multiplier
 (clip-ReLU gate × dropout keep / (1 − p), in the activation dtype) for the
@@ -128,15 +131,20 @@ class ZeroNode:
 class FusedCellSpec:
     """Static description of a cell: its nodes, dropout, then LayerNorm or
     not.  Dropout applies only when ``train`` is set and the rate is
-    positive (:attr:`dropping`)."""
+    positive (:attr:`dropping`); ``channel_offset`` is the whole cell's
+    channel of this cell's channel 0 in the dropout hash (a tensor-parallel
+    shard's first channel, 0 for a whole cell)."""
 
     def __init__(self, nodes, dropout_rate=0.0, train=False,
-                 ln_eps=LN_EPS_DEFAULT, use_norm=True):
+                 ln_eps=LN_EPS_DEFAULT, use_norm=True, channel_offset=0):
+        if channel_offset < 0:
+            raise ValueError(f'channel_offset={channel_offset} < 0')
         self.nodes = tuple(nodes)
         self.dropout_rate = float(dropout_rate)
         self.train = bool(train)
         self.ln_eps = float(ln_eps)
         self.use_norm = bool(use_norm)
+        self.channel_offset = int(channel_offset)
 
     @property
     def dropping(self):
@@ -167,11 +175,12 @@ def _seed_words(seed):
     return [int(v) & _U32 for v in seed.tolist()]
 
 
-def dropout_bits(seed, counter, B, T, C, device=None):
+def dropout_bits(seed, counter, B, T, C, device=None, c0=0):
     """``[B, T, C]`` int64 tensor of uint32 bits: the JAX kernel's
-    interpret-mode hash (``_Prng.bits``) at ``i`` = t, ``j`` = c, ``pid`` =
-    batch row, for the ``counter``-th draw (1, 2, ... over the conv and
-    linear nodes in node order).  int64 arithmetic masked to 32 bits after
+    interpret-mode hash (``_Prng.bits``) at ``i`` = t, ``j`` = ``c0`` + c,
+    ``pid`` = batch row, for the ``counter``-th draw (1, 2, ... over the
+    conv and linear nodes in node order); ``c0`` > 0 gives a channel shard's
+    slice of the whole cell's bits.  int64 arithmetic masked to 32 bits after
     every multiply and add, which is uint32 arithmetic with wraparound; every
     shifted value is non-negative, so ``>>`` is the logical shift."""
     s0, s1 = _seed_words(seed)
@@ -184,7 +193,8 @@ def dropout_bits(seed, counter, B, T, C, device=None):
 
     const = ((s0 * 0xC2B2AE35) & _U32) ^ ((s1 + 0x27D4EB2F) & _U32) \
         ^ ((counter * 0x5851F42D) & _U32)
-    x = (((ramp(T, 1) * 0x9E3779B1) & _U32) ^ ((ramp(C, 2) * 0x85EBCA6B) & _U32)
+    x = (((ramp(T, 1) * 0x9E3779B1) & _U32)
+         ^ (((ramp(C, 2) + c0) * 0x85EBCA6B) & _U32)
          ^ ((ramp(B, 0) * 0x165667B1) & _U32) ^ const)
     for shift in (15, 13, 16):
         x = x ^ (x >> shift)
@@ -313,7 +323,8 @@ def fused_cell_reference(spec, x, weights, ln, seed=None, save=False):
             gate = relu20_gate(acc)
             if spec.dropping:
                 counter += 1
-                keep = dropout_bits(seed, counter, B, T, C, x.device) < thr
+                keep = dropout_bits(seed, counter, B, T, C, x.device,
+                                    spec.channel_offset) < thr
                 total = torch.where(keep, total * keep_scale, 0.0)
                 gate = torch.where(keep, gate * keep_scale, 0.0)
             if save:
@@ -504,7 +515,7 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _FWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP, _PP]
              + [_P] * 5 + [ctypes.c_int, ctypes.c_float, _P, ctypes.c_uint,
-                           ctypes.c_float, _P, _P])
+                           ctypes.c_float, ctypes.c_int, _P, _P])
 _BWD_ARGS = ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), _PP]
              + [_P] * 5 + [ctypes.c_int, ctypes.c_float, _P, _PP, _PP, _P, _P,
                            _P, _P])
@@ -647,7 +658,8 @@ def _launch(spec, x, weights, ln, seed, save):
                  (ctypes.c_void_p * n)(*wptrs), (ctypes.c_void_p * n)(*bptrs),
                  x.data_ptr(), scratch.data_ptr(), y.data_ptr(), *ln_ptrs,
                  int(spec.use_norm), spec.ln_eps, seed_ptr, thr, keep_scale,
-                 mults.data_ptr() if save else None, stream)
+                 spec.channel_offset, mults.data_ptr() if save else None,
+                 stream)
     _build.check(err, 'fused_cell', 'fused cell forward')
     _build.count_launch(LAUNCHES, 'kernel')
     return (y, scratch, mults) if save else (y, None, None)

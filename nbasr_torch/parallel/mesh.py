@@ -5,10 +5,15 @@ JAX runs one SPMD program over a ``Mesh`` of devices; the port runs one
 process per device (torchrun's model), so the ranks of a
 ``torch.distributed`` process group stand where JAX's devices stand, and
 :func:`make_mesh` lays them out as a ``DeviceMesh`` with the JAX package's
-dims ``('data', 'model')``.  Data parallelism runs on ``'data'``
-(:class:`nbasr_torch.parallel.ParallelTrainer`).  Tensor parallelism
-(``'model'`` > 1, ``param_spec``, ``param_shardings``) is not ported yet:
-it is the last slice of ``ROADMAP.md``'s queue 1.
+dims ``('data', 'model')``, ranks laid out ``arange(n).reshape(dp, tp)``
+(a ``'model'`` group is ``tp`` consecutive ranks).  Data parallelism runs
+on ``'data'``, tensor parallelism on ``'model'``
+(:class:`nbasr_torch.parallel.ParallelTrainer`,
+:func:`nbasr_torch.parallel.tensor.tensor_parallel`).  :func:`param_spec`
+is the JAX package's placement rule, applied to each parameter's flax
+shape, and returns DTensor placements over the mesh's two dims as
+descriptors: the port's parameters stay plain local tensors, each rank
+holding its slice.
 
 :func:`spawn` starts one process per device in one group (NCCL where each
 rank has a card of its own, gloo on the CPU and for several ranks on one
@@ -32,12 +37,16 @@ from ..models.asr import resolve_device
 
 __all__ = ['make_mesh', 'initialize_distributed', 'local_device',
            'backend_for', 'spawn', 'free_port', 'param_spec',
-           'param_shardings', 'TP_LATER']
+           'param_shardings', 'batch_shardings', 'replicated', 'model_size',
+           'TP_LATER']
 
-#: What a tensor-parallel request raises: the ROADMAP item that brings it.
-TP_LATER = ("tensor parallelism (tp > 1) is not ported yet: see ROADMAP.md, "
-            "queue 1, the last port slice: 'tensor parallelism and "
-            "seq_parallel_apply'")
+#: What tensor parallelism refuses: the ROADMAP item that brings it.
+TP_LATER = ("grouped_impl='pallas_split' at tp > 1 (the split layout "
+            "[B, c, T, G] sharded on G) is not ported yet: see ROADMAP.md, "
+            "queue 1")
+
+#: Leaves the JAX rule never shards (``nbasr_tpu/parallel/mesh.py:62``).
+_REPLICATED_LEAVES = ('bias', 'scale', 'mean', 'variance')
 
 
 def local_device(device='cuda'):
@@ -81,7 +90,8 @@ def make_mesh(dp=None, tp=1, devices=None):
     the process group, one rank per entry of ``devices`` (default: one per
     process; ``devices`` names each rank's device, which sets the mesh's
     device type).  ``dp`` defaults to ``n // tp``; the dims must multiply
-    to the device count.  ``tp`` > 1 raises NotImplementedError."""
+    to the device count; each ``'model'`` group is ``tp`` consecutive
+    ranks."""
     from torch.distributed.device_mesh import DeviceMesh
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = world if devices is None else len(devices)
@@ -91,8 +101,6 @@ def make_mesh(dp=None, tp=1, devices=None):
         dp = n // tp
     if dp * tp != n:
         raise ValueError(f'dp*tp = {dp}*{tp} != {n} devices')
-    if tp != 1:
-        raise NotImplementedError(TP_LATER)
     if not dist.is_initialized():
         raise RuntimeError('make_mesh needs a process group: run under '
                            'torchrun, or call initialize_distributed')
@@ -107,15 +115,54 @@ def make_mesh(dp=None, tp=1, devices=None):
                       mesh_dim_names=('data', 'model'))
 
 
-def param_spec(*args, **kwargs):
-    """Tensor parallelism's placement of one parameter: not ported yet."""
-    raise NotImplementedError(TP_LATER)
+def model_size(mesh):
+    """The size of the mesh's ``'model'`` dim."""
+    return mesh.size(mesh.mesh_dim_names.index('model'))
 
 
-def param_shardings(*args, **kwargs):
-    """Tensor parallelism's placement of a parameter tree: not ported
-    yet."""
-    raise NotImplementedError(TP_LATER)
+def param_spec(name, param, tp):
+    """The placements over ``('data', 'model')`` of parameter ``name``
+    (a state-dict key) of shape ``param.shape``: the JAX package's rule
+    (``nbasr_tpu/parallel/mesh.py:56-69``) on its flax shape.  A kernel
+    whose flax last (output-feature) axis divides by ``tp`` and is at least
+    ``8 * tp`` wide is ``Shard`` on that axis over ``'model'`` (dim 0 of a
+    conv's torch ``[cout, cin, K]`` weight, the last dim of everything
+    else); ``bias``, ``scale``, ``mean``, ``variance``, 0-d leaves and
+    narrower kernels are replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..convert import flax_key
+    key, transposed = flax_key(name)
+    shape = tuple(param.shape)
+    if (tp <= 1 or not shape or key.rpartition('.')[2] in _REPLICATED_LEAVES
+            or shape[0 if transposed else -1] % tp
+            or shape[0 if transposed else -1] < 8 * tp):
+        return (Replicate(), Replicate())
+    return (Replicate(), Shard(0 if transposed else len(shape) - 1))
+
+
+def param_shardings(model, mesh):
+    """``{name: placements}`` of ``model``'s parameters by
+    :func:`param_spec` at the mesh's ``'model'`` size; for a model that
+    :func:`~nbasr_torch.parallel.tensor.tensor_parallel` has sharded, on
+    the whole shapes it keeps."""
+    tp = model_size(mesh)
+    shapes = getattr(model, 'tp_full_shapes', None) or {
+        n: p.shape for n, p in model.named_parameters()}
+    return {n: param_spec(n, torch.empty(s, device='meta'), tp)
+            for n, s in shapes.items()}
+
+
+def batch_shardings(mesh):
+    """Placements of every input batch leaf: the batch axis on ``'data'``
+    (each data rank's loader gives its rows), replicated over ``'model'``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return (Shard(0), Replicate())
+
+
+def replicated(mesh):
+    """Placements of a value every rank holds whole."""
+    from torch.distributed.tensor import Replicate
+    return (Replicate(), Replicate())
 
 
 def free_port():

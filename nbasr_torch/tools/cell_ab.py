@@ -12,13 +12,18 @@ serving step (B=4, T = 772/772/386/193 at C = 600/800/1000/1200, as
   the 18 cells;
 - ``kernel_ms``: the device time of the ``nbasr_*`` kernels in a
   ``torch.profiler`` trace of 20 such steps, per step (host time between
-  launches does not count).
+  launches does not count);
+- ``digest``: a SHA-256 of the 18 cells' outputs, and ``train_digest`` of
+  the training forward's outputs and saved multipliers at dropout 0.2 on
+  one seed (equal digests: equal bits).
 
 Only the API that every version of the port has is used (``SearchCell``,
-``operands``, ``fused_cell_forward``, ``_build.build``).  One JSON line per
-root, then a summary line.
+``operands``, ``train_spec``, ``fused_cell_forward``,
+``fused_cell_train_forward``, ``_build.build``).  One JSON line per root,
+then a summary line.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -51,6 +56,9 @@ def measure(root):
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             calls, events = [], 0.0
+            digest, train_digest = hashlib.sha256(), hashlib.sha256()
+            seed = torch.tensor([1234567, 7654321], dtype=torch.int32,
+                                device=dev)
             for (C, T), n in zip(WIDTHS, CELLS_PER_BLOCK):
                 g = torch.Generator().manual_seed(C)
                 cell = SearchCell(C, names, groups=100, init_scheme='scaled',
@@ -58,6 +66,10 @@ def measure(root):
                 x = torch.randn((B, T, C), generator=g).to(dev, dtype)
                 args = (cell.spec, x, *cell.operands(dtype))
                 call = lambda args=args: fused_cell.fused_cell_forward(*args)
+                digest.update(_bytes(call()))
+                for t in fused_cell.fused_cell_train_forward(
+                        cell.train_spec, x, *cell.operands(dtype), seed)[::2]:
+                    train_digest.update(_bytes(t))
                 for _ in range(5):
                     call()
                 times = []
@@ -81,9 +93,17 @@ def measure(root):
                          if e.device_type == DeviceType.CUDA
                          and 'nbasr_' in e.key) / 1e3 / STEPS
             key = str(dtype)[6:]
+            out[f'{key}_digest'] = digest.hexdigest()
+            out[f'{key}_train_digest'] = train_digest.hexdigest()
             out[f'{key}_events_ms'] = events
             out[f'{key}_kernel_ms'] = kernel if kernel > 0 else None
     return out
+
+
+def _bytes(t):
+    import torch
+    return t.detach().contiguous().view(-1).view(torch.uint8).cpu() \
+        .numpy().tobytes()
 
 
 def main(argv):

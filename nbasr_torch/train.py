@@ -23,11 +23,17 @@ resumes from them (``Trainer.load`` reads flax checkpoints) unless
         --dp N --data TIMIT
 
 ``--batch_size`` is the global batch.  Only rank 0 writes the run's files.
-``--tp`` above 1 (tensor parallelism) is the last port slice of
-``ROADMAP.md``.
+``--tp N`` adds tensor parallelism: each group of N consecutive ranks
+shards the model's channels (:func:`nbasr_torch.parallel.tensor.
+tensor_parallel`) and shares its data shard, so ``dp x tp`` processes run
+(``--dp`` defaults to the world size over ``--tp``):
+
+    torchrun --nproc_per_node 4 -m nbasr_torch.train 1 0 1 0 0 1 0 0 0 \
+        --dp 2 --tp 2 --data TIMIT
 """
 
 import argparse
+import os
 import pathlib
 import shutil
 
@@ -56,7 +62,8 @@ def main(argv=None):
                         help='data-parallel processes (run under torchrun '
                              '--nproc_per_node DP)')
     parser.add_argument('--tp', type=int, default=1,
-                        help='tensor parallelism: not ported yet (ROADMAP.md)')
+                        help='tensor-parallel processes per data shard (run '
+                             'under torchrun --nproc_per_node DP*TP)')
     parser.add_argument('--decoder', type=str, default='beam',
                         choices=['beam', 'greedy'])
     parser.add_argument('--init_scheme', type=str, default=None,
@@ -83,19 +90,23 @@ def main(argv=None):
                              "'native' the JAX package's XLA lowerings in "
                              "stock PyTorch")
     args = parser.parse_args(argv)
-    if args.tp != 1:
-        from .parallel.mesh import TP_LATER
-        parser.error(f'--tp {args.tp}: {TP_LATER}')
-    if args.dp:
+    if args.tp < 1:
+        parser.error(f'--tp {args.tp}: at least 1')
+    if args.dp or args.tp > 1:
         from .parallel.mesh import initialize_distributed, local_device
+        grouped = dist.is_initialized() or 'WORLD_SIZE' in os.environ
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get('WORLD_SIZE', 1)))
+        args.dp = args.dp or max(world // args.tp, 1)
+        if not grouped or world != args.dp * args.tp:
+            need = args.dp * args.tp
+            parser.error(f'--dp {args.dp} --tp {args.tp} needs {need} '
+                         f'processes in one group, one per device: run '
+                         f'under torchrun --nproc_per_node {need}')
         device = local_device(args.device)
         if device.type == 'cuda':
             torch.cuda.set_device(device)
         rank, world = initialize_distributed(device=device)
-        if not dist.is_initialized() or world != args.dp:
-            parser.error(f'--dp {args.dp} needs as many processes in one '
-                         f'group, one per device: run under torchrun '
-                         f'--nproc_per_node {args.dp}')
         try:
             return _train(args, device, rank, world)
         finally:
@@ -105,8 +116,9 @@ def main(argv=None):
 
 
 def _train(args, device, rank=0, world=1):
-    """The run of ``main``'s arguments on ``device``: data-parallel when
-    ``args.dp`` is set, rank ``rank`` of ``world``."""
+    """The run of ``main``'s arguments on ``device``: data- and
+    tensor-parallel when ``args.dp`` is set, rank ``rank`` of ``world``
+    (data shard ``rank // args.tp`` of ``args.dp``)."""
     if args.dtype is None:
         args.dtype = 'bfloat16' if device.type == 'cuda' else 'float32'
     if device.type == 'cuda' and args.dtype == 'float32':
@@ -119,13 +131,15 @@ def _train(args, device, rank=0, world=1):
         args.exp_name = f'{flat}_b{args.batch_size}_rnn{int(args.rnn)}'
     if rank == 0:
         print(f'Using backend: torch on {device}'
-              + (f', data-parallel over {world} processes' if args.dp else ''))
+              + (f', mesh {{data: {args.dp}, model: {args.tp}}} over {world} '
+                 f'processes' if args.dp else ''))
         print(f'    Model vec: {arch}')
         print(f'    Training for {args.epochs} epochs, batch '
               f'{args.batch_size}, lr {args.lr}, dropout {args.dropout}')
 
     dataloaders = get_dataloaders(args.data, batch_size=args.batch_size,
-                                  num_shards=world, shard_index=rank)
+                                  num_shards=world // args.tp,
+                                  shard_index=rank // args.tp)
     model_kw = {'init_scheme': args.init_scheme} if args.init_scheme else {}
     model = get_model(
         arch, use_rnn=args.rnn, dropout_rate=args.dropout, data_norm=True,
@@ -141,7 +155,7 @@ def _train(args, device, rank=0, world=1):
         from .parallel import ParallelTrainer
         dist.barrier()              # rank 0 has adopted the JAX run's files
         trainer = ParallelTrainer(dataloaders, get_loss(), device=device,
-                                  save_dir=save_dir,
+                                  dp=args.dp, tp=args.tp, save_dir=save_dir,
                                   eval_decoder=args.decoder, **trainer_kw)
     else:
         trainer = get_trainer(dataloaders, get_loss(), device=device,

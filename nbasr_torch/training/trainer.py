@@ -27,15 +27,21 @@ Checkpoints: :meth:`Trainer.save` writes the port's own format
 files the JAX trainer writes (:mod:`nbasr_torch.checkpoint`), so
 ``train()`` resumes a ``latest.ckpt``/``best.ckpt`` the JAX trainer left in
 its folder; :func:`nbasr_torch.checkpoint.save_flax` writes one the JAX
-trainer loads.  Not ported yet (``ROADMAP.md``): the profiler hook; the
-eval prewarm hides an XLA compile and has no counterpart here.
+trainer loads.  ``profile_dir`` (with ``profile_steps``) writes a
+``torch.profiler`` trace of train steps 1..N of the first epoch there, as
+the JAX trainer's profiler hook does: step 0, the warm-up and planning
+step, is left out.  The JAX trainer's eval prewarm hides an XLA compile
+and has no counterpart here.
 
-Data parallelism (:class:`nbasr_torch.parallel.ParallelTrainer`) overrides
-three hooks: :meth:`Trainer._objective` (the loss of the global batch),
-:meth:`Trainer._sum_metrics` (metric pairs summed over the ranks) and
-:attr:`Trainer.is_lead` (only the lead process writes files); the train
-step's forward runs through :attr:`Trainer.net`, the model here and its
-``DistributedDataParallel`` wrapper there.
+Data and tensor parallelism (:class:`nbasr_torch.parallel.ParallelTrainer`)
+override these hooks: :meth:`Trainer._objective` (the loss of the global
+batch), :meth:`Trainer._sum_metrics` (metric pairs summed over the data
+ranks), :meth:`Trainer._loss_and_grads` and :meth:`Trainer._grad_norm`
+(the model ranks' gradient sums and global norm), :meth:`Trainer.full_state`
+and :meth:`Trainer.load_full_state` (checkpoints of the whole model from
+parameter shards) and :attr:`Trainer.is_lead` (only the lead process
+writes files); the train step's forward runs through :attr:`Trainer.net`,
+the model here and its ``DistributedDataParallel`` wrapper there.
 """
 
 import json
@@ -74,7 +80,8 @@ class Trainer:
                  verbose=True, frontend=None, eval_decoder='beam',
                  beam_width=12, strict_numerics=False, decay=0.9,
                  decay_start_epoch=5, clip_norm=5.0, adam_eps=1e-16,
-                 tensorboard=True, tb_step_interval=10):
+                 tensorboard=True, tb_step_interval=10, profile_dir=None,
+                 profile_steps=5):
         if eval_decoder not in ('beam', 'greedy'):
             raise ValueError(f'unknown eval_decoder: {eval_decoder!r}')
         encoder, self.data_train, self.data_validate, self.data_test = \
@@ -96,6 +103,10 @@ class Trainer:
         #: per-epoch metrics (reference callbacks/tensorboard.py:16-28)
         self.tensorboard = tensorboard
         self.tb_step_interval = tb_step_interval
+        #: a torch.profiler trace of train steps 1..profile_steps of the
+        #: first epoch goes to ``profile_dir`` (the JAX trainer's hook)
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
         self.strict_numerics = strict_numerics
         self.decay = decay
         self.decay_start_epoch = decay_start_epoch
@@ -160,6 +171,15 @@ class Trainer:
         self._objective(logits, lsize, batch, m).backward()
         return self._sum_metrics(m)
 
+    def _grad_norm(self, params):
+        """``(global norm, max |gradient|)`` of ``params``' gradients, as
+        0-d tensors; max |g| is finite iff every gradient is (NaN
+        propagates through max)."""
+        grads = [p.grad for p in params]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        peak = torch.stack(torch._foreach_norm(grads, math.inf)).max()
+        return norm, peak
+
     def _update(self, lr):
         """clip_by_global_norm, then Adam, then ×(−lr), as the optax chain
         under ``apply_if_finite``: a step with a non-finite gradient is
@@ -169,9 +189,7 @@ class Trainer:
         |gradient| together)."""
         params = [p for p in self.model.parameters() if p.grad is not None]
         grads = [p.grad for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        # max |g| is finite iff every gradient is (NaN propagates through max)
-        peak = torch.stack(torch._foreach_norm(grads, math.inf)).max()
+        norm, peak = self._grad_norm(params)
         norm_host, peak_host = torch.stack([norm, peak.to(norm.dtype)]).tolist()
         if not math.isfinite(peak_host):
             self.nonfinite_steps += 1
@@ -344,8 +362,17 @@ class Trainer:
             epoch_lr = lr_at_epoch(lr, epoch, self.decay, self.decay_start_epoch)
             self.metrics = zeros_like_metrics(('ctc_loss',), self.device)
             skipped = self.nonfinite_steps
+            profiler = (self._profiler() if epoch == start_epoch
+                        and self.profile_dir and lead else None)
             for step_i in range(self.data_train.steps):
+                if profiler is not None and step_i == 1:
+                    profiler.start()
                 self._train_step(self._put_batch(next(stream)), epoch_lr)
+                if profiler is not None and step_i >= 1 and (
+                        step_i == self.profile_steps
+                        or step_i == self.data_train.steps - 1):
+                    profiler.stop()
+                    profiler = None
                 if (tb is not None and self.tb_step_interval
                         and (step_i + 1) % self.tb_step_interval == 0):
                     # the running epoch-mean train loss, read only here
@@ -367,9 +394,9 @@ class Trainer:
             if best_val is None or val_m['ler'] <= best_val:
                 best_val = val_m['ler']
                 self.remember_best()
-                if best_ckpt and lead:
+                if best_ckpt:
                     self.save(best_ckpt, epoch=epoch, best_val=best_val)
-            if latest_ckpt and lead:
+            if latest_ckpt:
                 self.save(latest_ckpt, epoch=epoch, best_val=best_val)
             if tb is not None:
                 tb.scalars({'epoch_ctc_loss': train_m['ctc_loss'],
@@ -407,14 +434,44 @@ class Trainer:
                 pickle.dump(test_scores, f)
         return history, test_scores
 
+    def _profiler(self):
+        """A ``torch.profiler`` over the card (and the host) that writes a
+        Chrome trace under ``profile_dir`` when it stops."""
+        from torch.profiler import ProfilerActivity, profile, \
+            tensorboard_trace_handler
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(
+                           str(self.profile_dir)))
+
     # -- checkpoints: the port's own format, and the JAX trainer's -------
+
+    def full_state(self):
+        """``(model state dict, optimizer state dict)`` of the whole model
+        (a tensor-parallel trainer gathers its shards)."""
+        return self.model.state_dict(), self.optimizer.state_dict()
+
+    def full_shapes(self):
+        """``{name: shape}`` of the whole model's parameters."""
+        return {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+
+    def load_full_state(self, model_state, optimizer_state):
+        """Load what :meth:`full_state` gives (a tensor-parallel trainer
+        takes its slices)."""
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict(optimizer_state)
 
     def save(self, path, **meta):
         """Model, optimizer, step count and dropout generator state to
-        ``path`` (``torch.save``); ``meta`` to ``path + '.json'``."""
+        ``path`` (``torch.save``); ``meta`` to ``path + '.json'``.  Every
+        process of a parallel run calls it; the lead one writes."""
         path = pathlib.Path(path)
-        torch.save({'model': self.model.state_dict(),
-                    'optimizer': self.optimizer.state_dict(),
+        model_state, optimizer_state = self.full_state()
+        if not self.is_lead:
+            return
+        torch.save({'model': model_state, 'optimizer': optimizer_state,
                     'step': self.step_count,
                     'nonfinite_steps': self.nonfinite_steps,
                     'nonfinite_run': self.nonfinite_run,
@@ -436,8 +493,7 @@ class Trainer:
             raise ValueError(f'{path}: neither a torch.save checkpoint nor a '
                              f'flax one (first bytes {head!r})')
         state = torch.load(path, map_location=self.device)
-        self.model.load_state_dict(state['model'])
-        self.optimizer.load_state_dict(state['optimizer'])
+        self.load_full_state(state['model'], state['optimizer'])
         self.step_count = state['step']
         self.nonfinite_steps = state['nonfinite_steps']
         self.nonfinite_run = state.get('nonfinite_run', 0)

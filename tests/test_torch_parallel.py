@@ -127,11 +127,16 @@ def test_mesh_checks_before_any_group(monkeypatch):
         make_mesh(dp=3, tp=1, devices=cpu4)
     with pytest.raises(ValueError, match='not divisible'):
         make_mesh(tp=3, devices=cpu4)
-    for call in (lambda: make_mesh(tp=2, devices=cpu4),
-                 lambda: mesh.param_spec(None, None, 2),
-                 lambda: mesh.param_shardings(None, None)):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            call()
+    # tp > 1 is a mesh like any other: it too needs the group first
+    with pytest.raises(RuntimeError, match='process group'):
+        make_mesh(tp=2, devices=cpu4)
+    # param_spec answers without a group: a block conv's torch weight
+    # [cout, cin, K] shards on its output dim, its bias stays replicated
+    w = torch.empty(600, 80, 8)
+    assert mesh.param_spec('block0_conv.conv.weight', w, 2)[1].dim == 0
+    assert mesh.param_spec('block0_conv.conv.bias', w[:, 0, 0],
+                           2)[1].is_replicate()
+    assert mesh.param_spec('block0_conv.conv.weight', w, 1)[1].is_replicate()
     assert initialize_distributed(device='cpu') == (0, 1)
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match='process group'):
@@ -142,7 +147,7 @@ def test_mesh_checks_before_any_group(monkeypatch):
 
 
 @pytest.mark.parametrize('flags,match', [
-    (['--tp', '2'], 'tensor parallelism'),
+    (['--tp', '2'], 'torchrun'),
     (['--dp', '2', '--device', 'cpu'], 'torchrun'),
     (['--dp', '1', '--device', 'cpu'], 'torchrun')], ids=['tp', 'dp', 'dp1'])
 def test_train_twin_refuses_what_it_cannot_run(flags, match, monkeypatch,

@@ -195,14 +195,16 @@ def test_cli_sweep_info_benchpass_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert d.params(arch) > 0 and d.latency(arch, devices='cpu-fp32')
 
 
-def test_entry_forward_and_dryrun(monkeypatch):
+def test_entry_forward_and_dryrun(monkeypatch, capsys):
     fn, args = entry.entry(device='cpu')
     logits = fn(*args)
     assert logits.shape[:1] == (2,) and logits.shape[-1] == 49
     assert bool(torch.isfinite(logits).all())
+    # two processes: tp=2, as the JAX package's dry run takes it
     train, evaluation = entry.dryrun_multichip(
         2, model_kwargs=TINY, timeout=SPAWN_TIMEOUT_S)
     assert np.isfinite(train['ctc_loss']) and np.isfinite(evaluation['ler'])
+    assert 'mesh {data: 1, model: 2}' in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         entry.entry()
