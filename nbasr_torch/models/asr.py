@@ -92,6 +92,10 @@ class ASRModel(nn.Module):
         self.cells_per_block = tuple(cells_per_block)
         self.cell_groups = cell_groups
         self.grouped_impl = grouped_impl
+        #: whether each block's cell stack runs in the split layout
+        #: ('pallas_split'); a tensor-parallel shard that holds no whole
+        #: groups keeps its blocks dense (parallel.tensor)
+        self.split_blocks = grouped_impl == 'pallas_split' and cell_groups > 1
         self.remat_cells = remat_cells
         self.num_classes = num_classes
         self.rnn_units = rnn_units
@@ -152,14 +156,14 @@ class ASRModel(nn.Module):
             if self.data_norm is not None:
                 x = self.data_norm(x, mask=mask)
             # 'pallas_split' keeps each block's cell stack in the split
-            # layout: one conversion each way per block
-            split = (self.grouped_impl == 'pallas_split'
-                     and self.cell_groups > 1)
+            # layout: one conversion each way per block, in the groups the
+            # block's channels hold (a tensor-parallel shard's G / tp)
             for i, cells in enumerate(self.cells_per_block):
                 x = getattr(self, f'block{i}_conv')(x)
                 x = getattr(self, f'block{i}_norm')(x)
-                if split:
-                    x = to_split(x, self.cell_groups)
+                if self.split_blocks:
+                    per_group = self.block_filters[i] // self.cell_groups
+                    x = to_split(x, x.shape[-1] // per_group)
                 for j in range(cells):
                     cell = getattr(self, f'block{i}_cell{j}')
                     if self.remat_cells and torch.is_grad_enabled():
@@ -168,7 +172,7 @@ class ASRModel(nn.Module):
                                        use_reentrant=False)
                     else:
                         x = cell(x, generator)
-                if split:
+                if self.split_blocks:
                     x = from_split(x)
             if stage == 'encode':
                 return x

@@ -37,13 +37,7 @@ from ..models.asr import resolve_device
 
 __all__ = ['make_mesh', 'initialize_distributed', 'local_device',
            'backend_for', 'spawn', 'free_port', 'param_spec',
-           'param_shardings', 'batch_shardings', 'replicated', 'model_size',
-           'TP_LATER']
-
-#: What tensor parallelism refuses: the ROADMAP item that brings it.
-TP_LATER = ("grouped_impl='pallas_split' at tp > 1 (the split layout "
-            "[B, c, T, G] sharded on G) is not ported yet: see ROADMAP.md, "
-            "queue 1")
+           'param_shardings', 'batch_shardings', 'replicated', 'model_size']
 
 #: Leaves the JAX rule never shards (``nbasr_tpu/parallel/mesh.py:62``).
 _REPLICATED_LEAVES = ('bias', 'scale', 'mean', 'variance')

@@ -27,6 +27,14 @@ sharded on channels, ``C / tp`` a rank (``c0 = rank * C / tp`` its first):
   replicated kernels) runs **whole** on every model rank, its input
   gathered and its sharded weights gathered, and keeps its shard of the
   output;
+- on ``grouped_impl='pallas_split'`` a block's cells run on the split
+  layout ``[B, c, T, G / tp]`` of this rank's channels (channel ``g·c +
+  j`` of the split layout: a channel shard is ``G / tp`` whole groups):
+  a channel-parallel cell is the unfused cell on its groups, with the
+  dropout hash at ``c0`` and a :class:`DistributedSplitLayerNorm`; a
+  whole cell gathers the groups.  Where ``tp`` does not divide ``G`` the
+  blocks stay dense and every cell runs whole, converting to the split
+  layout and back itself;
 - after the last cell the encoder output is gathered, and the pre-LSTM
   dropout, the LSTM and the head run replicated with gathered weights.
 
@@ -55,14 +63,16 @@ import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
-from ..models.layers import GroupedPadConvRelu
+from ..models.layers import GroupedPadConvRelu, SplitLayerNorm
 from ..ops.fused_cell import ConvNode, FusedCellSpec, ZeroNode
+from ..ops.grouped_conv import from_split, to_split
 from ..training.loss import L2_COEFF, _is_conv_kernel
-from .mesh import TP_LATER, param_shardings
+from .mesh import param_shardings
 
 __all__ = ['ModelGroup', 'tensor_parallel', 'gather_channels',
            'replicate_channels', 'shard_channels', 'gather_param',
-           'all_reduce_sum', 'DistributedLayerNorm', 'sum_sliced_grads',
+           'all_reduce_sum', 'DistributedLayerNorm',
+           'DistributedSplitLayerNorm', 'sum_sliced_grads',
            'conv_l2', 'grad_norm_sq', 'all_reduce_max', 'gather_named',
            'shard_named', 'STAGED', 'reset_staged']
 
@@ -157,13 +167,13 @@ def _own(ctx, t, dim):
 
 class _GatherChannels(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, x, ctx):
-        fctx.ctx = ctx
-        return _all_gather(ctx, x, x.dim() - 1)
+    def forward(fctx, x, ctx, dim):
+        fctx.ctx, fctx.dim = ctx, dim
+        return _all_gather(ctx, x, dim)
 
     @staticmethod
     def backward(fctx, g):
-        return _reduce_scatter(fctx.ctx, g, g.dim() - 1), None
+        return _reduce_scatter(fctx.ctx, g, fctx.dim), None, None
 
 
 class _ReplicateChannels(torch.autograd.Function):
@@ -210,11 +220,13 @@ class _AllReduceSum(torch.autograd.Function):
         return _all_reduce(fctx.ctx, g), None
 
 
-def gather_channels(x, ctx):
-    """All-gather ``x``'s last dim (channel shards to the whole channels)
-    for a column-parallel consumer: the backward reduce-scatters, each
-    rank's consumer having given a partial gradient."""
-    return _GatherChannels.apply(x, ctx)
+def gather_channels(x, ctx, dim=-1):
+    """All-gather ``x``'s ``dim`` (by default the last: channel shards to
+    the whole channels) for a consumer whose gradient each rank gives in
+    part (a column-parallel conv; :func:`~nbasr_torch.parallel.seqparallel.
+    seq_parallel_apply`'s head on the time shards): the backward
+    reduce-scatters."""
+    return _GatherChannels.apply(x, ctx, dim % x.dim())
 
 
 def replicate_channels(x, ctx):
@@ -267,6 +279,28 @@ class DistributedLayerNorm(nn.Module):
              * self.scale.narrow(0, self.c0, self.channels)
              + self.bias.narrow(0, self.c0, self.channels))
         return y.to(x.dtype)
+
+
+class DistributedSplitLayerNorm(DistributedLayerNorm):
+    """:class:`DistributedLayerNorm` of a split-layout shard ``[B, c, T,
+    G / tp]`` (a split cell's
+    :class:`~nbasr_torch.models.layers.SplitLayerNorm` on this rank's
+    groups): the statistics over axes 1 and 3, all-reduced; this rank's
+    slice of ``scale`` and ``bias`` viewed ``(G / tp, c)``."""
+
+    def forward(self, xs):
+        _, c, _, g = xs.shape
+        xf = xs.float()
+        C = self.channels * self.ctx.size
+        mu = all_reduce_sum(xf.sum((1, 3), keepdim=True), self.ctx) / C
+        d = xf - mu
+        var = all_reduce_sum(torch.square(d).sum((1, 3), keepdim=True),
+                             self.ctx) / C
+        view = lambda p: p.narrow(0, self.c0, self.channels).view(g, c).T[
+            None, :, None, :]
+        y = d * torch.rsqrt(var + self.epsilon) * view(self.scale) \
+            + view(self.bias)
+        return y.to(xs.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +384,21 @@ class ChannelCell(_Cell):
 class WholeCell(_Cell):
     """A cell run whole on every model rank: its input gathered, its
     sharded weights gathered; it keeps this rank's shard of the output
-    (the whole output with ``gather_output``)."""
+    (the whole output with ``gather_output``).  With ``split_groups``
+    (a split cell among dense blocks) it takes and gives ``[B, T, C /
+    tp]`` and runs the cell on the whole input's split layout."""
+
+    def __init__(self, cell, ctx, views, gather_output, split_groups=None):
+        super().__init__(cell, ctx, views, gather_output)
+        self.split_groups = split_groups
 
     def forward(self, x, generator=None, seed=None):
-        y = self.run(replicate_channels(x, self.ctx), generator, seed)
+        x = replicate_channels(x, self.ctx)
+        if self.split_groups:
+            y = from_split(self.run(to_split(x, self.split_groups),
+                                    generator, seed))
+        else:
+            y = self.run(x, generator, seed)
         return y if self.gather_output else shard_channels(y, self.ctx)
 
 
@@ -409,7 +454,9 @@ def _make_channel_cell(cell, ctx, c0, k, gather_output):
         nodes, dropout_rate=cell.train_spec.dropout_rate, train=True,
         ln_eps=eps, use_norm=False, channel_offset=c0)
     if cell.norm is not None:
-        cell.norm = DistributedLayerNorm(cell.norm, ctx, c0, k)
+        norm = (DistributedSplitLayerNorm if isinstance(
+            cell.norm, SplitLayerNorm) else DistributedLayerNorm)
+        cell.norm = norm(cell.norm, ctx, c0, k)
     return ChannelCell(cell, ctx, views, gather_output)
 
 
@@ -423,14 +470,18 @@ def tensor_parallel(model, mesh):
     tp = ctx.size
     if tp == 1:
         return model
-    if model.grouped_impl == 'pallas_split' and model.cell_groups > 1:
-        raise NotImplementedError(TP_LATER)
     if any(c % tp for c in model.block_filters):
         raise ValueError(f'block widths {model.block_filters} do not split '
                          f'over tp={tp}')
     if not model.cells_per_block or model.cells_per_block[-1] < 1:
         raise ValueError('tensor parallelism gathers the encoder output '
                          'after the last cell: the last block needs one')
+    # the split layout of a shard holds G / tp whole groups; where tp does
+    # not divide G the blocks stay dense and each cell converts
+    split_cells = model.split_blocks
+    model.split_blocks = split_cells and model.cell_groups % tp == 0
+    whole_split = (model.cell_groups if split_cells and
+                   not model.split_blocks else None)
     placements = param_shardings(model, mesh)
     shards = {n: pl[1].dim for n, pl in placements.items()
               if pl[1].is_shard()}
@@ -476,7 +527,7 @@ def tensor_parallel(model, mesh):
                 new = WholeCell(cell, ctx, {
                     n[len(prefix) + 1:]: _gatherer(d, ctx)
                     for n, d in shards.items()
-                    if n.startswith(prefix + '.')}, last)
+                    if n.startswith(prefix + '.')}, last, whole_split)
             setattr(model, prefix, new)
     for name in ('lstm', 'head'):
         module = getattr(model, name, None)

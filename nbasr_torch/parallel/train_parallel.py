@@ -33,7 +33,8 @@ into the JAX ``Trainer`` unchanged.
 
 The cell kernels stay fused: there is no GSPMD here, so none of the JAX
 package's fallback to ``'chunked'`` is needed.  ``grouped_impl=
-'pallas_split'`` at tp > 1 raises (:data:`nbasr_torch.parallel.mesh.TP_LATER`).
+'pallas_split'`` runs its grouped conv kernels on each rank's groups in
+the split layout, as the JAX ``ParallelTrainer`` runs it as it stands.
 """
 
 import numpy as np

@@ -133,23 +133,15 @@ def _state(trainer):
     return out
 
 
-def tp_refusals(rank, world, device, arch, kw):
-    """What ``tensor_parallel`` refuses at tp=``world``: the split
-    layout."""
-    from nbasr_torch.parallel.tensor import tensor_parallel
-    model = get_model(arch, device=device, grouped_impl='pallas_split', **kw)
-    try:
-        tensor_parallel(model, make_mesh(dp=1, tp=world))
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
-def seq_case(rank, world, device, arch, kw, init, feats, sizes, modes):
+def seq_case(rank, world, device, arch, kw, init, feats, sizes, modes,
+             weights=None):
     """``seq_parallel_apply`` of this rank's time shard of ``feats`` for
-    each ``(use_rnn, lstm_mode)`` of ``modes``; the errors it raises for
-    a T the ranks and stride do not divide and for shards shorter than
-    the halo."""
+    each ``(use_rnn, lstm_mode)`` of ``modes``; with ``weights`` (the
+    whole ``[B, T', V]`` of each mode), also the gradients of ``Σ
+    weights·logits`` over this rank's shard: the parameters' (this rank's
+    share) and its shard's features'; the errors it raises for a T the
+    ranks and stride do not divide and for shards shorter than the
+    halo."""
     out = {}
     feats = torch.as_tensor(feats)
     sizes = torch.as_tensor(sizes)
@@ -162,6 +154,17 @@ def seq_case(rank, world, device, arch, kw, init, feats, sizes, modes):
         with torch.no_grad():
             out[(use_rnn, mode)] = seq_parallel_apply(
                 model, shard, sizes, lstm_mode=mode).numpy()
+        if weights is None:
+            continue
+        x = shard.clone().requires_grad_(True)
+        logits = seq_parallel_apply(model, x, sizes, lstm_mode=mode)
+        n = logits.shape[1]
+        w = torch.as_tensor(weights[(use_rnn, mode)])[:, rank * n:
+                                                       (rank + 1) * n]
+        (w * logits).sum().backward()
+        out[('grads', use_rnn, mode)] = dict(
+            _numpy({k: p.grad for k, p in model.named_parameters()}),
+            features=x.grad.numpy().copy())
     errors = {}
     for name, frames in (('stride', L - 1), ('halo', 8)):
         try:

@@ -3,12 +3,16 @@ JAX package's placement, ``ParallelTrainer`` at tp=2 and tp=4 (and dp=2 x
 tp=2) in spawned gloo processes against one process's step on the same
 masks, against the JAX package's ``ParallelTrainer`` at (dp, tp) = (1, 2),
 two planted faults, eval, checkpoints across tp, the channel offset of the
-plain dropout, and the trainer's profiler hook."""
+plain dropout, and the trainer's profiler hook; all of it on the fused
+cells (``'auto'``) and on the split layout (``'pallas_split'``: the
+grouped conv kernels' plain versions on each rank's groups)."""
 
 import numpy as np
 import pytest
 import jax
 import torch
+
+import nbasr_tpu.ops.cell_ops as jax_cell_ops
 
 from torch.distributed.tensor import Replicate, Shard
 
@@ -46,6 +50,17 @@ TINY_KW = dict(block_filters=(16, 16, 32, 32), cells_per_block=(1, 1, 1, 1),
 FLAG_ARCH = [[1, 0], [1, 0, 0], [1, 0, 0, 0]]
 FLAG_KW = dict(block_filters=(24, 24, 32, 32), cells_per_block=(1, 1, 1, 1),
                cell_groups=4, rnn_units=16, init_scheme='scaled')
+SPLIT = dict(grouped_impl='pallas_split')
+# 3 groups, which tp=2 does not divide: the blocks stay dense, every cell
+# runs whole on the split layout
+ODD_KW = dict(FLAG_KW, block_filters=(24, 24, 48, 48), cell_groups=3)
+# the JAX ParallelTrainer on 'pallas_split': its kernels in interpret mode
+# unroll K*ci*co slices a call and compile slowly, so two blocks of groups
+# of 2 channels (8 at tp=2); 16 channels, the narrowest param_spec shards
+# at tp=2
+JSPLIT_KW = dict(block_kernels=(8, 8), block_strides=(1, 2),
+                 block_filters=(16, 16), cells_per_block=(1, 1),
+                 cell_groups=8, rnn_units=16, init_scheme='scaled')
 #: cell dropout 0.2 (the default) and pre-LSTM dropout 0.2
 MODEL = dict(use_rnn=True, dropout_rate=0.2, data_norm=True)
 LR = 1e-3
@@ -231,10 +246,44 @@ def _jax_grads(par, batch):
 
 
 @pytest.fixture(scope='module')
-def two_ranks(batch, jax_step, tmp_path_factory):
+def jax_split_step():
+    """The JAX ParallelTrainer at (dp, tp) = (1, 2) on 'pallas_split' (it
+    runs the split path as it stands: only the fused impls move to
+    'chunked'), its Pallas kernels in interpret mode, under GSPMD on two
+    CPU devices; every dropout rate 0, as ``jax_step``."""
+    with pytest.MonkeyPatch.context() as mp, \
+            jax.default_matmul_precision('highest'):
+        mp.setattr(jax_cell_ops, 'INTERPRET', True)
+        jloaders = jax_get_dataloaders(worker.DATA, batch_size=8,
+                                       curriculum=())
+        jmodel = jax_get_model(FLAG_ARCH, use_rnn=False, dropout_rate=0.0,
+                               cell_dropout=0.0, data_norm=True,
+                               grouped_impl='pallas_split', **JSPLIT_KW)
+        par = JaxParallelTrainer(jloaders, jax_get_loss(), verbose=False,
+                                 eval_decoder='greedy',
+                                 mesh=jax_make_mesh(dp=1, tp=2,
+                                                    devices=jax.devices()[:2]))
+        par.init_state(jmodel, seed=0)
+        assert par.model.grouped_impl == 'pallas_split'
+        init = from_flax(jax.tree_util.tree_map(
+            np.asarray, {'params': par.state.params, 'stats': par._stats}))
+        jbatch = next(iter(jloaders[1]))
+        grads = from_flax({'params': jax.tree_util.tree_map(
+            np.asarray, _jax_grads(par, jbatch))})
+        loss = par.step(jbatch, training=True, lr=LR)['ctc_loss']
+        after = from_flax({'params': jax.tree_util.tree_map(
+            np.asarray, par.state.params)})
+    return dict(init={k: v.numpy() for k, v in init.items()}, batch=jbatch,
+                loss=loss, grads=grads,
+                after={k: v.numpy() for k, v in after.items()})
+
+
+@pytest.fixture(scope='module')
+def two_ranks(batch, jax_step, jax_split_step, tmp_path_factory):
     """Every two-rank reading in one spawn: the tiny model and the
-    flagship-arch one at (1, 2) with the planted faults and eval, the JAX
-    comparison, the checkpoints, the split layout's refusal."""
+    flagship-arch one at (1, 2) with the planted faults and eval, on the
+    fused cells and on the split layout; the JAX comparisons; the
+    checkpoints of both."""
     root = tmp_path_factory.mktemp('tp')
     tiny = _case(TINY_ARCH, TINY_KW, batch, _init(TINY_ARCH, TINY_KW),
                  faults=('sliced',), eval=True)
@@ -248,26 +297,54 @@ def two_ranks(batch, jax_step, tmp_path_factory):
                  steps=2)
     one = _one_process(ckpt, steps=1)
     one.save(root / 'one.ckpt', epoch=1)
+    split = _case(FLAG_ARCH, FLAG_KW, batch, _init(FLAG_ARCH, FLAG_KW),
+                  model=SPLIT, faults=('sliced',), eval=True)
+    jsplit = _case(FLAG_ARCH, JSPLIT_KW, jax_split_step['batch'],
+                   jax_split_step['init'], model=dict(
+                       SPLIT, use_rnn=False, dropout_rate=0.0,
+                       cell_dropout=0.0), steps=0)
+    # the flagship arch: the tiny one's second node feeds nothing, so on
+    # the unfused paths its bias gets no gradient and no Adam state
+    split_ckpt = _case(FLAG_ARCH, FLAG_KW, batch, _init(FLAG_ARCH, FLAG_KW,
+                                                       seed=3),
+                       model=SPLIT, steps=2)
+    one_split = _one_process(split_ckpt, steps=1)
+    one_split.save(root / 'one_split.ckpt', epoch=1)
+    # gradients only, as the flagship case: Adam at eps 1e-16 steps a
+    # near-zero gradient's element by ~lr in its sign
+    split_odd = _case(FLAG_ARCH, ODD_KW, batch, _init(FLAG_ARCH, ODD_KW),
+                      model=SPLIT, steps=0)
+    (root / 'split').mkdir()
     todo = [('tiny', 'tp_case', (1, 2, tiny)), ('flag', 'tp_case', (1, 2, flag)),
             ('jax', 'tp_case', (1, 2, jcase)),
             ('ckpt', 'tp_checkpoints', (ckpt, str(root / 'one.ckpt'),
                                         str(root))),
-            ('split', 'tp_refusals', (TINY_ARCH, TINY_KW))]
+            ('split', 'tp_case', (1, 2, split)),
+            ('split_odd', 'tp_case', (1, 2, split_odd)),
+            ('jax_split', 'tp_case', (1, 2, jsplit)),
+            ('split_ckpt', 'tp_checkpoints', (
+                split_ckpt, str(root / 'one_split.ckpt'), str(root / 'split')))]
     ranks = mesh.spawn(worker.jobs, ['cpu', 'cpu'], (todo,),
                        timeout=SPAWN_TIMEOUT_S)
     return dict(ranks=ranks, tiny=tiny, flag=flag, ckpt=ckpt, one=one,
-                root=root)
+                root=root, split=split, jsplit=jsplit, split_odd=split_odd,
+                split_ckpt=split_ckpt,
+                one_split=one_split)
 
 
 @pytest.fixture(scope='module')
 def four_ranks(batch):
-    """dp=2 x tp=2 and dp=1 x tp=4 on four ranks."""
+    """dp=2 x tp=2 and dp=1 x tp=4 on four ranks; dp=2 x tp=2 on the split
+    layout."""
     case = _case(TINY_ARCH, TINY_KW, batch, _init(TINY_ARCH, TINY_KW))
+    split = _case(FLAG_ARCH, FLAG_KW, batch, _init(FLAG_ARCH, FLAG_KW),
+                  model=SPLIT)
     ranks = mesh.spawn(worker.jobs, ['cpu'] * 4,
                        ([('2x2', 'tp_case', (2, 2, case)),
-                         ('1x4', 'tp_case', (1, 4, case))],),
+                         ('1x4', 'tp_case', (1, 4, case)),
+                         ('2x2_split', 'tp_case', (2, 2, split))],),
                        timeout=SPAWN_TIMEOUT_S)
-    return dict(ranks=ranks, case=case)
+    return dict(ranks=ranks, case=case, split=split)
 
 
 def _one_process(case, steps):
@@ -348,27 +425,79 @@ def test_flagship_cells_run_channel_parallel(two_ranks):
     case = dict(two_ranks['flag'], steps=0)
     readings = [r['flag'] for r in two_ranks['ranks']]
     assert all(r['channel_cells'] == 4 for r in readings)
-    want, _, _ = reference(case, 1)
+    want, bound, _ = _witness_bounds(case, 1, 'chunked')
+    for r in readings:
+        _within(shares(r['grads'], want), bound)
+        for fault in ('sliced', 'c0'):
+            bad = shares(r['faults'][fault], want)
+            assert max(bad[n] / bound[n] for n in bad) > 100, fault
+
+
+def _witness_bounds(case, dp, other=None):
+    """One process's gradients on ``dp`` data ranks' semantics and its
+    parameters after ``case['steps']`` steps, and per tensor max(1e-5, 2 x
+    the largest move of its gradient under three 1e-7 nudges of the audio
+    and under ``other`` cells if given (the same function, its sums in
+    other orders)), of its max."""
+    want, after, _ = reference(case, dp)
+    case = dict(case, steps=0)
     audio = case['batch']['audio']
     bound = {n: GRAD_TOL for n in want}
     for seed in range(3):
         nudged = dict(case, batch=dict(case['batch'], audio=(audio * (
             1 + 1e-7 * np.random.RandomState(seed).randn(*audio.shape))
         ).astype(np.float32)))
-        near = shares({k: v.numpy() for k, v in reference(nudged, 1)[0]
+        near = shares({k: v.numpy() for k, v in reference(nudged, dp)[0]
                        .items()}, want)
         bound = {n: max(bound[n], 2 * near[n]) for n in bound}
-    chunked = reference(dict(case, model=dict(case['model'],
-                                              grouped_impl='chunked')), 1)[0]
-    near = shares({k: v.numpy() for k, v in chunked.items()}, want)
-    bound = {n: max(bound[n], 2 * near[n]) for n in bound}
+    if other is not None:
+        moved = reference(dict(case, model=dict(case['model'],
+                                                grouped_impl=other)), dp)[0]
+        near = shares({k: v.numpy() for k, v in moved.items()}, want)
+        bound = {n: max(bound[n], 2 * near[n]) for n in bound}
+    return want, bound, after
+
+
+def _within(got, bound):
+    assert all(got[n] <= bound[n] for n in got), sorted(
+        ((got[n] / bound[n], n) for n in got), reverse=True)[:3]
+
+
+@pytest.mark.parametrize('key', ['split', '2x2_split', 'split_odd'])
+def test_split_layout_matches_one_process(two_ranks, four_ranks, key):
+    """``grouped_impl='pallas_split'`` at tp=2 (and dp=2 x tp=2): every
+    flagship cell channel-parallel on the split layout of its rank's 2
+    groups (the grouped conv kernels' plain versions, the split
+    LayerNorm's statistics all-reduced), or, at 3 groups, every cell
+    whole on the gathered split layout (gradients only); the gathered
+    gradients before
+    clipping within max(1e-5, 2 x the largest move of a tensor under three
+    1e-7 audio nudges) of its max of one ``'pallas_split'`` process's (no
+    other cells witness here: the split path's gate passes nothing at
+    exactly 0 or 20, the others half, and zero biases meet those ties on
+    every masked frame), the parameters after 3 steps within rtol 2e-3 /
+    atol 1e-4; at (1, 2) the planted sliced-gradient fault lands far
+    outside the bound."""
+    dp = 2 if key == '2x2_split' else 1
+    runs = four_ranks if dp == 2 else two_ranks
+    readings = [r[key] for r in runs['ranks']]
+    case = runs['split'] if dp == 2 else two_ranks[key]
+    want, bound, after = _witness_bounds(case, dp)
     for r in readings:
-        got = shares(r['grads'], want)
-        assert all(got[n] <= bound[n] for n in got), sorted(
-            ((got[n] / bound[n], n) for n in got), reverse=True)[:3]
-        for fault in ('sliced', 'c0'):
-            bad = shares(r['faults'][fault], want)
-            assert max(bad[n] / bound[n] for n in bad) > 100, fault
+        assert r['channel_cells'] == (0 if key == 'split_odd' else 4)
+        assert r['nonfinite'] == 0
+        _within(shares(r['grads'], want), bound)
+        for name, p in after.items() if case['steps'] else ():
+            np.testing.assert_allclose(r['params'][name], p, rtol=2e-3,
+                                       atol=1e-4, err_msg=name)
+        layout = r['layout']
+        assert layout['block0_cell0.node0_conv5.conv_kernel_grouped'] == (
+            'shard', 2)
+        assert layout['block0_cell0.norm.scale'] == (
+            ('whole', None) if key == 'split_odd' else ('slice', 0))
+        if key == 'split':
+            bad = shares(r['faults']['sliced'], want)
+            assert max(bad[n] / bound[n] for n in bad) > 100
 
 
 def test_planted_sliced_gradient_fault_is_rejected(two_ranks):
@@ -400,13 +529,39 @@ def test_matches_jax_parallel_trainer(two_ranks, jax_step):
                                        rtol=2e-3, atol=1e-4, err_msg=name)
 
 
-def test_eval_matches_one_process(two_ranks):
-    one = _one_process(two_ranks['tiny'], steps=0)
+def test_split_matches_jax_parallel_trainer(two_ranks, jax_split_step):
+    """``'pallas_split'`` at (1, 2) against the JAX ParallelTrainer on
+    ``'pallas_split'`` at (1, 2) (its kernels in interpret mode, GSPMD on
+    two CPU devices), every cell channel-parallel here: the gathered
+    gradients before clipping per tensor within max(1e-4, the nudge bound
+    of ``test_split_layout_matches_one_process``) of its max of
+    ``jax.grad`` of the JAX trainer's loss (a 1e-7 nudge of the audio
+    moves the block LayerNorm's gradients by about as much as one process
+    reads against JAX: 2.1e-4 and 2.2e-4 of block0_norm.scale's max, at
+    four blocks)."""
+    _, bound, _ = _witness_bounds(two_ranks['jsplit'], 1)
+    bound = {n: max(JAX_GRAD_TOL, b) for n, b in bound.items()}
+    for r in two_ranks['ranks']:
+        got = r['jax_split']
+        assert got['channel_cells'] == 2
+        _within(shares(got['grads'], jax_split_step['grads']), bound)
+
+
+def _eval_held(two_ranks, key):
+    one = _one_process(two_ranks[key], steps=0)
     want = one.evaluate(_loaders(BATCH)[2])
     for r in two_ranks['ranks']:
-        got = r['tiny']['eval']
+        got = r[key]['eval']
         assert got['ler'] == want['ler'] and got['wer'] == want['wer']
         assert got['ctc_loss'] == pytest.approx(want['ctc_loss'], rel=1e-5)
+
+
+def test_eval_matches_one_process(two_ranks):
+    _eval_held(two_ranks, 'tiny')
+
+
+def test_split_eval_matches_one_process(two_ranks):
+    _eval_held(two_ranks, 'split')
 
 
 def _trainer_state(tr):
@@ -432,16 +587,34 @@ def test_one_process_checkpoint_resumes_at_tp2(two_ranks):
         _assert_states_equal(r['ckpt']['resumed'], want)
 
 
+def test_split_checkpoint_resumes_at_tp2(two_ranks):
+    """A one-process ``'pallas_split'`` checkpoint resumes at tp=2."""
+    want = _trainer_state(two_ranks['one_split'])
+    for r in two_ranks['ranks']:
+        _assert_states_equal(r['split_ckpt']['resumed'], want)
+
+
+def _tp2_checkpoint_held(two_ranks, key, path):
+    case = two_ranks[key]
+    saved = two_ranks['ranks'][0][key]['saved']
+    one = _one_process(case, steps=0)
+    one.load(path)
+    _assert_states_equal(_trainer_state(one), saved)
+    assert one.step_count == two_ranks['ranks'][0][key]['step']
+
+
 @pytest.mark.parametrize('name', ['tp.ckpt', 'tp.flax'])
 def test_tp2_checkpoint_loads_into_one_process(two_ranks, name):
     """``save`` and ``save_flax`` at tp=2 read back in one process
     bit-equal to the ranks' gathered parameters and Adam moments."""
-    case = two_ranks['ckpt']
-    saved = two_ranks['ranks'][0]['ckpt']['saved']
-    one = _one_process(case, steps=0)
-    one.load(two_ranks['root'] / name)
-    _assert_states_equal(_trainer_state(one), saved)
-    assert one.step_count == two_ranks['ranks'][0]['ckpt']['step']
+    _tp2_checkpoint_held(two_ranks, 'ckpt', two_ranks['root'] / name)
+
+
+@pytest.mark.parametrize('name', ['tp.ckpt', 'tp.flax'])
+def test_split_tp2_checkpoint_loads_into_one_process(two_ranks, name):
+    """The same on the split layout."""
+    _tp2_checkpoint_held(two_ranks, 'split_ckpt',
+                         two_ranks['root'] / 'split' / name)
 
 
 def test_tp2_flax_checkpoint_loads_into_jax(two_ranks):
@@ -458,11 +631,6 @@ def test_tp2_flax_checkpoint_loads_into_jax(two_ranks):
     assert got.keys() == saved.keys()
     for name, want in saved.items():
         np.testing.assert_array_equal(got[name].numpy(), want, err_msg=name)
-
-
-def test_split_layout_refused_naming_roadmap(two_ranks):
-    for r in two_ranks['ranks']:
-        assert 'pallas_split' in r['split'] and 'ROADMAP.md' in r['split']
 
 
 # ---------------------------------------------------------------------------
