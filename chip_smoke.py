@@ -184,7 +184,17 @@ prints no result):
    against f32's; (c) the
    full-width flagship on per_run's recipe (bf16, LSTM, dropout 0.2, B=16,
    256 utterances) for 3 epochs: finite losses, the epoch-3 train loss
-   below epoch 1's, seconds an epoch and each epoch's val LER printed.
+   below epoch 1's, seconds an epoch and each epoch's val LER printed;
+19. the port's speed record: ``python -m nbasr_torch.bench`` (bench.py's
+   two measurements of the flagship: the f32 B=1, T=500 forward, 100
+   blocking and 50 pipelined calls; the bf16 B=32 'auto' train step in
+   blocks of 10, its FLOPs, MFU, peak memory and a profiled window) in its
+   own process, exit 0; its last line holds every key of BENCH_r05.json's
+   result and the twin's own, every time, rate, share and memory figure
+   finite and positive, 18 fused forward launches per forward and 18 + 18
+   + 1 + 1 per train step with none plain, and algorithmic_tflops equal to
+   algorithmic_flops at the batch's rows and longest utterance; its median
+   forward printed beside phase 16's benchmark_pass median.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -196,6 +206,7 @@ import functools
 import gc
 import io
 import json
+import math
 import pathlib
 import pickle
 import subprocess
@@ -209,6 +220,8 @@ import torch
 import nbasr_torch
 from nbasr_torch import checkpoint, cli, entry, native, quant, search, \
     search_space
+from nbasr_torch.bench import DEVICE_METRICS, card_line, device_kernels, \
+    device_seconds, launch_counts, power_limit_w, reset_launches
 from nbasr_torch.convert import from_flax
 from nbasr_torch.data.pipeline import Loader, get_dataloaders, \
     make_synthetic_split
@@ -345,12 +358,6 @@ KERNEL_GRAD_TOL = 1e-3
 KERNEL_GRAD_FACTOR = 2.0
 KERNEL_GRAD_CAP = TRAIN_GRAD_TOL
 TRAIN_NORM_TOL = 1e-3
-
-
-def card_line():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def make_cell(C, spec, device, groups=100):
@@ -561,7 +568,6 @@ def serve(model, audio, valid, device, block=7919, quantize=False):
 def profile_step(s, win, mask, steps=3):
     """Kernel time by name over ``steps`` device steps (torch.profiler), and
     the share of the profiled wall time the card was busy."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -570,17 +576,17 @@ def profile_step(s, win, mask, steps=3):
             s._device_step(win, mask, s.hl // s.ts, s._init_carry())
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     if not kernels:
         print('profile: the profiler saw no device time (not measured)')
         return
-    per_step = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / steps
+    per_step = lambda es: 1e3 * device_seconds(es) / steps
     busy = per_step(kernels)
     print(f'profile: {busy:.3f} ms of kernel time per device step, '
           f'{wall_ms:.3f} ms wall per step under the profiler '
           f'(busy {busy / wall_ms:.1%}); fused cell kernels '
           f'{per_step([e for e in kernels if "nbasr_" in e.key]):.3f} ms')
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in kernels[:12]:
         print(f'  {e.self_device_time_total / 1e3 / steps:8.3f} ms '
               f'{e.count // steps:5d}x  {e.key[:100]}')
 
@@ -952,7 +958,6 @@ def profile_train_step(trainer, batch, lr):
     in the trace (FWD_KERNELS[:4], by name) over its wrapper's launches;
     None where the step ran no fused forward or the profiler saw no device
     time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     cells = fused_cell.LAUNCHES['kernel']
@@ -962,11 +967,11 @@ def profile_train_step(trainer, batch, lr):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     cells = fused_cell.LAUNCHES['kernel'] - cells
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     if not kernels:
         print('profile: the profiler saw no device time (not measured)')
         return None
-    ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+    ms = lambda es: 1e3 * device_seconds(es)
     busy = ms(kernels)
     fwd = ms([e for e in kernels if any(k in e.key for k in FWD_KERNELS)])
     bwd = ms([e for e in kernels
@@ -975,7 +980,7 @@ def profile_train_step(trainer, batch, lr):
           f'{wall_ms:.3f} ms wall under the profiler (busy {busy / wall_ms:.1%}); '
           f'cell forward kernels {fwd:.3f} ms, backward kernels '
           f'{bwd:.3f} ms, rest {busy - fwd - bwd:.3f} ms')
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in kernels[:15]:
         print(f'  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  '
               f'{e.key[:100]}')
     if not cells:
@@ -2888,17 +2893,6 @@ P16_TIMEOUT_S = 600
 FUSED_CELLS = sum(CELLS_PER_BLOCK)
 
 
-def launch_counts():
-    return {'fused_forward': dict(fused_cell.LAUNCHES),
-            'fused_backward': dict(fused_cell.BACKWARD_LAUNCHES),
-            **{f'ctc_{k}': dict(v) for k, v in ctc_pallas.LAUNCHES.items()}}
-
-
-def reset_counts():
-    fused_cell.reset_launches()
-    ctc_pallas.reset_launches()
-
-
 def expected_counts(device, forwards=0, steps=0, evals=0, cells=FUSED_CELLS):
     """Launch counts of ``forwards`` eval forwards, ``steps`` train steps
     and ``evals`` eval batches (forward and the loss's alpha) of a model
@@ -3033,7 +3027,7 @@ def check_sweep(device, root, card):
               epochs=1, devices=[device], progress=True)
     out = {}
     with recipe_seeds.deterministic(), timed_plans() as plans:
-        reset_counts()
+        reset_launches()
         t0 = time.perf_counter()
         (path,) = run_sweep(archs, out_dir=str(root / 'sweep'), **kw)
         out['wall_s'] = time.perf_counter() - t0
@@ -3048,13 +3042,13 @@ def check_sweep(device, root, card):
         rows[name] = (info['val_per'][0], info['test_per'])
     first = path.read_bytes()
 
-    reset_counts()
+    reset_launches()
     (again,) = run_sweep(archs, out_dir=str(root / 'sweep'), **kw)
     assert launches_zero(launch_counts()), launch_counts()
     assert again.read_bytes() == first
 
     with recipe_seeds.deterministic():
-        reset_counts()
+        reset_launches()
         t0 = time.perf_counter()
         (threaded,) = run_sweep(archs, out_dir=str(root / 'threads'),
                                 workers=2, **kw)
@@ -3097,7 +3091,7 @@ def check_static_and_latency(device, root, card):
               for name, a in P16_ARCHS.items()}
     bench = archs + [a for a in unique_architectures(2).values()
                      if a not in archs]
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     path = benchmark_pass(bench, out_dir=str(root / 'sweep'),
                           repeats=BENCH_REPEATS, device=device)
@@ -3149,7 +3143,7 @@ def _dp_rank(rank, world, device, seed, data, batch_size):
     trainer = ParallelTrainer(loaders, device=device, verbose=False)
     trainer.init_state(_dp_model(device, seed), seed=seed)
     trainer.gradients(batch)                      # warm-up: plans
-    reset_counts()
+    reset_launches()
     with recipe_seeds.deterministic():
         grads, m = trainer.gradients(batch)
     launches = launch_counts()
@@ -3200,7 +3194,7 @@ def check_data_parallel(device, root, card):
         par.init_state(_train_model(device, SEED), seed=SEED)
         with recipe_seeds.deterministic():
             plain.step(batch, lr=1e-4)
-            reset_counts()
+            reset_launches()
             m = par.step(batch, lr=1e-4)
         launches['world1_step'] = launch_counts()
         assert launches['world1_step'] == expected_counts(device, steps=1)
@@ -3301,7 +3295,7 @@ def check_cli_and_entry(device, root, card):
               f'{out[cmd[0] + "_s"]:.1f} s, wrote {written.name}')
     fn, args = entry.entry(device=device)
     fn(*args)                                     # warm-up: plans
-    reset_counts()
+    reset_launches()
     logits = fn(*args)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -3522,7 +3516,7 @@ def _p17_gradients(trainer, batch, fault=False):
 
 
 def _p17_reset():
-    reset_counts()
+    reset_launches()
     grouped_conv.reset_launches()
 
 
@@ -4095,7 +4089,7 @@ def _p18_recipe(device, card):
     for seed in P18_SEEDS:
         loaders, trainer, model = quant_per_check.build(device, seed)
         steps, evals = loaders[1].steps, _batches(loaders[2])
-        reset_counts()
+        reset_launches()
         with recipe_seeds.deterministic():
             run = quant_per_check.train(trainer, model)
         launches[f'train_seed{seed}'] = launch_counts()
@@ -4103,7 +4097,7 @@ def _p18_recipe(device, card):
             device, steps=epochs * steps, evals=(epochs + 1) * evals,
             cells=cells), launches[f'train_seed{seed}']
         trainer.recall_best()
-        reset_counts()
+        reset_launches()
         q = quant_per_check.int8_check(trainer, loaders[3])
         launches[f'int8_seed{seed}'] = launch_counts()
         assert launches[f'int8_seed{seed}'] == expected_counts(
@@ -4167,7 +4161,7 @@ def _p18_flagship(device, card):
     trainer.verbose = False
     epochs, steps = P18_FLAGSHIP_EPOCHS, loaders[1].steps
     evals = _batches(loaders[2])
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     history, test = trainer.train(model, epochs=epochs, lr=1e-3)
     run = per_run.summary(history, test, time.perf_counter() - t0)
@@ -4194,6 +4188,89 @@ def check_phase18(device):
     torch.cuda.empty_cache()
     flagship, launches['flagship'] = _p18_flagship(device, card)
     return dict(card=card, recipe=recipe, flagship=flagship), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the port's speed record, python -m nbasr_torch.bench
+# ---------------------------------------------------------------------------
+
+#: seconds the twin's process may take (30-90 s on an H100, kernels built)
+P19_TIMEOUT_S = 400
+#: the keys the twin adds to bench.py's (BENCH_r05.json's ``parsed``)
+P19_NEW_KEYS = ('inference_latency_p90', 'inference_samples',
+                'train_step_seconds_blocks', 'power_limit_w',
+                'peak_memory_bytes', 'launches', 'train_step_kernel_seconds',
+                'train_device_busy_share')
+P19_SAMPLES = 100
+
+
+def hold_bench_line(line, device, card, algo_tflops):
+    """Phase 19's checks of the twin's last line: every key of
+    ``BENCH_r05.json``'s result and the twin's own; every time, rate, share
+    and memory figure finite and positive, with both FLOP counts; the card
+    and its power limit; 18 fused forward launches per inference forward
+    and 18 + 18 + 1 + 1 per train step, none plain; ``algorithmic_tflops``
+    equal to ``algo_tflops``."""
+    parsed = json.loads((REPO / 'BENCH_r05.json').read_text())['parsed']
+    missing = (set(parsed) | set(P19_NEW_KEYS)) - set(line)
+    assert not missing, missing
+    assert line['device'] == torch.cuda.get_device_name(device), line['device']
+    assert line['power_limit_w'] == power_limit_w(card), \
+        (line['power_limit_w'], card)
+    assert line['reduced'] is False and line['inference_samples'] == P19_SAMPLES
+    positive = [line[k] for k in DEVICE_METRICS + ('train_step_tflops',
+                                                   'algorithmic_tflops')
+                if k != 'train_step_seconds_blocks']
+    positive += line['train_step_seconds_blocks']
+    assert len(line['train_step_seconds_blocks']) >= 3
+    assert all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+               for v in positive), {k: line[k] for k in DEVICE_METRICS}
+    assert line['launches'] == {
+        'per_forward': expected_counts(device, forwards=1),
+        'per_train_step': expected_counts(device, steps=1)}, line['launches']
+    assert line['algorithmic_tflops'] == algo_tflops, \
+        (line['algorithmic_tflops'], algo_tflops)
+
+
+def check_phase19(device, bench_ms):
+    """Phase 19: ``python -m nbasr_torch.bench`` in its own process on the
+    card, its last line held by :func:`hold_bench_line`, its median forward
+    beside phase 16's ``benchmark_pass`` median of the flagship
+    (``bench_ms``, ms by arch hash).  Returns (its line, its launches a
+    call)."""
+    card = card_line()
+    loaders = get_dataloaders(TRAIN_DATA, batch_size=TRAIN_B, curriculum=())
+    batch = next(iter(loaders[1]))
+    flagship = get_model(FLAGSHIP, use_rnn=True, device='cpu')
+    algo_tflops = algorithmic_flops(flagship, int(batch['audio'].shape[0]),
+                                    int(batch['feature_size'].max())) / 1e12
+    del flagship
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, '-m', 'nbasr_torch.bench'],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=P19_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = run.stdout.strip().splitlines()
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-4000:])
+    assert run.returncode == 0, run.returncode
+    for text in out[:-1]:
+        print(f'  bench | {text}')
+    line = json.loads(out[-1])
+    hold_bench_line(line, device, card, algo_tflops)
+    bench_pass_ms = bench_ms[search_space.get_model_hash(FLAGSHIP)]
+    print(f'phase 19: python -m nbasr_torch.bench, exit 0 in {wall:.1f} s; '
+          f'its line: {json.dumps(line)}')
+    print(f'phase 19: the flagship f32 B=1, T=500 forward: the twin\'s median '
+          f'{1e3 * line["inference_latency_median"]:.3f} ms ({P19_SAMPLES} '
+          f'calls; min {1e3 * line["value"]:.3f}, p90 '
+          f'{1e3 * line["inference_latency_p90"]:.3f}) beside phase 16\'s '
+          f'benchmark_pass median {bench_pass_ms:.3f} ms ({BENCH_REPEATS} '
+          f'calls); bf16 B={TRAIN_B} train step '
+          f'{1e3 * line["train_step_seconds"]:.3f} ms, '
+          f'{line["train_audio_seconds_per_sec_per_chip"]:.1f} audio-s/s, '
+          f'busy {line["train_device_busy_share"]:.1%} [{card}]')
+    return line, line['launches']
 
 
 def main():
@@ -4248,6 +4325,10 @@ def main():
     p16, p16_launches = timed('phase 16', check_phase16, device)
     p17, p17_launches = timed('phase 17', check_phase17, device)
     p18, p18_launches = timed('phase 18', check_phase18, device)
+    gc.collect()
+    torch.cuda.empty_cache()        # the twin's process gets the card
+    bench_line, p19_launches = timed('phase 19', check_phase19, device,
+                                     p16['static']['bench_ms'])
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -4381,6 +4462,16 @@ def main():
             entry_row['launches_phase18'] = {
                 part: counts[key]['kernel']
                 for part, counts in p18_launches.items()}
+    # phase 19's path, python -m nbasr_torch.bench: its launches a call,
+    # counted by its own process around its timed windows
+    for entry_row in kernels:
+        key = {'fused_cell_forward': 'fused_forward',
+               'fused_cell_backward': 'fused_backward'}.get(
+                   entry_row['name'], entry_row['name'])
+        if key in p19_launches['per_train_step']:
+            entry_row['launches_phase19'] = {
+                part: counts[key]['kernel']
+                for part, counts in p19_launches.items()}
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '
@@ -4411,7 +4502,12 @@ def main():
           f'unsharded; tone-corpus recipe best val LER '
           + ', '.join(f'{r["best"]:.4f}' for r in p18['recipe']['runs'].values())
           + f' (seeds {P18_SEEDS}); the flagship '
-          f'{np.median(p18["flagship"]["epoch_seconds"]):.3f} s an epoch')
+          f'{np.median(p18["flagship"]["epoch_seconds"]):.3f} s an epoch; '
+          f'python -m nbasr_torch.bench: inference median '
+          f'{1e3 * bench_line["inference_latency_median"]:.3f} ms, train step '
+          f'{1e3 * bench_line["train_step_seconds"]:.3f} ms, '
+          f'{bench_line["train_audio_seconds_per_sec_per_chip"]:.1f} '
+          f'audio-s/s')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
