@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 
 from ..ops.frontend import FrontendConfig, num_frames
+from ..utils import tracing
 from . import load_train_stats
 from .phonemes import PhonemeEncoder
 from .timit import TimitSplit
@@ -189,7 +190,9 @@ class Loader:
         if rng is not None:
             rng.shuffle(batches)
         for b, rows in batches:
-            yield self._make_batch(rows, b)
+            with tracing.span('loader.batch'):
+                batch = self._make_batch(rows, b)
+            yield batch
 
     def __len__(self):
         return self.steps

@@ -30,6 +30,7 @@ from torch import nn
 from ..ops.fused_cell import (ConvNode, FusedCellSpec, LinearNode, ZeroNode,
                               fused_cell_forward)
 from ..ops.grouped_conv import from_split, to_split
+from ..utils import tracing
 from .layers import CELL_CONV_IMPLS, GroupedPadConvRelu, LayerNorm, \
     LinearRelu, SplitLayerNorm, conv_padding, norm_eps
 
@@ -148,6 +149,7 @@ class SearchCell(nn.Module):
         return _draw_seed(generator, device if self.fused
                           else torch.device('cpu'))
 
+    @tracing.module_span('cell')
     def forward(self, x, generator=None, seed=None):
         """``[B, T, C] -> [B, T, C]`` (split: ``[B, c, T, G]`` both ways);
         in training mode the dropout seed is ``seed`` if given (from

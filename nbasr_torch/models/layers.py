@@ -23,6 +23,7 @@ from ..ops.cell_ops import grouped_conv_relu
 from ..ops.fused_cell import dropout_bits, inv_keep, keep_threshold, \
     relu20_gate
 from ..ops.grouped_conv import grouped_conv1d, to_split
+from ..utils import tracing
 
 __all__ = ['FUTURE_CONTEXT', 'norm_eps', 'relu20', 'conv_padding',
            'kernel_initializer', 'hash_dropout', 'chunk_count', 'Dense',
@@ -227,6 +228,7 @@ class PadConvRelu(nn.Module):
         self.conv = _ConvWeights(cin, filters, kernel_size,
                                  kernel_initializer(init_scheme), generator)
 
+    @tracing.module_span('block_conv')
     def forward(self, x):
         if self.impl == 'tap_matmul':
             return relu20(self._tap_matmul(x))

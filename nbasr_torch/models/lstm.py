@@ -11,6 +11,7 @@ operands with f32 sums, as the JAX module's ``preferred_element_type``.
 import torch
 from torch import nn
 
+from ..utils import tracing
 from .layers import kernel_initializer
 
 __all__ = ['FastLSTM']
@@ -33,9 +34,12 @@ class FastLSTM(nn.Module):
         bias[hidden:2 * hidden] = 1.0
         self.bias = nn.Parameter(bias)
 
+    @tracing.module_span('lstm')
     def forward(self, x, initial_carry=None, return_carry=False):
-        """[B, T, F] -> [B, T, H]; optionally seed/return the (c, h) carry."""
+        """[B, T, F] -> [B, T, H]; optionally seed/return the (c, h) carry.
+        Traced as the span ``lstm``; the counter ``lstm.frames`` adds T."""
         B, T, _ = x.shape
+        tracing.count('lstm.frames', T)
         dt = self.compute_dtype
         xw = (x.to(dt).float() @ self.kernel.to(dt).float()
               + self.bias).to(dt)

@@ -23,6 +23,7 @@ frames; with :func:`normalized_ctc_loss` its loss is 0 as well.
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import tracing
 from .ctc_pallas import _NEG_INF, _log_add, alpha_scan_pallas, \
     beta_scan_pallas
 
@@ -124,7 +125,8 @@ class _CTCLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, logit_len, labels, label_len, blank):
-        saved = _forward(logits, logit_len, labels, label_len, blank)
+        with tracing.span('ctc.forward'):
+            saved = _forward(logits, logit_len, labels, label_len, blank)
         ctx.save_for_backward(*saved)
         ctx.dtype = logits.dtype
         return -saved[-1]
@@ -134,13 +136,15 @@ class _CTCLoss(torch.autograd.Function):
     def backward(ctx, g):
         (log_probs, ext, em, skip_ok, alphas, logit_len, label_len,
          ll) = ctx.saved_tensors
-        post = _posteriors(log_probs, ext, em, skip_ok, alphas, label_len, ll)
-        dlogits = torch.exp(log_probs) * post.sum(-1, keepdim=True) - post
-        T = log_probs.shape[1]
-        pad = (torch.arange(T, device=ll.device)[None, :, None]
-               >= logit_len[:, None, None])
-        dlogits = torch.where(pad, 0.0, dlogits) * g[:, None, None]
-        return dlogits.to(ctx.dtype), None, None, None, None
+        with tracing.span('ctc.backward'):
+            post = _posteriors(log_probs, ext, em, skip_ok, alphas, label_len,
+                               ll)
+            dlogits = torch.exp(log_probs) * post.sum(-1, keepdim=True) - post
+            T = log_probs.shape[1]
+            pad = (torch.arange(T, device=ll.device)[None, :, None]
+                   >= logit_len[:, None, None])
+            dlogits = torch.where(pad, 0.0, dlogits) * g[:, None, None]
+            return dlogits.to(ctx.dtype), None, None, None, None
 
 
 def ctc_loss(logits, logit_len, labels, label_len, blank=0):

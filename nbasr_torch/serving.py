@@ -18,6 +18,12 @@ f32 copy of them and no reference to the caller's parameters, and each
 device step dequantizes them to f32 before it runs the model (whose cells
 still run the fused cell kernel; a bf16 model casts the f32 weights as it
 always does).
+
+With :mod:`nbasr_torch.utils.tracing` on, each call is a span: ``serve.push``
+and ``serve.flush`` (their ``id`` the call's index), inside them
+``serve.frontend`` (the log-mel and its copy to the host) and
+``serve.device_step`` (with ``serve.dequant`` when quantized), and
+``serve.decode`` for each :meth:`StreamingGreedyDecoder.push`.
 """
 
 import copy
@@ -31,6 +37,7 @@ from .ops.frontend import FrontendConfig, log_mel_spectrogram, \
     mel_weight_matrix, num_frames
 from .parallel.seqparallel import encoder_halo
 from .quant import dequantize_tree, quantize_tree
+from .utils import tracing
 
 __all__ = ['StreamingASR', 'StreamingGreedyDecoder']
 
@@ -46,15 +53,17 @@ class StreamingGreedyDecoder:
         self.tokens = [[] for _ in range(batch_size)]
 
     def push(self, logits, valid_len):
-        """logits [B, n, V] (tensor or array); valid_len [B] valid frames."""
-        ids = torch.as_tensor(logits).argmax(dim=-1).cpu().numpy()
-        for b in range(ids.shape[0]):
-            for t in range(int(valid_len[b])):
-                tok = ids[b, t]
-                if tok != self.blank and tok != self._prev[b]:
-                    self.tokens[b].append(int(tok))
-                self._prev[b] = tok
-        return self.tokens
+        """logits [B, n, V] (tensor or array); valid_len [B] valid frames.
+        Traced as the span ``serve.decode``."""
+        with tracing.span('serve.decode'):
+            ids = torch.as_tensor(logits).argmax(dim=-1).cpu().numpy()
+            for b in range(ids.shape[0]):
+                for t in range(int(valid_len[b])):
+                    tok = ids[b, t]
+                    if tok != self.blank and tok != self._prev[b]:
+                        self.tokens[b].append(int(tok))
+                    self._prev[b] = tok
+            return self.tokens
 
 
 class StreamingASR:
@@ -107,6 +116,8 @@ class StreamingASR:
         self.B = batch_size
         #: device steps run so far
         self.steps = 0
+        #: push and flush calls so far (the ``id`` of their spans)
+        self.calls = 0
 
         cfg = self.frontend
         self._mel = torch.as_tensor(mel_weight_matrix(
@@ -138,16 +149,20 @@ class StreamingASR:
         """window [B, Wf, F] -> logits [B, Co, V] for encoder output frames
         [trim_off, trim_off + Co) of the window, advancing the LSTM carry;
         a quantized streamer dequantizes its weights first."""
-        run = self.model
-        if self.qparams is not None:
-            tensors = {**dequantize_tree(self.qparams), **self._buffers}
-            run = lambda *a, **k: functional_call(self.model, tensors, a, k)
-        enc = run(window, mask=mask, stage='encode')
-        trim = min(max(trim_off, 0), enc.shape[1] - self.Co)
-        logits, carry = run(enc[:, trim:trim + self.Co], stage='head',
-                            rnn_carry=carry, return_rnn_carry=True)
-        self.steps += 1
-        return logits, carry
+        with tracing.span('serve.device_step'):
+            run = self.model
+            if self.qparams is not None:
+                with tracing.span('serve.dequant'):
+                    tensors = {**dequantize_tree(self.qparams),
+                               **self._buffers}
+                run = lambda *a, **k: functional_call(self.model, tensors, a,
+                                                      k)
+            enc = run(window, mask=mask, stage='encode')
+            trim = min(max(trim_off, 0), enc.shape[1] - self.Co)
+            logits, carry = run(enc[:, trim:trim + self.Co], stage='head',
+                                rnn_carry=carry, return_rnn_carry=True)
+            self.steps += 1
+            return logits, carry
 
     def _init_carry(self):
         if not self.model.use_rnn:
@@ -158,8 +173,10 @@ class StreamingASR:
 
     @torch.inference_mode()
     def _featurize(self, audio):
-        x = torch.as_tensor(audio, device=self.device)
-        return log_mel_spectrogram(x, self.frontend, self._mel).cpu().numpy()
+        with tracing.span('serve.frontend'):
+            x = torch.as_tensor(audio, device=self.device)
+            return log_mel_spectrogram(x, self.frontend,
+                                       self._mel).cpu().numpy()
 
     # ------------------------------------------------------------------
     def push(self, audio, n_valid=None):
@@ -169,40 +186,46 @@ class StreamingASR:
         row (default: all).  Rows whose stream has ended keep getting zero
         blocks with ``n_valid 0`` until the batch flushes.
         """
-        if self._flushed:
-            raise RuntimeError('push() after flush()')
-        audio = np.asarray(audio, np.float32)
-        if audio.ndim == 1:
-            audio = audio[None, :]
-        if audio.shape[0] != self.B:
-            raise ValueError(f'expected batch {self.B}, got {audio.shape[0]}')
-        n_valid = (np.full(self.B, audio.shape[1], np.int64)
-                   if n_valid is None else np.asarray(n_valid, np.int64))
-        base = self._sample_base + self._samples.shape[1]
-        # Only rows with new valid samples advance their valid end: a block
-        # with n_valid == 0 says nothing about validity up to `base`.
-        self._valid_samples = np.where(
-            n_valid > 0, np.maximum(self._valid_samples, base + n_valid),
-            self._valid_samples)
-        self._samples = np.concatenate([self._samples, audio], axis=1)
+        self.calls += 1
+        with tracing.span('serve.push', self.calls - 1):
+            if self._flushed:
+                raise RuntimeError('push() after flush()')
+            audio = np.asarray(audio, np.float32)
+            if audio.ndim == 1:
+                audio = audio[None, :]
+            if audio.shape[0] != self.B:
+                raise ValueError(f'expected batch {self.B}, '
+                                 f'got {audio.shape[0]}')
+            n_valid = (np.full(self.B, audio.shape[1], np.int64)
+                       if n_valid is None else np.asarray(n_valid, np.int64))
+            base = self._sample_base + self._samples.shape[1]
+            # Only rows with new valid samples advance their valid end: a
+            # block with n_valid == 0 says nothing about validity up to
+            # `base`.
+            self._valid_samples = np.where(
+                n_valid > 0, np.maximum(self._valid_samples, base + n_valid),
+                self._valid_samples)
+            self._samples = np.concatenate([self._samples, audio], axis=1)
 
-        cfg = self.frontend
-        have = self._samples.shape[1]
-        n_new = max((have - cfg.window) // cfg.hop + 1, 0)
-        if n_new:
-            used = self._samples[:, :(n_new - 1) * cfg.hop + cfg.window]
-            self._feats = np.concatenate([self._feats, self._featurize(used)],
-                                         axis=1)
-            drop = n_new * cfg.hop
-            self._samples = self._samples[:, drop:]
-            self._sample_base += drop
-        return self._drain(final=False)
+            cfg = self.frontend
+            have = self._samples.shape[1]
+            n_new = max((have - cfg.window) // cfg.hop + 1, 0)
+            if n_new:
+                used = self._samples[:, :(n_new - 1) * cfg.hop + cfg.window]
+                self._feats = np.concatenate(
+                    [self._feats, self._featurize(used)], axis=1)
+                drop = n_new * cfg.hop
+                self._samples = self._samples[:, drop:]
+                self._sample_base += drop
+            return self._drain(final=False)
 
     def flush(self):
         """End all streams: process the tail (zero-padded, masked) chunks.
         Afterwards ``logit_lengths`` gives the per-row valid logit frames."""
-        self._flushed = True
-        return self._drain(final=True)
+        self.calls += 1
+        with tracing.span('serve.flush', self.calls - 1):
+            self._flushed = True
+            return self._drain(final=True)
 
     @property
     def frames_valid(self):

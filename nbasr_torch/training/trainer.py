@@ -30,8 +30,12 @@ its folder; :func:`nbasr_torch.checkpoint.save_flax` writes one the JAX
 trainer loads.  ``profile_dir`` (with ``profile_steps``) writes a
 ``torch.profiler`` trace of train steps 1..N of the first epoch there, as
 the JAX trainer's profiler hook does: step 0, the warm-up and planning
-step, is left out.  The JAX trainer's eval prewarm hides an XLA compile
-and has no counterpart here.
+step, is left out.  The port's tracing (:mod:`nbasr_torch.utils.tracing`)
+is on for those steps, so the trace holds the program's ``nbasr.`` ranges:
+``step`` (its ``id`` the step count), ``step.h2d``, ``step.forward``,
+``step.backward``, ``step.update`` with ``step.norm_read`` and
+``step.optimizer``, ``loader.batch`` and the layers' own.  The JAX
+trainer's eval prewarm hides an XLA compile and has no counterpart here.
 
 Data and tensor parallelism (:class:`nbasr_torch.parallel.ParallelTrainer`)
 override these hooks: :meth:`Trainer._objective` (the loss of the global
@@ -59,6 +63,7 @@ from ..ops.decode import beam_search_decode, greedy_decode
 from ..ops.edit_distance import edit_distance
 from ..ops.frontend import FrontendConfig, log_mel_spectrogram, \
     mel_weight_matrix
+from ..utils import tracing
 from ..utils.tbwriter import SummaryWriter
 from .loss import conv_l2, get_loss
 from .metrics import METRIC_KEYS, accumulate, ratios, zeros_like_metrics
@@ -134,7 +139,9 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _put_batch(self, batch):
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        with tracing.span('step.h2d'):
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in batch.items()}
 
     def _features(self, batch):
         feats = log_mel_spectrogram(batch['audio'], self.frontend, self.mel_mat)
@@ -164,11 +171,14 @@ class Trainer:
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
-        feats, fsize = self._features(batch)
-        logits = self.net(feats, fsize, generator=self.generator)
-        lsize = logits_length(fsize, feats.shape[1], logits.shape[1])
-        m = {}
-        self._objective(logits, lsize, batch, m).backward()
+        with tracing.span('step.forward'):
+            feats, fsize = self._features(batch)
+            logits = self.net(feats, fsize, generator=self.generator)
+            lsize = logits_length(fsize, feats.shape[1], logits.shape[1])
+            m = {}
+            loss = self._objective(logits, lsize, batch, m)
+        with tracing.span('step.backward'):
+            loss.backward()
         return self._sum_metrics(m)
 
     def _grad_norm(self, params):
@@ -187,23 +197,28 @@ class Trainer:
         through, scaled by ``clip_norm / inf`` = 0, as optax scales them, and
         Adam still steps.  One host read per step (the norm and the largest
         |gradient| together)."""
-        params = [p for p in self.model.parameters() if p.grad is not None]
-        grads = [p.grad for p in params]
-        norm, peak = self._grad_norm(params)
-        norm_host, peak_host = torch.stack([norm, peak.to(norm.dtype)]).tolist()
-        if not math.isfinite(peak_host):
-            self.nonfinite_steps += 1
-            self.nonfinite_run += 1
-            for p in params:
-                p.grad = None
-            return
-        self.nonfinite_run = 0
-        if norm_host >= self.clip_norm:      # optax: (g / ‖g‖) * max_norm
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.clip_norm)
-        for group in self.optimizer.param_groups:
-            group['lr'] = lr
-        self.optimizer.step()
+        with tracing.span('step.update'):
+            params = [p for p in self.model.parameters()
+                      if p.grad is not None]
+            grads = [p.grad for p in params]
+            norm, peak = self._grad_norm(params)
+            with tracing.span('step.norm_read'):
+                norm_host, peak_host = torch.stack(
+                    [norm, peak.to(norm.dtype)]).tolist()
+            if not math.isfinite(peak_host):
+                self.nonfinite_steps += 1
+                self.nonfinite_run += 1
+                for p in params:
+                    p.grad = None
+                return
+            self.nonfinite_run = 0
+            if norm_host >= self.clip_norm:  # optax: (g / ‖g‖) * max_norm
+                torch._foreach_div_(grads, norm)
+                torch._foreach_mul_(grads, self.clip_norm)
+            for group in self.optimizer.param_groups:
+                group['lr'] = lr
+            with tracing.span('step.optimizer'):
+                self.optimizer.step()
 
     def _train_step(self, batch, lr):
         m = self._loss_and_grads(batch)
@@ -271,10 +286,11 @@ class Trainer:
     def step(self, batch, training=True, lr=1e-4):
         """One step on a batch (reference ``Trainer.step``): a training
         step returns the running train metrics, an eval step its own."""
-        batch = self._put_batch(batch)
         if training:
-            self._train_step(batch, lr)
+            with tracing.span('step', self.step_count):
+                self._train_step(self._put_batch(batch), lr)
             return ratios(self.metrics)
+        batch = self._put_batch(batch)
         return ratios(self._eval_step(batch, zeros_like_metrics(
             METRIC_KEYS, self.device)))
 
@@ -367,10 +383,14 @@ class Trainer:
             for step_i in range(self.data_train.steps):
                 if profiler is not None and step_i == 1:
                     profiler.start()
-                self._train_step(self._put_batch(next(stream)), epoch_lr)
+                    tracing.enable()
+                batch = next(stream)
+                with tracing.span('step', self.step_count):
+                    self._train_step(self._put_batch(batch), epoch_lr)
                 if profiler is not None and step_i >= 1 and (
                         step_i == self.profile_steps
                         or step_i == self.data_train.steps - 1):
+                    tracing.disable()
                     profiler.stop()
                     profiler = None
                 if (tb is not None and self.tb_step_interval
@@ -436,13 +456,14 @@ class Trainer:
 
     def _profiler(self):
         """A ``torch.profiler`` over the card (and the host) that writes a
-        Chrome trace under ``profile_dir`` when it stops."""
+        Chrome trace under ``profile_dir`` when it stops; it records shapes,
+        which puts each span's ``id`` in its range's ``args``."""
         from torch.profiler import ProfilerActivity, profile, \
             tensorboard_trace_handler
         activities = [ProfilerActivity.CPU]
         if self.device.type == 'cuda':
             activities.append(ProfilerActivity.CUDA)
-        return profile(activities=activities,
+        return profile(activities=activities, record_shapes=True,
                        on_trace_ready=tensorboard_trace_handler(
                            str(self.profile_dir)))
 
