@@ -195,6 +195,14 @@ prints no result):
    + 1 + 1 per train step with none plain, and algorithmic_tflops equal to
    algorithmic_flops at the batch's rows and longest utterance; its median
    forward printed beside phase 16's benchmark_pass median.
+20. the LSTM recurrence kernels (``csrc/lstm.cu``): FastLSTM(1200, 500) at
+   the recipe's bf16 train shapes (B=64, T=75; B=48, T=196; with and
+   without a carry; forward and backward), f32 serving (B=64, T=60, the
+   carry in and out) and the proxies' B=1 with a backward, one launch each
+   way, two calls bit-equal; every output and gradient against a float64
+   copy within twice the plain versions' own gap (or 1e-5 of the tensor's
+   largest value); events and device time beside the plain loop's; the
+   flagship's train step and serving head through the kernels.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -230,6 +238,7 @@ from nbasr_torch.models.asr import algorithmic_flops, count_params, \
 from nbasr_torch.models.cell import SearchCell
 from nbasr_torch.models import proxies
 from nbasr_torch.models.layers import conv_padding
+from nbasr_torch.models.lstm import FastLSTM
 from nbasr_torch.ops import _build, ctc, ctc_pallas, decode, fused_cell, \
     grouped_conv
 from nbasr_torch.ops.fused_cell import FusedCellSpec
@@ -4273,6 +4282,204 @@ def check_phase19(device, bench_ms):
     return line, line['launches']
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LSTM recurrence (nbasr_torch/csrc/lstm.cu)
+# ---------------------------------------------------------------------------
+#
+# FastLSTM(1200, 500), the flagship's head, at the main path's shapes: the
+# recipe's bf16 train steps (B=64, T=75 and B=48, T=196, with and without an
+# initial carry, forward and backward), serving (f32, B=64, T=60, the carry
+# in and out, no grad), the proxies (B=1, T=32, with a backward, f32 and
+# bf16) and an f32 train shape.  Each case runs the module three ways on the
+# same inputs and weights: the kernels, their plain versions on the card
+# (plain_lstm()), and a float64 copy of the module through the plain
+# versions (its weights and inputs rounded to the case's dtype; xw in f32 as
+# the module makes it, the recurrence in float64).  Every output and gradient reads as its largest
+# gap from the float64 copy's over that tensor's largest value (a share).
+# The kernels pass where each share is at most LSTM_FACTOR x the plain
+# version's own or LSTM_FLOOR, whichever is larger: in f32 both differ from
+# float64 by rounding alone (sum order, expf/tanhf against PyTorch's), far
+# below the floor; in bf16 the loop rounds c and h after every elementwise
+# op and the kernels once a frame, so both read about 1e-2 and the kernels
+# no more than the loop.  A wrong index or a missed barrier reads about 1.
+LSTM_F, LSTM_H = 1200, 500
+LSTM_FACTOR = 2.0
+LSTM_FLOOR = 1e-5
+#: (label, dtype, B, T, initial carry, grad)
+LSTM_CASES = (
+    ('train B=64 T=75', torch.bfloat16, 64, 75, False, True),
+    ('train B=64 T=75 carry', torch.bfloat16, 64, 75, True, True),
+    ('train B=48 T=196', torch.bfloat16, 48, 196, False, True),
+    ('train B=48 T=196 carry', torch.bfloat16, 48, 196, True, True),
+    ('serve B=64 T=60 carry', torch.float32, 64, 60, True, False),
+    ('proxy B=1 T=32', torch.float32, 1, 32, False, True),
+    ('proxy B=1 T=32 bf16', torch.bfloat16, 1, 32, False, True),
+    ('train f32 B=64 T=75 carry', torch.float32, 64, 75, True, True),
+)
+LSTM_KERNELS = ('nbasr_lstm_fwd', 'nbasr_lstm_bwd')
+
+
+def _lstm_operands(dtype, B, T, carry, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    m = FastLSTM(LSTM_F, LSTM_H, compute_dtype=dtype, generator=gen)
+    x = torch.randn(B, T, LSTM_F, generator=gen)
+    init = tuple(0.5 * torch.randn(B, LSTM_H, generator=gen)
+                 for _ in range(2)) if carry else None
+    w = [torch.randn(B, T, LSTM_H, generator=gen),
+         torch.randn(B, LSTM_H, generator=gen),
+         torch.randn(B, LSTM_H, generator=gen)]
+    ref = FastLSTM(LSTM_F, LSTM_H, compute_dtype=torch.float64)
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            p.copy_(getattr(m, name).to(dtype).double())
+    return (m.to(device), x.to(device),
+            None if init is None else tuple(v.to(device) for v in init),
+            [v.to(device) for v in w],
+            ref.to(device), x.to(dtype).double().to(device),
+            None if init is None else tuple(
+                v.to(dtype).double().to(device) for v in init))
+
+
+def _lstm_run(m, x, init, w, grad):
+    """{name: tensor} of the outputs and, with grad, the gradients of
+    sum(w * (out, c, h)) with respect to the input, the weights and the
+    initial carry."""
+    with torch.set_grad_enabled(grad):
+        xin = x.detach().requires_grad_(grad)
+        carry = None if init is None else tuple(
+            v.detach().requires_grad_(grad) for v in init)
+        out, (c, h) = m(xin, carry, return_carry=True)
+        got = {'out': out, 'c': c, 'h': h}
+        if grad:
+            loss = sum((o.to(wi.dtype) * wi).sum()
+                       for o, wi in zip((out, c, h), w))
+            leaves = [xin, m.kernel, m.recurrent, m.bias, *(carry or ())]
+            names = ['dx', 'dkernel', 'drecurrent', 'dbias'] + (
+                ['dc0', 'dh0'] if carry else [])
+            got.update(zip(names, torch.autograd.grad(loss, leaves)))
+    return {k: v.detach() for k, v in got.items()}
+
+
+def _lstm_shares(got, ref):
+    return {k: float((got[k].double() - ref[k]).abs().max()
+                     / ref[k].abs().max().clamp_min(1e-30)) for k in ref}
+
+
+def _lstm_profile(fn):
+    """(kernels launched, their device ms, device ms of each LSTM kernel)
+    of one call of ``fn``, by torch.profiler; None where it saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        return None
+    own = {k: 1e3 * device_seconds([e for e in kernels if k in e.key])
+           for k in LSTM_KERNELS}
+    return sum(e.count for e in kernels), 1e3 * device_seconds(kernels), own
+
+
+def check_lstm(device):
+    """Phase 20: the LSTM recurrence kernels against their plain versions
+    and a float64 copy at the main path's shapes, two calls bit-equal, their
+    launches and timings beside the plain loop's, and the flagship's train
+    and serving forwards through them.  Returns the rows of the cases."""
+    card = card_line()
+    from nbasr_torch.ops import lstm_recurrence
+    from nbasr_torch.ops.plain import plain_lstm
+    rows, bad = [], []
+    for i, (label, dtype, B, T, carry, grad) in enumerate(LSTM_CASES):
+        m, x, init, w, ref_m, x64, init64 = _lstm_operands(
+            dtype, B, T, carry, device, seed=SEED + i)
+        w64 = [v.double() for v in w]
+        lstm_recurrence.reset_launches()
+        got = _lstm_run(m, x, init, w, grad)
+        counts = {k: dict(v) for k, v in lstm_recurrence.LAUNCHES.items()}
+        want = {'forward': {'kernel': 1, 'plain': 0},
+                'backward': {'kernel': int(grad), 'plain': 0}}
+        assert counts == want, (label, counts)
+        again = _lstm_run(m, x, init, w, grad)
+        bit_equal = all(torch.equal(got[k], again[k]) for k in got)
+        with plain_lstm():
+            plain = _lstm_run(m, x, init, w, grad)
+        with plain_lstm():                  # the kernels take f32 and bf16
+            ref = _lstm_run(ref_m, x64, init64, w64, grad)
+        kernel_share = _lstm_shares(got, ref)
+        plain_share = _lstm_shares(plain, ref)
+        vs_plain = _lstm_shares(got, {k: v.double() for k, v in plain.items()})
+        limit = {k: max(LSTM_FACTOR * plain_share[k], LSTM_FLOOR)
+                 for k in ref}
+        over = {k: (kernel_share[k], limit[k]) for k in ref
+                if not kernel_share[k] <= limit[k]}
+        call = functools.partial(_lstm_run, m, x, init, w, grad)
+        ms = time_ms(call, runs=20, warmup=3)
+        with plain_lstm():
+            plain_ms = time_ms(call, runs=3, warmup=1)
+        prof = _lstm_profile(call)
+        with plain_lstm():
+            plain_prof = _lstm_profile(call)
+        row = dict(case=label, dtype=str(dtype)[6:], B=B, T=T, carry=carry,
+                   grad=grad, bit_equal_calls=bit_equal, launches=counts,
+                   kernel_share=kernel_share, plain_share=plain_share,
+                   kernel_vs_plain_share=vs_plain, limit=limit, over=over,
+                   ms=ms, plain_ms=plain_ms,
+                   kernels_per_call=prof and prof[0],
+                   device_ms=prof and prof[1],
+                   lstm_kernel_device_ms=prof and prof[2],
+                   plain_kernels_per_call=plain_prof and plain_prof[0],
+                   plain_device_ms=plain_prof and plain_prof[1])
+        rows.append(row)
+        print(f'phase 20 {label}: shares of the float64 copy (kernels / '
+              f'plain / limit) ' + ', '.join(
+                  f'{k} {kernel_share[k]:.2e}/{plain_share[k]:.2e}/'
+                  f'{limit[k]:.2e}' for k in ref)
+              + f'; kernels vs plain max {max(vs_plain.values()):.2e}; '
+              f'bit-equal calls {bit_equal}; {ms:.3f} ms a call on events '
+              f'({plain_ms:.3f} plain), device '
+              + ('not measured' if prof is None else
+                 f'{prof[1]:.3f} ms in {prof[0]} kernels ('
+                 + ', '.join(f'{k} {v:.3f} ms' for k, v in prof[2].items())
+                 + ')')
+              + ('' if plain_prof is None else
+                 f', plain {plain_prof[1]:.3f} ms in {plain_prof[0]} '
+                 f'kernels'))
+        if over or not bit_equal:
+            bad.append((label, over, bit_equal))
+        del m, x, init, w, ref_m, x64, init64, got, again, plain, ref
+        torch.cuda.empty_cache()
+    # the main path: the flagship's bf16 train forward and backward, and
+    # its f32 serving head with the carry, through the kernels
+    model = get_model(FLAGSHIP, compute_dtype=torch.bfloat16, device=device)
+    feats = torch.randn(4, 300, 80, device=device)
+    lstm_recurrence.reset_launches()
+    model.train()
+    model(feats, generator=torch.Generator().manual_seed(SEED)).float() \
+        .square().sum().backward()
+    train_counts = {k: dict(v) for k, v in lstm_recurrence.LAUNCHES.items()}
+    serve_model = get_model(FLAGSHIP, device=device).eval()
+    lstm_recurrence.reset_launches()
+    with torch.no_grad():
+        enc = serve_model(feats, stage='encode')
+        carry = None
+        for piece in enc.split(25, dim=1):
+            _, carry = serve_model(piece, stage='head', rnn_carry=carry,
+                                   return_rnn_carry=True)
+    serve_counts = {k: dict(v) for k, v in lstm_recurrence.LAUNCHES.items()}
+    pieces = len(enc.split(25, dim=1))
+    print(f'phase 20: the flagship through the LSTM kernels: a bf16 train '
+          f'forward and backward {train_counts}, {pieces} f32 serving head '
+          f'calls with the carry {serve_counts} [{card}]')
+    assert train_counts == {'forward': {'kernel': 1, 'plain': 0},
+                            'backward': {'kernel': 1, 'plain': 0}}, train_counts
+    assert serve_counts == {'forward': {'kernel': pieces, 'plain': 0},
+                            'backward': {'kernel': 0, 'plain': 0}}, serve_counts
+    assert not bad, bad
+    return rows, {'train_step': train_counts, 'serving': serve_counts}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -4329,6 +4536,7 @@ def main():
     torch.cuda.empty_cache()        # the twin's process gets the card
     bench_line, p19_launches = timed('phase 19', check_phase19, device,
                                      p16['static']['bench_ms'])
+    lstm_rows, lstm_launches = timed('phase 20', check_lstm, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -4472,6 +4680,10 @@ def main():
             entry_row['launches_phase19'] = {
                 part: counts[key]['kernel']
                 for part, counts in p19_launches.items()}
+    kernels.append(dict(
+        name='lstm_recurrence', route='cuda', source='nbasr_torch/csrc/lstm.cu',
+        replaces=None, kernels=list(LSTM_KERNELS),
+        launches_phase20=lstm_launches, per_case=lstm_rows))
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '

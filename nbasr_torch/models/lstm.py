@@ -2,15 +2,18 @@
 
 Counterpart of ``nbasr_tpu/models/lstm.py`` ``FastLSTM``: ``x @ kernel +
 bias`` for every timestep is one matmul outside the recurrence, and the
-recurrence is a Python loop of ``h @ recurrent`` plus the gates.  Keras
-layout — ``kernel [F, 4H]``, ``recurrent [H, 4H]``, ``bias [4H]``, gate
-order (i, f, g, o), forget-gate bias 1.  Products take ``compute_dtype``
-operands with f32 sums, as the JAX module's ``preferred_element_type``.
+recurrence (``h @ recurrent`` plus the gates, frame by frame) is
+:func:`nbasr_torch.ops.lstm_recurrence.lstm_recurrence`: one kernel launch
+each way on the card, the plain loop on the CPU.  Keras layout — ``kernel
+[F, 4H]``, ``recurrent [H, 4H]``, ``bias [4H]``, gate order (i, f, g, o),
+forget-gate bias 1.  Products take ``compute_dtype`` operands with f32 sums,
+as the JAX module's ``preferred_element_type``.
 """
 
 import torch
 from torch import nn
 
+from ..ops.lstm_recurrence import lstm_recurrence
 from ..utils import tracing
 from .layers import kernel_initializer
 
@@ -38,22 +41,13 @@ class FastLSTM(nn.Module):
     def forward(self, x, initial_carry=None, return_carry=False):
         """[B, T, F] -> [B, T, H]; optionally seed/return the (c, h) carry.
         Traced as the span ``lstm``; the counter ``lstm.frames`` adds T."""
-        B, T, _ = x.shape
+        T = x.shape[1]
         tracing.count('lstm.frames', T)
         dt = self.compute_dtype
         xw = (x.to(dt).float() @ self.kernel.to(dt).float()
               + self.bias).to(dt)
-        rec = self.recurrent.to(dt).float()
-        if initial_carry is None:
-            c = h = torch.zeros((B, self.hidden), dtype=dt, device=x.device)
-        else:
-            c, h = (v.to(dt) for v in initial_carry)
-        hs = []
-        for t in range(T):
-            gates = xw[:, t] + (h.float() @ rec).to(dt)
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            hs.append(h)
-        out = torch.stack(hs, dim=1)
-        return (out, (c, h)) if return_carry else out
+        c0 = h0 = None
+        if initial_carry is not None:
+            c0, h0 = (v.to(dt) for v in initial_carry)
+        out, carry = lstm_recurrence(xw, self.recurrent.to(dt), c0, h0)
+        return (out, carry) if return_carry else out

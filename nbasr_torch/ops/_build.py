@@ -61,7 +61,8 @@ def _target(name):
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
-def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc')):
+def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc',
+                 'lstm')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
     Returns ``{name: (path, compiler log)}``; the log starts with the

@@ -9,15 +9,18 @@ checks that hold a kernel against its plain version do.
 - :func:`plain_cell_forward`: the fused cell's no-grad forward (#1 in
   evaluation and serving);
 - :func:`plain_convs`: the grouped conv forward, dx and dW (#5-#10);
-- :func:`plain_ctc`: the CTC alpha and beta recursions (#3, #4).
+- :func:`plain_ctc`: the CTC alpha and beta recursions (#3, #4);
+- :func:`plain_lstm`: the LSTM recurrence's forward and backward
+  (``csrc/lstm.cu``).
 """
 
 import contextlib
 import functools
 
-from . import ctc_pallas, fused_cell, grouped_conv
+from . import ctc_pallas, fused_cell, grouped_conv, lstm_recurrence
 
-__all__ = ['plain_cells', 'plain_cell_forward', 'plain_convs', 'plain_ctc']
+__all__ = ['plain_cells', 'plain_cell_forward', 'plain_convs', 'plain_ctc',
+           'plain_lstm']
 
 
 @contextlib.contextmanager
@@ -63,3 +66,11 @@ def plain_ctc():
     """The CTC loss's alpha and beta recursions in their plain versions."""
     return _patched(ctc_pallas, _launch_alpha=ctc_pallas.alpha_scan_reference,
                     _launch_beta=ctc_pallas.beta_scan_reference)
+
+
+def plain_lstm():
+    """The LSTM recurrence's forward and backward in their plain versions."""
+    return _patched(
+        lstm_recurrence,
+        _launch_forward=lstm_recurrence.recurrence_reference,
+        _launch_backward=lstm_recurrence.recurrence_backward_reference)

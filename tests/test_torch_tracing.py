@@ -251,3 +251,29 @@ def test_profile_dir_trace_holds_the_programs_ranges(tmp_path):
     assert {'nbasr.step', 'nbasr.loader.batch', 'nbasr.step.backward',
             'nbasr.lstm', 'nbasr.lstm.backward', 'nbasr.ctc.forward',
             'nbasr.step.norm_read'} <= names
+
+
+def test_lstm_backward_range_holds_the_recurrence_function(tmp_path):
+    """The recurrence's autograd Function (ops.lstm_recurrence) runs its
+    backward, and the input projection's after it, inside
+    ``lstm.backward``; its forward inside ``lstm``."""
+    model = _model().train()
+    feats = torch.randn(2, 40, 80)
+    with tracing.enabled(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = model(feats, torch.tensor([40, 30]),
+                    generator=torch.Generator().manual_seed(1))
+        out.sum().backward()
+    events = _events(prof, tmp_path)
+    ranges = _ranges(events)
+    (fwd,), (bwd,) = ranges['lstm'], ranges['lstm.backward']
+
+    def spans(name):
+        return [(e['tid'], e['ts'], e['ts'] + e['dur']) for e in events
+                if e['name'] == name]
+
+    (node,) = spans('_RecurrenceBackward')    # the node, not its wrapper
+    assert _inside(node, [bwd])
+    projection = [s for s in spans('MmBackward0') if s[1] > node[2]]
+    assert projection and all(_inside(s, [bwd]) for s in projection)
+    (call,) = spans('_Recurrence')
+    assert _inside(call, [fwd])
