@@ -23,7 +23,7 @@ import sys
 
 import torch
 
-from . import faults, run
+from . import archs, faults, run
 from .common import syncer
 from .drivers import serve as serve_driver
 from .drivers import train as train_driver
@@ -93,7 +93,7 @@ def _serve(cfg, mix, seed, device, what):
     rows = rows[:mix['sample_streams']]
     sample = [(g, r, serve_driver._rows(kept, r), list(dec.tokens[r]), tp)
               for r in rows]
-    ts = int(np.prod(cfg['block_strides']))
+    ts = archs.find(cfg).output_stride(cfg)
     rnd = ref.rounding(mix['control']) if what == 'control' else ref.identity
     return serve_driver.compare(cfg, seed, device, sample, ts, rnd)
 

@@ -1,13 +1,12 @@
 """What the drivers share: the program's model built from a
-configuration with the run's weights, the clock, and the pace lines of a
-run's note."""
+configuration by its architecture (:mod:`perfbench.archs`) with the run's
+weights, the clock, and the pace lines of a run's note."""
 
 import time
 
 import torch
 
-from . import weights
-from .reference.model import load_stats
+from . import archs, weights
 
 __all__ = ['now', 'syncer', 'build_model', 'by_parts', 'profiled_pace',
            'DTYPES']
@@ -24,26 +23,14 @@ def syncer(device):
 
 
 def build_model(cfg, mix, seed, device):
-    """The program's model of ``cfg`` through its own factory, with the
-    mix's compute dtype, dropout and cell path, and the run's weights
+    """The program's model of ``cfg`` through its architecture's ``build``
+    (the port's own factory), with the run's weights
     (:mod:`perfbench.weights`) in place of its initialisation; also the
     weights, which the reference takes."""
-    from nbasr_torch.models.asr import get_model
-    model = get_model(
-        cfg['arch_vec'], use_rnn=True, dropout_rate=mix.get('dropout', 0.0),
-        data_norm=load_stats(), num_classes=cfg['num_classes'],
-        compute_dtype=DTYPES[mix['compute_dtype']],
-        grouped_impl=mix.get('grouped_impl', 'auto'), device=device,
-        generator=torch.Generator().manual_seed(0),
-        block_kernels=tuple(cfg['block_kernels']),
-        block_strides=tuple(cfg['block_strides']),
-        block_filters=tuple(cfg['block_filters']),
-        cells_per_block=tuple(cfg['cells_per_block']),
-        cell_groups=cfg['cell_groups'], rnn_units=cfg['rnn_units'])
+    model = archs.find(cfg).build(cfg, mix, device)
     w = weights.generate(cfg, seed, device)
     weights.install(model, w)
     return model, w
-
 
 
 def by_parts(marks, start, end):

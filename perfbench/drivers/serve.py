@@ -5,14 +5,14 @@ its end; ``StreamingGreedyDecoder`` decodes every emitted chunk.  When a
 group ends the next starts.  Rows whose stream has ended idle until their
 group ends; only valid audio counts.
 
-Set-up builds the model through ``get_model`` with the run's weights and
-serves one warm-up group of ``warmup_stream_s`` streams.  The window then
-serves groups until ``--seconds`` have passed, at a call's end.  With
-``--trace 1`` its first half is an unprofiled stretch (``mfu.serve``,
-``serve_step_p95_ms``: the 95th percentile of its emitting calls, each
-from the call until its tokens are on the host), then ``trace_calls``
-emitting calls run under the profiler on the device alone, and
-``trace_calls`` more with the host and the benchmark's spans.
+Set-up builds the model through its architecture's ``build`` with the
+run's weights and serves one warm-up group of ``warmup_stream_s``
+streams.  The window then serves groups until ``--seconds`` have passed,
+at a call's end.  With ``--trace 1`` its first half is an unprofiled
+stretch (``mfu.serve``, ``serve_step_p95_ms``: the 95th percentile of its
+emitting calls, each from the call until its tokens are on the host),
+then ``trace_calls`` emitting calls run under the profiler on the device
+alone, and ``trace_calls`` more with the host and the benchmark's spans.
 
 Correctness: of the streams of the groups that finished in the window,
 the longest one and ``sample_streams - 1`` drawn from the seed (each
@@ -30,7 +30,7 @@ import gc
 import numpy as np
 import torch
 
-from .. import flops, traffic, trace
+from .. import archs, traffic, trace
 from ..common import build_model, by_parts, now, profiled_pace, syncer
 from ..reference import frontend as ref_fe
 from ..reference import model as ref
@@ -151,6 +151,7 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
     """One run of a ``serve`` cell: set-up, the window, and what the
     result and the comparison need (``perfbench.run`` reads it)."""
     sync = syncer(device)
+    arch = archs.find(cfg)
     model, _ = build_model(cfg, mix, seed, device)
     model.eval()
     sr = traffic.SAMPLE_RATE
@@ -188,7 +189,7 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
                 done.append((g, r, _rows(kept, r), list(dec.tokens[r]), tp))
         sync()
     elapsed = now() - start
-    ts = int(np.prod(cfg['block_strides']))
+    ts = arch.output_stride(cfg)
     audio_s = book.frames * ts * FRAME_S
     marks = [(t, f * ts * FRAME_S) for t, f in book.marks]
     books = [book]
@@ -200,8 +201,8 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
     if traced:
         # the offline forward's FLOPs of the emitted valid frames
         out['layer'].update(
-            stretch_flops=flops.algorithmic_flops(cfg, 1, book.frames * ts,
-                                                  train=False),
+            stretch_flops=arch.algorithmic_flops(cfg, 1, book.frames * ts,
+                                                 train=False),
             stretch_seconds=elapsed,
             stretch_p95_ms=float(np.percentile(lat, 95)) * 1e3)
         with torch.no_grad():
@@ -237,7 +238,7 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
 
 def _padded_frames(cfg, mix, group):
     """The group's padded length in frames (see the module docstring)."""
-    hl, hr = ref.halo(cfg)
+    hl, hr = archs.find(cfg).halo(cfg)
     C = mix['chunk_frames']
     f = ref_fe.num_frames(int(group.lengths.max()))
     return max(-(-f // C) * C, hl + C + hr)
@@ -268,6 +269,7 @@ def compare(cfg, seed, device, sample, ts, rnd=ref.identity):
     torch.backends.cudnn.allow_tf32 = False
     try:
         w = generate(cfg, seed, device)
+        arch = archs.find(cfg)
         stats = ref.load_stats()
         logits, fsize = [], []
         for g, r, _, _, tp in sample:
@@ -279,8 +281,8 @@ def compare(cfg, seed, device, sample, ts, rnd=ref.identity):
             with torch.no_grad():
                 feats = ref_fe.log_mel(torch.as_tensor(audio, device=device))
                 fs = torch.as_tensor(fsize[-1:], device=device)
-                logits.append(ref.forward(w, cfg, feats, fs, stats,
-                                          rnd=rnd)[0])
+                logits.append(arch.forward(w, cfg, feats, fs, stats,
+                                           rnd=rnd)[0])
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = prev

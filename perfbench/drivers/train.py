@@ -1,16 +1,17 @@
 """Mixes of kind ``train``: a closed loop of ``Trainer.step`` calls, back to
 back, over the port's ``Loader`` on a deck made from the seed.
 
-Set-up builds one trainer (the model through ``get_model``, the run's
-weights, Adam), drives it through its first steps, which the reference
-follows (:func:`checked_steps`: ``CHECK_STEPS``, or more until every
-bucket shape has run), and on until every bucket shape has run twice.
-The window then steps until ``--seconds`` have passed; it ends in a
-synchronize.  With ``--trace 1`` the window's first half is an unprofiled
-stretch (``mfu.train``); steps run on to the end of the Loader's epoch,
-then one whole epoch runs under the profiler on the device alone (every
-epoch runs the same batch shapes, so its counts hold from seed to seed),
-and ``trace_steps`` more steps with the host and the benchmark's spans.
+Set-up builds one trainer (the model through its architecture's
+``build``, the run's weights, Adam), drives it through its first steps,
+which the reference follows (:func:`checked_steps`: ``CHECK_STEPS``, or
+more until every bucket shape has run), and on until every bucket shape
+has run twice.  The window then steps until ``--seconds`` have passed;
+it ends in a synchronize.  With ``--trace 1`` the window's first half is
+an unprofiled stretch (``mfu.train``); steps run on to the end of the
+Loader's epoch, then one whole epoch runs under the profiler on the
+device alone (every epoch runs the same batch shapes, so its counts hold
+from seed to seed), and ``trace_steps`` more steps with the host and the
+benchmark's spans.
 """
 
 import gc
@@ -18,7 +19,7 @@ import gc
 import numpy as np
 import torch
 
-from .. import flops, traffic, trace
+from .. import archs, traffic, trace
 from ..common import (DTYPES, build_model, by_parts, now, profiled_pace,
                       syncer)
 from ..reference import batches as ref_batches
@@ -208,8 +209,8 @@ def reference_readings(cfg, mix, seed, device, deck, rnd=ref.identity):
         n = checked_steps(shapes, len(mix['bucket_caps']))
     bs, shapes = bs[:n], shapes[:n]
     w0 = generate(cfg, seed, device)
-    out = ref.follow_train(cfg, mix, ref.load_stats(), w0, bs, seed, device,
-                           rnd=rnd)
+    out = ref.follow_train(archs.find(cfg), cfg, mix, ref.load_stats(), w0,
+                           bs, seed, device, rnd=rnd)
     out['shapes'] = shapes
     return out
 
@@ -246,6 +247,7 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
     """One run of a ``train`` cell: set-up, the window, and what the
     result and the comparison need (``perfbench.run`` reads it)."""
     sync = syncer(device)
+    arch = archs.find(cfg)
     lr = mix['lr']
     kinds = len(mix['bucket_caps'])
     trainer, it, deck, w0 = setup(cfg, mix, seed, device)
@@ -276,7 +278,7 @@ def run(cell, cfg, mix, seed, seconds, traced, device, t0):
         steps += 1
         audio_s += float(b['feature_size'][b['valid'] > 0].sum()) * FRAME_S
         rows, samples = b['audio'].shape
-        fl += flops.algorithmic_flops(cfg, rows, ref_fe.num_frames(samples))
+        fl += arch.algorithmic_flops(cfg, rows, ref_fe.num_frames(samples))
         marks.append((now(), audio_s))
         if now() - start >= span:
             break

@@ -1,48 +1,23 @@
 """Operation and byte counts, and the published peaks they are held to.
 
-``algorithmic_flops`` is a frozen copy of the port's count
-(``nbasr_torch/models/asr.py`` ``algorithmic_flops``): 2 per multiply-add
-of the block convs, the cell ops at their true grouped cost, the LSTM and
-the head; elementwise work left out; a training step counts 3 forwards.
-``cell_counts`` counts one search cell's forward or backward at its
-shapes: the operations of its conv and linear nodes (a backward is dx plus
-dW, each at the forward's multiply-adds) and its bytes, each input read
-once and each output written once, whatever implements it.
+A whole step's FLOPs are its architecture's (``algorithmic_flops`` of
+``perfbench/archs/<model>.py``).  ``cell_counts`` counts one NAS-Bench-ASR
+search cell's forward or backward at its shapes: the operations of its
+conv and linear nodes (a backward is dx plus dW, each at the forward's
+multiply-adds) and its bytes, each input read once and each output
+written once, whatever implements it.
 """
 
-from .reference.model import CONVS, NUM_FEATURES, arch_nodes
+from .archs.nas_bench_asr import CONVS, arch_nodes
 
-__all__ = ['PEAK_FLOPS', 'PEAK_BYTES_PER_S', 'algorithmic_flops',
-           'cell_counts', 'least_seconds', 'mfu']
+__all__ = ['PEAK_FLOPS', 'PEAK_BYTES_PER_S', 'cell_counts', 'least_seconds',
+           'mfu']
 
 #: One H100 SXM's dense peaks (NVIDIA's data sheet, at 700 W): operations
 #: a second by the dtype's bytes (bf16 on the tensor cores, f32 outside
 #: them) and HBM3 bytes a second.
 PEAK_FLOPS = {2: 989e12, 4: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
-
-
-def algorithmic_flops(cfg, batch, frames, train=True):
-    """FLOPs of one step of ``batch`` rows of ``frames`` input frames."""
-    B, t, cin = batch, frames, NUM_FEATURES
-    nodes = arch_nodes(cfg['arch_vec'])
-    fwd = 0.0
-    for k, s, c, cells in zip(cfg['block_kernels'], cfg['block_strides'],
-                              cfg['block_filters'], cfg['cells_per_block']):
-        t = -(-t // s)
-        fwd += 2.0 * B * t * k * cin * c
-        ci = c // cfg['cell_groups']
-        for op, _ in nodes:
-            if op == 'linear':
-                fwd += cells * 2.0 * B * t * c * c
-            elif op in CONVS:
-                fwd += cells * 2.0 * B * t * cfg['cell_groups'] * ci * ci \
-                    * CONVS[op][0]
-        cin = c
-    h = cfg['rnn_units']
-    fwd += 2.0 * B * t * 4 * h * (cin + h)
-    fwd += 2.0 * B * t * h * (cfg['num_classes'] + 1)
-    return fwd * (3.0 if train else 1.0)
 
 
 def cell_counts(cfg, B, T, C, esize, backward=False):

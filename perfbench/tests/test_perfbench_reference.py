@@ -12,6 +12,7 @@ import torch
 
 from conftest import ROOT, overrides
 from perfbench import calibrate
+from perfbench.archs import nas_bench_asr as nas
 from perfbench.reference import frontend as fe
 from perfbench.reference import model as ref
 
@@ -23,7 +24,7 @@ CFG = dict(arch_vec=[[0, 1], [2, 1, 0], [4, 0, 1, 1]], block_kernels=[8, 8],
 def _params(seed=0):
     g = torch.Generator().manual_seed(seed)
     out = {}
-    for name, shape, std, off in ref.param_table(CFG):
+    for name, shape, std, off in nas.param_table(CFG):
         v = torch.randn(shape, generator=g, dtype=torch.float64) * std
         if off == 'forget':
             v[shape[0] // 4:shape[0] // 2] += 1
@@ -72,9 +73,9 @@ def _np_forward(p, audio, fsize):
     mask = (np.arange(x.shape[1])[None, :] < fsize[:, None])[..., None]
     mean, var = (s.astype(np.float64) for s in ref.load_stats())
     x = np.where(mask, (np.where(mask, x, 0) - mean) / np.sqrt(var + 1e-3), 0)
-    nodes = ref.arch_nodes(CFG['arch_vec'])
+    nodes = nas.arch_nodes(CFG['arch_vec'])
     for i, (K, s) in enumerate(zip(CFG['block_kernels'], CFG['block_strides'])):
-        lp, rp = ref.conv_padding(K, 1, s)
+        lp, rp = nas.conv_padding(K, 1, s)
         x = np.clip(_np_conv(x, p[f'block{i}_conv.conv.weight'], lp, rp, s=s)
                     + p[f'block{i}_conv.conv.bias'], 0, 20)
         x = _np_ln(x, p[f'block{i}_norm.scale'], p[f'block{i}_norm.bias'])
@@ -86,9 +87,9 @@ def _np_forward(p, audio, fsize):
                 acc = src @ p[f'{pre}node{k}_linear.dense.kernel'] \
                     + p[f'{pre}node{k}_linear.dense.bias']
             else:
-                Kc, d = ref.CONVS[op]
+                Kc, d = nas.CONVS[op]
                 w = p[f'{pre}node{k}_{op}.conv_kernel_grouped']  # [K, ci, C]
-                l2, r2 = ref.conv_padding(Kc, d, 1)
+                l2, r2 = nas.conv_padding(Kc, d, 1)
                 acc = _np_conv(src, w.transpose(2, 1, 0), l2, r2, d=d,
                                groups=CFG['cell_groups']) \
                     + p[f'{pre}node{k}_{op}.conv_bias']
@@ -144,11 +145,12 @@ def _batch():
 def test_forward_and_loss_against_float64_numpy():
     p, b = _params(), _batch()
     feats = fe.log_mel(b['audio'])
-    got = ref.forward(p, CFG, feats, b['feature_size'],
+    got = nas.forward(p, CFG, feats, b['feature_size'],
                       ref.load_stats()).numpy()
     want = _np_forward(p, b['audio'].numpy(), b['feature_size'].numpy())
     assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
-    _, ctc, _, _ = ref.train_objective(p, CFG, b, ref.load_stats(), None)
+    _, ctc, _, _ = ref.train_objective(nas, p, CFG, b, ref.load_stats(),
+                                   None)
     llen = b['feature_size'].numpy() // 2
     lp = torch.log_softmax(torch.as_tensor(want), -1).numpy()
     nll = [_np_ctc(lp[i, :llen[i]], b['labels'][i, :b['label_size'][i]])
@@ -162,7 +164,7 @@ def test_gradients_against_finite_differences():
     stats = ref.load_stats()
     for v in p.values():
         v.requires_grad_(True)
-    loss = ref.train_objective(p, CFG, b, stats, None)[0]
+    loss = ref.train_objective(nas, p, CFG, b, stats, None)[0]
     names = ['block0_cell0.node1_conv5d2.conv_kernel_grouped', 'lstm.recurrent',
              'block1_norm.scale', 'head.bias']
     grads = torch.autograd.grad(loss, [p[n] for n in names])
@@ -171,9 +173,9 @@ def test_gradients_against_finite_differences():
         for n, g in zip(names, grads):
             idx = tuple(0 for _ in p[n].shape)
             p[n][idx] += eps
-            up = float(ref.train_objective(p, CFG, b, stats, None)[0])
+            up = float(ref.train_objective(nas, p, CFG, b, stats, None)[0])
             p[n][idx] -= 2 * eps
-            down = float(ref.train_objective(p, CFG, b, stats, None)[0])
+            down = float(ref.train_objective(nas, p, CFG, b, stats, None)[0])
             p[n][idx] += eps
             assert float(g[idx]) == pytest.approx((up - down) / (2 * eps),
                                                   rel=1e-5, abs=1e-9), n
@@ -184,12 +186,13 @@ def test_dropout_hash_is_the_recipes():
     for words in ([0, 0], [2 ** 31 - 2, 12345], [987654, 2 ** 30]):
         seed = torch.tensor(words, dtype=torch.int32)
         for counter in (1, 3):
-            assert torch.equal(ref.dropout_bits(words, counter, 3, 5, 7, 'cpu'),
+            assert torch.equal(nas.dropout_bits(words, counter, 3, 5, 7, 'cpu'),
                                dropout_bits(seed, counter, 3, 5, 7))
 
 
 @pytest.mark.parametrize('cell,kind', [('flagship.train', 'train'),
-                                       ('flagship.serve', 'serve')])
+                                       ('flagship.serve', 'serve'),
+                                       ('linear-dilated.serve', 'serve')])
 def test_control_reads_above_the_limits(cell, kind):
     """The reference in the precision below the configuration's, in the
     program's place, at a reduced width: some number reads above the

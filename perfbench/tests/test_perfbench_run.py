@@ -16,7 +16,7 @@ from perfbench import faults, run
 
 KEYS = {'correct', 'attempted', 'failed', 'metrics', 'device'}
 CELLS = [('flagship.train', 'train'), ('linear-dilated.train', 'train'),
-         ('flagship.serve', 'serve')]
+         ('flagship.serve', 'serve'), ('linear-dilated.serve', 'serve')]
 CPU = torch.device('cpu')
 
 

@@ -1,19 +1,19 @@
 """The weights of a run: made on the device from ``--seed`` in one
-normal draw, shaped and scaled by the reference's parameter table, and
+normal draw, shaped and scaled by the architecture's parameter table, and
 handed alike to the program (``install``) and to the reference."""
 
 import math
 
 import torch
 
-from .reference.model import param_table
+from . import archs
 
 __all__ = ['generate', 'install']
 
 
 def generate(cfg, seed, device):
     """``{name: float32 tensor}`` of every parameter, on ``device``."""
-    table = param_table(cfg)
+    table = archs.find(cfg).param_table(cfg)
     total = sum(math.prod(shape) for _, shape, _, _ in table)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.randn(total, generator=gen, device=device)
