@@ -203,6 +203,17 @@ prints no result):
    copy within twice the plain versions' own gap (or 1e-5 of the tensor's
    largest value); events and device time beside the plain loop's; the
    flagship's train step and serving head through the kernels.
+21. the Conformer's kernels: the hash dropout (Triton) bit-equal to its
+   plain version on the card, forward and backward; the relative-position
+   attention (``csrc/relpos_attention.cu``) forward and backward against
+   its plain version on the card in f32 and bf16 at small shapes with
+   padded rows and odd T, and in bf16 at the conformer-l.train cell's two
+   bucket shapes (B=64, T'=399; B=32, T'=875; H=8, d=64): every output
+   and gradient within its limit, the memory a call adds within its
+   outputs and log-sum-exp (so no T x T buffer exists), events and device
+   time beside the bound and the plain version's; then one bf16 Conformer
+   (L) ``Trainer.step`` at B=32 x 3,504 frames with 17 + 17 attention
+   kernel calls and 206 dropout calls, none plain.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -4480,6 +4491,225 @@ def check_lstm(device):
     return rows, {'train_step': train_counts, 'serving': serve_counts}
 
 
+#: (label, dtype, B, T, H, D) of phase 21's attention cases: small ones
+#: with odd T and padded rows, then the conformer-l.train cell's buckets
+RELPOS_CASES = [('f32 B=3 T=67', torch.float32, 3, 67, 2, 64),
+                ('bf16 B=3 T=130', torch.bfloat16, 3, 130, 2, 64),
+                ('bf16 short bucket', torch.bfloat16, 64, 399, 8, 64),
+                ('bf16 long bucket', torch.bfloat16, 32, 875, 8, 64)]
+#: a kernel output's widest gap from the plain version's, over the plain
+#: version's largest value: f32 sums in another order; bf16 rounds the
+#: softmax weights and dS to bf16 before their products (2^-8 relative)
+RELPOS_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: phase 21's Conformer (L) train step: the long bucket of
+#: ``conformer-l.train`` (T' = 875 after the subsampling)
+CONFORMER_STEP = dict(batch=32, frames=3504, labels=400)
+
+
+def _relpos_operands(dtype, B, T, H, D, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device)
+                * scale).to(dtype)
+    q, k, v = (draw(B, T, H, D) for _ in range(3))
+    r = draw(2 * T - 1, H, D)
+    u, vb = (torch.randn((H, D), generator=g, device=device) * 0.1
+             for _ in range(2))
+    lengths = torch.randint(max(T // 4, 1), T + 1, (B,), generator=g,
+                            device=device, dtype=torch.int32)
+    lengths[0] = T
+    lengths[-1] = max(T // 2 - 1, 1)
+    return [q, k, v, r, u, vb], lengths
+
+
+def _relpos_counts(B, T, H, D, lengths, esize, backward):
+    """(operations, bytes) as perfbench's ``attention_counts``."""
+    sq = float(sum(L * L for L in lengths))
+    act = float(sum(lengths)) * H * D * esize
+    band = (2 * max(lengths) - 1) * H * D * esize
+    lse = float(sum(lengths)) * H * 4
+    if backward:
+        return 10.0 * H * D * sq, 8 * act + 2 * band + 4 * H * D * 4 + lse
+    return 6.0 * H * D * sq, 4 * act + band + 2 * H * D * 4 + 4 * B + lse
+
+
+def _share(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def check_relpos(device):
+    """Phase 21: the hash dropout and the relative-position attention
+    kernels against their plain versions on the card, the memory an
+    attention call adds, and their times.  Returns the kernels' entry."""
+    import triton
+    from nbasr_torch.ops import hash_dropout, relpos_attention as ra
+    from nbasr_torch.ops.plain import plain_attention, plain_dropout
+    print(f'phase 21: triton {triton.__version__} (the dropout), torch '
+          f'{torch.__version__}')
+    drop_rows = []
+    for shape, dtype in (((3, 37, 100), torch.float32),
+                         ((64, 399, 2048), torch.bfloat16)):
+        x = torch.randn(shape, device=device).to(dtype).requires_grad_(True)
+        hash_dropout.reset_launches()
+        y = hash_dropout.hash_dropout(x, (123456789, 2 ** 31 - 2), 5, 0.1)
+        gy = torch.randn_like(y)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        with plain_dropout():
+            yp = hash_dropout.hash_dropout(x, (123456789, 2 ** 31 - 2), 5,
+                                           0.1)
+            (gxp,) = torch.autograd.grad(yp, x, gy)
+        launches = dict(hash_dropout.LAUNCHES)
+        assert torch.equal(y, yp) and torch.equal(gx, gxp), shape
+        assert launches == {'kernel': 2, 'plain': 2}, launches
+        kept = float((y != 0).float().mean())
+        ms = time_ms(lambda: hash_dropout.hash_dropout(
+            x.detach(), (1, 2), 3, 0.1), runs=20, warmup=3)
+        bound = 2 * x.numel() * x.element_size() / 3.35e12 * 1e3
+        drop_rows.append(dict(shape=list(shape), dtype=str(dtype)[6:],
+                              bit_equal=True, kept=kept, ms=ms,
+                              bound_ms=bound))
+        print(f'phase 21 dropout {shape} {dtype}: bit-equal to plain '
+              f'forward and backward, kept {kept:.4f}, {ms:.3f} ms '
+              f'(bound {bound:.3f})')
+    rows = []
+    for i, (label, dtype, B, T, H, D) in enumerate(RELPOS_CASES):
+        ops, lengths = _relpos_operands(dtype, B, T, H, D, device, SEED + i)
+        leaves = [t.requires_grad_(True) for t in ops]
+        ra.reset_launches()
+        out = ra.relpos_attention(*leaves, lengths)
+        dout = torch.randn_like(out)
+        grads = torch.autograd.grad(out, leaves, dout)
+        counts = {k: dict(v) for k, v in ra.LAUNCHES.items()}
+        assert counts == {'forward': {'kernel': 1, 'plain': 0},
+                          'backward': {'kernel': 1, 'plain': 0}}, counts
+        with plain_attention():
+            p_out = ra.relpos_attention(*leaves, lengths)
+            p_grads = torch.autograd.grad(p_out, leaves, dout)
+        names = ('out', 'dq', 'dk', 'dv', 'dr', 'du', 'dv_bias')
+        shares = dict(zip(names, [_share(a, b) for a, b in zip(
+            (out,) + grads, (p_out,) + p_grads)]))
+        pad = (torch.arange(T, device=device)[None, :]
+               >= lengths[:, None].long())
+        padded_zero = bool((out.detach()[pad] == 0).all()
+                           and (grads[0][pad] == 0).all())
+        limit = RELPOS_LIMIT[dtype]
+        over = {k: v for k, v in shares.items() if not v <= limit}
+        # the memory a call adds: its outputs and log-sum-exp, no T x T
+        x = [t.detach() for t in leaves]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o, lse = ra._launch_forward(*x, lengths)
+        torch.cuda.synchronize()
+        fwd_added = torch.cuda.max_memory_allocated() - base
+        fwd_allowed = o.nbytes + lse.nbytes + (1 << 20)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g = ra._launch_backward(*x, lengths, o, lse, dout)
+        torch.cuda.synchronize()
+        bwd_added = torch.cuda.max_memory_allocated() - base
+        bwd_allowed = (sum(t.nbytes for t in g) + lse.nbytes
+                       + H * (2 * T - 1) * D * 4 + 2 * H * D * 4 + (1 << 20))
+        scores = B * H * T * T * 4
+        del g
+        assert fwd_added <= fwd_allowed and bwd_added <= bwd_allowed, (
+            label, fwd_added, fwd_allowed, bwd_added, bwd_allowed)
+        fwd = functools.partial(ra._launch_forward, *x, lengths)
+        bwd = functools.partial(ra._launch_backward, *x, lengths, o, lse,
+                                dout)
+        ms = time_ms(fwd, runs=10, warmup=2)
+        bms = time_ms(bwd, runs=10, warmup=2)
+        dev_ms, dev_bms = device_ms(fwd, runs=10), device_ms(bwd, runs=10)
+        with plain_attention():
+            plain_ms = time_ms(lambda: ra._launch_forward(*x, lengths),
+                               runs=2, warmup=1)
+            plain_bms = time_ms(lambda: ra._launch_backward(
+                *x, lengths, o, lse, dout), runs=2, warmup=1)
+        L = [int(v) for v in lengths.tolist()]
+        es = torch.finfo(dtype).bits // 8
+        peak = 989e12 if es == 2 else 67e12
+        bounds = [max(c[0] / peak, c[1] / 3.35e12) * 1e3 for c in (
+            _relpos_counts(B, T, H, D, L, es, False),
+            _relpos_counts(B, T, H, D, L, es, True))]
+        row = dict(case=label, dtype=str(dtype)[6:], B=B, T=T, H=H, D=D,
+                   lengths_sum=sum(L), shares=shares, limit=limit,
+                   padded_rows_zero=padded_zero, fwd_added_bytes=fwd_added,
+                   fwd_allowed_bytes=fwd_allowed, bwd_added_bytes=bwd_added,
+                   bwd_allowed_bytes=bwd_allowed, scores_bytes=scores,
+                   ms=ms, bwd_ms=bms, device_ms=dev_ms, bwd_device_ms=dev_bms,
+                   plain_ms=plain_ms, plain_bwd_ms=plain_bms,
+                   bound_ms=bounds[0], bwd_bound_ms=bounds[1],
+                   roofline=100 * bounds[0] / dev_ms,
+                   bwd_roofline=100 * bounds[1] / dev_bms)
+        rows.append(row)
+        print(f'phase 21 {label}: shares of the plain version '
+              + ', '.join(f'{k} {v:.2e}' for k, v in shares.items())
+              + f' (limit {limit:.0e}); padded rows zero {padded_zero}; '
+              f'added MB fwd {fwd_added / 2**20:.1f} (allowed '
+              f'{fwd_allowed / 2**20:.1f}), bwd {bwd_added / 2**20:.1f} '
+              f'({bwd_allowed / 2**20:.1f}); a T x T f32 score tensor '
+              f'{scores / 2**20:.1f} MB; fwd {ms:.3f} ms events, '
+              f'{dev_ms:.3f} device, bound {bounds[0]:.3f}, plain '
+              f'{plain_ms:.3f}; bwd {bms:.3f} ms events, {dev_bms:.3f} '
+              f'device, bound {bounds[1]:.3f}, plain {plain_bms:.3f}')
+        assert not over and padded_zero, (label, over)
+    step = check_conformer_step(device)
+    return dict(name='relpos_attention', route='cuda',
+                source='nbasr_torch/csrc/relpos_attention.cu', replaces=None,
+                kernels=list(ra.KERNELS), per_case=rows, train_step=step,
+                dropout=dict(kernel=_build.TRITON_KERNELS[0],
+                             source='nbasr_torch/ops/hash_dropout.py',
+                             per_case=drop_rows))
+
+
+def check_conformer_step(device):
+    """Phase 21's last check: one bf16 Conformer (L) ``Trainer.step`` at
+    ``CONFORMER_STEP``'s shape, with the attention's and the dropout's
+    launch counters reset just before it: 17 forward and 17 backward
+    attention calls on the kernels (one a block), 206 dropout calls (six
+    sites a block and the subsampling's one, each way), none plain."""
+    from nbasr_torch.models.conformer import get_conformer
+    from nbasr_torch.ops import hash_dropout, relpos_attention as ra
+    from nbasr_torch.training import Trainer
+    B, frames, n_labels = (CONFORMER_STEP[k]
+                           for k in ('batch', 'frames', 'labels'))
+    g = torch.Generator().manual_seed(SEED)
+    model = get_conformer(compute_dtype=torch.bfloat16, device=device,
+                          generator=g)
+    sizes = np.linspace(frames, frames // 2, B).astype(np.int32)
+    label_size = (sizes * n_labels // frames).astype(np.int32)
+    labels = torch.randint(1, 49, (B, n_labels), generator=g,
+                           dtype=torch.int32).numpy()
+    labels[np.arange(n_labels)[None, :] >= label_size[:, None]] = 0
+    batch = {'audio': (torch.randn(B, 400 + (frames - 1) * 160, generator=g)
+                       * 0.1).numpy(),
+             'feature_size': sizes, 'labels': labels,
+             'label_size': label_size, 'valid': np.ones(B, np.float32)}
+    trainer = Trainer((None, None, None, None), device=device, verbose=False,
+                      tensorboard=False)
+    trainer.init_state(model, seed=SEED)
+    torch.cuda.synchronize()
+    ra.reset_launches()
+    hash_dropout.reset_launches()
+    t = time.perf_counter()
+    loss = trainer.step(batch, lr=1e-4)['ctc_loss']
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    attention = {k: dict(v) for k, v in ra.LAUNCHES.items()}
+    dropout = dict(hash_dropout.LAUNCHES)
+    print(f'phase 21 Conformer (L) bf16 train step B={B} x {frames} frames: '
+          f'attention {attention}, dropout {dropout}, loss {loss:.4f}, '
+          f'{seconds:.2f} s (the first step)')
+    assert attention == {'forward': {'kernel': 17, 'plain': 0},
+                         'backward': {'kernel': 17, 'plain': 0}}, attention
+    assert dropout == {'kernel': 206, 'plain': 0}, dropout
+    assert math.isfinite(loss) and trainer.nonfinite_steps == 0, loss
+    return dict(batch=B, frames=frames, attention=attention, dropout=dropout,
+                loss=loss, first_step_s=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -4488,7 +4718,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f'card: {card} ({torch.cuda.get_device_name(0)})')
-
     t0 = time.perf_counter()
     built = _build.build()
     print(f'build: {time.perf_counter() - t0:.1f} s')
@@ -4537,6 +4766,7 @@ def main():
     bench_line, p19_launches = timed('phase 19', check_phase19, device,
                                      p16['static']['bench_ms'])
     lstm_rows, lstm_launches = timed('phase 20', check_lstm, device)
+    relpos = timed('phase 21', check_relpos, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -4684,6 +4914,7 @@ def main():
         name='lstm_recurrence', route='cuda', source='nbasr_torch/csrc/lstm.cu',
         replaces=None, kernels=list(LSTM_KERNELS),
         launches_phase20=lstm_launches, per_case=lstm_rows))
+    kernels.append(relpos)
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '

@@ -10,6 +10,11 @@ loading across threads (a threaded sweep's trainers reach :func:`load` on
 their first step together), and each build writes its own temporary file.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+The port's Triton kernel (``ops/hash_dropout.py``) is compiled by Triton at
+its first launch; :func:`triton` imports it with its cache in
+``build/triton/`` beside the package, unless ``TRITON_CACHE_DIR`` names
+another place.
 """
 
 import ctypes
@@ -21,12 +26,14 @@ import subprocess
 import threading
 import time
 
-__all__ = ['build', 'load', 'function', 'check', 'count_launch', 'BUILD_DIR',
-           'NVCC_FLAGS', 'LOCK']
+__all__ = ['build', 'load', 'function', 'check', 'count_launch', 'triton',
+           'BUILD_DIR', 'NVCC_FLAGS', 'LOCK', 'TRITON_KERNELS']
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'nbasr_torch'
+#: The Triton kernels' names, as the profiler shows them.
+TRITON_KERNELS = ('nbasr_hash_dropout',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -62,7 +69,7 @@ def _target(name):
 
 
 def build(names=('fused_cell', 'fused_cell_bwd', 'grouped_conv', 'ctc',
-                 'lstm')):
+                 'lstm', 'relpos_attention')):
     """Compile ``csrc/<name>.cu`` for each name not built yet, in parallel.
 
     Returns ``{name: (path, compiler log)}``; the log starts with the
@@ -139,3 +146,14 @@ def check(err, name, what):
         message = function(name, 'nbasr_cuda_error_string', [ctypes.c_int],
                            ctypes.c_char_p)(err)
         raise RuntimeError(f'{what} kernel launch failed: {message.decode()}')
+
+
+def triton():
+    """``(triton, triton.language)``, imported on first use with Triton's
+    cache under ``build/triton/`` (a module of the port never imports
+    Triton when it is itself imported: the CPU has none)."""
+    os.environ.setdefault('TRITON_CACHE_DIR',
+                          str(BUILD_DIR.parent / 'triton'))
+    import triton as triton_mod
+    import triton.language as tl
+    return triton_mod, tl

@@ -11,16 +11,20 @@ checks that hold a kernel against its plain version do.
 - :func:`plain_convs`: the grouped conv forward, dx and dW (#5-#10);
 - :func:`plain_ctc`: the CTC alpha and beta recursions (#3, #4);
 - :func:`plain_lstm`: the LSTM recurrence's forward and backward
-  (``csrc/lstm.cu``).
+  (``csrc/lstm.cu``);
+- :func:`plain_attention`: the relative-position attention's forward and
+  backward (``csrc/relpos_attention.cu``);
+- :func:`plain_dropout`: the hash dropout (``ops/hash_dropout.py``).
 """
 
 import contextlib
 import functools
 
-from . import ctc_pallas, fused_cell, grouped_conv, lstm_recurrence
+from . import (ctc_pallas, fused_cell, grouped_conv, hash_dropout,
+               lstm_recurrence, relpos_attention)
 
 __all__ = ['plain_cells', 'plain_cell_forward', 'plain_convs', 'plain_ctc',
-           'plain_lstm']
+           'plain_lstm', 'plain_attention', 'plain_dropout']
 
 
 @contextlib.contextmanager
@@ -74,3 +78,17 @@ def plain_lstm():
         lstm_recurrence,
         _launch_forward=lstm_recurrence.recurrence_reference,
         _launch_backward=lstm_recurrence.recurrence_backward_reference)
+
+
+def plain_attention():
+    """The relative-position attention's forward and backward in their
+    plain versions."""
+    return _patched(
+        relpos_attention,
+        _launch_forward=relpos_attention.attention_reference,
+        _launch_backward=relpos_attention.attention_backward_reference)
+
+
+def plain_dropout():
+    """The hash dropout in its plain version."""
+    return _patched(hash_dropout, _launch=hash_dropout.dropout_reference)

@@ -22,9 +22,10 @@ With grad enabled, a pre-hook of its output's autograd node opens
 ``nbasr.<name>.backward`` and a hook on its input's gradient closes it, so
 the module's backward kernels fall inside a range on the thread that
 launches them (the autograd engine's own thread on CUDA); no autograd node
-is added.  A call whose input needs
-no gradient (the first block conv, on the features) gets no backward
-range: nothing would run after its last backward op to close one.
+is added.  A call whose input needs no gradient (the first block conv and
+the Conformer's subsampling, on the features) has its backward range
+closed by the gradient of the module's first parameter instead; a module
+with no parameter that needs one gets no backward range.
 
 Spans sit at layer boundaries, one per layer call, never inside a
 per-frame loop or on a kernel's launch path.
@@ -162,6 +163,10 @@ class _BackwardSpan(_Span):
             self.__exit__(None, None, None)
 
 
+def _first_leaf(module):
+    return next((p for p in module.parameters() if p.requires_grad), None)
+
+
 def module_span(name):
     """Decorate a module's ``forward(self, x, ...)``: with tracing on, the
     call runs inside the span ``name`` and, with grad enabled and ``x``
@@ -171,7 +176,10 @@ def module_span(name):
     backward, closes it.  Where one call's output is the next call's input,
     the engine runs the tensor's hook (the next call's close) before the
     node's pre-hook (this call's open), so the spans nest.  A forward that
-    returns a tuple has its first item hooked."""
+    returns a tuple has its first item hooked.  A call whose ``x`` needs no
+    gradient is closed by a one-shot hook on the gradient of the module's
+    first parameter, which its first layer's backward, the call's last,
+    computes."""
     def wrap(forward):
         @functools.wraps(forward)
         def traced(self, x, *args, **kwargs):
@@ -180,12 +188,23 @@ def module_span(name):
             with _Span(name):
                 out = forward(self, x, *args, **kwargs)
             y = out[0] if isinstance(out, tuple) else out
-            if torch.is_grad_enabled() and x.requires_grad \
-                    and y.requires_grad:
-                back = _BackwardSpan(name + '.backward',
-                                     get_gradient_edge(x).node)
-                y.grad_fn.register_prehook(back.begin)
+            if not (torch.is_grad_enabled() and y.requires_grad):
+                return out
+            closer = x if x.requires_grad else _first_leaf(self)
+            if closer is None:
+                return out
+            back = _BackwardSpan(name + '.backward',
+                                 get_gradient_edge(closer).node)
+            y.grad_fn.register_prehook(back.begin)
+            if closer is x:
                 x.register_hook(back.end)
+            else:
+                handle = None
+
+                def end(grad):
+                    back.end(grad)
+                    handle.remove()
+                handle = closer.register_hook(end)
             return out
         return traced
     return wrap

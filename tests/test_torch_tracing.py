@@ -145,12 +145,13 @@ def test_train_step_spans_nest_and_add_up(tmp_path):
             assert all(_inside(r, ranges[parent]) for r in ranges[child]), \
                 (parent, child)
     # a module's backward range holds exactly the backward nodes of the
-    # ops its forward range recorded
+    # ops its forward range recorded; the first block conv's, whose input
+    # needs no gradient, is closed by its first parameter's gradient
     nodes = {e['name'][len(EVAL):] for e in events
              if e['name'].startswith(EVAL)}
     backward = [e for e in events if e['name'] in nodes
                 and 'Sequence number' in e['args']]
-    for name, calls in (('lstm', 1), ('block_conv', 1), ('cell', 2)):
+    for name, calls in (('lstm', 1), ('block_conv', 2), ('cell', 2)):
         fwd = [{e['args']['Sequence number'] for e in events
                 if 'Sequence number' in e['args'] and e['name'] not in nodes
                 and _inside((e['tid'], e['ts'], e['ts'] + e['dur']), [r])}
@@ -277,3 +278,31 @@ def test_lstm_backward_range_holds_the_recurrence_function(tmp_path):
     assert projection and all(_inside(s, [bwd]) for s in projection)
     (call,) = spans('_Recurrence')
     assert _inside(call, [fwd])
+
+
+def test_conformer_spans_and_pairs_counter(tmp_path):
+    """The Conformer's layers each have a span and a backward span (the
+    subsampling's closed by its first kernel's gradient, its input needing
+    none), the attention's backward node inside ``conformer.mhsa.backward``,
+    and ``mhsa.pairs`` counts H * sum(L^2) a call."""
+    from nbasr_torch.models.conformer import get_conformer
+    from nbasr_torch.models.asr import logits_length
+    model = get_conformer(num_blocks=2, d_model=32, num_heads=2, ffn_dim=64,
+                          conv_kernel=4, device='cpu').train()
+    feats, fsize = torch.randn(2, 45, 80), torch.tensor([45, 30])
+    with tracing.enabled(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = model(feats, fsize, generator=torch.Generator().manual_seed(1))
+        out.sum().backward()
+    events = _events(prof, tmp_path)
+    ranges = _ranges(events)
+    calls = {'conformer.subsample': 1, 'conformer.ffn': 4,
+             'conformer.mhsa': 2, 'conformer.conv_module': 2}
+    for name, n in calls.items():
+        assert len(ranges[name]) == n and len(ranges[name + '.backward']) == n
+    nodes = [(e['tid'], e['ts'], e['ts'] + e['dur']) for e in events
+             if e['name'] == 'RelposAttentionBackward']
+    assert len(nodes) == 2 and all(
+        _inside(n, ranges['conformer.mhsa.backward']) for n in nodes)
+    lengths = logits_length(fsize, 45, out.shape[1])
+    pairs = 2 * int((lengths.long() ** 2).sum())
+    assert tracing.snapshot()['counts'] == {'mhsa.pairs': 2 * pairs}
