@@ -214,6 +214,15 @@ prints no result):
    time beside the bound and the plain version's; then one bf16 Conformer
    (L) ``Trainer.step`` at B=32 x 3,504 frames with 17 + 17 attention
    kernel calls and 206 dropout calls, none plain.
+22. the linear node's tensor-core GEMMs (``csrc/linear_mma.cuh``) at
+   timit-recipe's buckets (B=64 x 300, B=48 x 784 frames) and the
+   proxies' B=1 x 128, at each block's width with T halved by the stride-2
+   blocks: the forward's output and multipliers and the backward's dx, dW
+   and db against the plain versions on the card, the backward bit-equal
+   across two calls, the ``cell.linear_mma`` counter; each product's device
+   time, TFLOP/s and share of the bf16 peak beside ``torch.matmul``'s time
+   (a yardstick only); an f32 cell on the SIMT kernels
+   (``cell.linear_fma``).
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -4710,6 +4719,161 @@ def check_conformer_step(device):
                 loss=loss, first_step_s=seconds)
 
 
+# phase 22: the linear node's three products on the tensor cores
+# (csrc/linear_mma.cuh) at the shapes the recipe gives them: timit-recipe's
+# two buckets (B=64 x 300 and B=48 x 784 frames) and the zero-cost
+# proxies' B=1 x 128, at each block's width, T halved by the stride-2
+# blocks 3 and 4; linear-dilated's linear node (node 0, a skip from the
+# cell input), dropout 0.2.
+LINEAR_SHAPES = (('short', 64, 300), ('long', 48, 784), ('proxy', 1, NAS_FRAMES))
+LINEAR_T_DIV = (1, 1, 2, 4)
+# (product, the kernels' names it covers): the forward, dx, and dW with
+# its ordered reduce of the row chunks
+LINEAR_PRODUCTS = (('fwd', 'nbasr_linear_node'), ('dx', 'nbasr_linear_dx'),
+                   ('dw', 'nbasr_linear_dw'))
+LINEAR_PROFILED_CALLS = 5
+# Kernels against the plain versions on the card, as a share of max|plain|:
+# both sum the bf16 products in f32, in other orders, over C terms (dW over
+# B*T rows), and round at the same points, so a value moves by one bf16 ulp
+# (2^-8 of itself) where the two sums straddle a rounding boundary: phase
+# 6's bf16 bound.
+LINEAR_TOL = GRAD_TOL[torch.bfloat16]
+
+
+def _linear_operands(B, T, C, dtype, device):
+    g = torch.Generator().manual_seed(SEED + B * T + C)
+    x = torch.randn((B, T, C), generator=g).to(device, dtype)
+    dy = torch.randn((B, T, C), generator=g).to(device, dtype)
+    w = (torch.randn((C, C), generator=g) / C ** 0.5).to(device, dtype)
+    b = (0.1 * torch.randn((C,), generator=g)).to(device)
+    return x, dy, [w, b]
+
+
+def _linear_kernel_us(run, calls=LINEAR_PROFILED_CALLS):
+    """(device us a call of each product's kernels, by name, over ``calls``
+    forward and backward calls; the kernels' names), None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        return None, []
+    names = [e.key for e in kernels if 'nbasr_linear' in e.key]
+    return {k: sum(e.self_device_time_total for e in kernels if name in e.key)
+            / calls for k, name in LINEAR_PRODUCTS}, names
+
+
+def check_linear(device):
+    """Phase 22: the linear node's tensor-core kernels against their plain
+    versions on the card at LINEAR_SHAPES (outputs, multipliers, dx, dW,
+    db; the backward bit-equal across two calls; the tracing counters),
+    each product's device time, TFLOP/s and share of the bf16 peak beside
+    torch.matmul's time at the same shapes (a yardstick only); then an f32
+    cell, which must run the SIMT kernels.  Returns the kernels' entry."""
+    from nbasr_torch.utils import tracing
+    spec = FusedCellSpec([fused_cell.LinearNode((0,))], dropout_rate=DROPOUT,
+                         train=True, use_norm=False)
+    seed = torch.tensor(TRAIN_SEED, dtype=torch.int32, device=device)
+    rows = []
+    for label, B, T in LINEAR_SHAPES:
+        for (C, _), div in zip(TRAIN_WIDTHS, LINEAR_T_DIV):
+            Tb = T // div
+            x, dy, weights = _linear_operands(B, Tb, C, torch.bfloat16, device)
+            fused_cell.reset_launches()
+            tracing.reset()
+            with tracing.enabled():
+                y, outs, mults = fused_cell.fused_cell_train_forward(
+                    spec, x, weights, None, seed)
+                dx, dws, _ = fused_cell.fused_cell_backward(
+                    spec, x, outs, mults, dy, weights, None)
+                counts = dict(tracing.snapshot()['counts'])
+            dx2, dws2, _ = fused_cell.fused_cell_backward(
+                spec, x, outs, mults, dy, weights, None)
+            launches = (dict(fused_cell.LAUNCHES),
+                        dict(fused_cell.BACKWARD_LAUNCHES))
+            same = torch.equal(dx, dx2) and all(
+                torch.equal(a, b) for a, b in zip(dws, dws2))
+            py, _, pmults = fused_cell.fused_cell_reference(
+                spec, x, weights, None, seed, save=True)
+            pdx, pdws, _ = fused_cell.fused_cell_backward_reference(
+                spec, x, outs, mults, dy, weights, None)
+            shares = {'y': _share(y, py), 'dx': _share(dx, pdx),
+                      'dw': _share(dws[0], pdws[0]),
+                      'db': _share(dws[1], pdws[1])}
+            flips = float((mults != pmults).float().mean())
+
+            def run():
+                _, o, m = fused_cell.fused_cell_train_forward(
+                    spec, x, weights, None, seed)
+                fused_cell.fused_cell_backward(spec, x, o, m, dy, weights,
+                                               None)
+            us, names = _linear_kernel_us(run)
+            a, d, w = x.reshape(-1, C), dy.reshape(-1, C), weights[0]
+            library = {k: time_ms(f, runs=10, warmup=2) for k, f in (
+                ('fwd', lambda: torch.matmul(a, w)),
+                ('dx', lambda: torch.matmul(d, w.T)),
+                ('dw', lambda: torch.matmul(a.T, d)))}
+            ops = 2 * B * Tb * C * C
+            products = {k: dict(
+                device_us=None if us is None else us[k],
+                tflops=None if us is None else ops / us[k] / 1e6,
+                peak_share=None if us is None
+                else 100 * ops / us[k] / 1e6 / 989, library_ms=library[k])
+                for k, _ in LINEAR_PRODUCTS}
+            row = dict(shape=label, B=B, T=Tb, C=C, rows=B * Tb,
+                       shares=shares, gate_flip_share=flips,
+                       bit_equal_backward=same, counters=counts,
+                       launches=launches, products=products,
+                       dw_chunks=fused_cell.dw_chunks(
+                           B * Tb, C, grouped_conv._sm_count(device)),
+                       kernels=sorted({n[:60] for n in names}))
+            rows.append(row)
+            print(f'phase 22 {label} B={B} T={Tb} C={C}: shares '
+                  + ', '.join(f'{k} {v:.2e}' for k, v in shares.items())
+                  + f' (limit {LINEAR_TOL:.0e}), gate flips {flips:.1e}, '
+                  f'backward bit-equal {same}, counters {counts}; '
+                  + '; '.join(
+                      f'{k} {p["device_us"]:.1f} us {p["tflops"]:.1f} TFLOP/s '
+                      f'({p["peak_share"]:.1f}% of bf16 peak), matmul '
+                      f'{1e3 * p["library_ms"]:.1f} us'
+                      if p['device_us'] is not None else f'{k} not measured'
+                      for k, p in products.items()), flush=True)
+            assert all(v <= LINEAR_TOL for v in shares.values()), shares
+            assert flips <= GATE_FLIP_SHARE and same, (flips, same)
+            assert counts == {'cell.linear_mma': 2}, counts
+            assert launches == ({'kernel': 1, 'plain': 0},
+                                {'kernel': 2, 'plain': 0}), launches
+            assert not names or all('_mma' in n or 'reduce' in n
+                                    for n in names), names
+    # f32 keeps the SIMT kernels, exact f32 on FMAs
+    x, dy, weights = _linear_operands(CHECK_B, 300, 600, torch.float32, device)
+    tracing.reset()
+
+    def run32():
+        _, o, m = fused_cell.fused_cell_train_forward(spec, x, weights, None,
+                                                      seed)
+        fused_cell.fused_cell_backward(spec, x, o, m, dy, weights, None)
+    with tracing.enabled():
+        run32()
+        counts32 = dict(tracing.snapshot()['counts'])
+    _, names32 = _linear_kernel_us(run32, calls=1)
+    print(f'phase 22 f32 B={CHECK_B} T=300 C=600: counters {counts32}, '
+          f'kernels {sorted({n[:60] for n in names32})}')
+    assert counts32 == {'cell.linear_fma': 2}, counts32
+    assert not names32 or all('_mma' not in n and 'float' in n
+                              for n in names32), names32
+    return dict(name='linear_mma', route='cuda',
+                source='nbasr_torch/csrc/linear_mma.cuh',
+                replaces='nbasr_tpu/ops/fused_cell.py _emit_linear',
+                tolerance=LINEAR_TOL, per_shape=rows,
+                f32=dict(counters=counts32, kernels=names32))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device')
@@ -4767,6 +4931,7 @@ def main():
                                      p16['static']['bench_ms'])
     lstm_rows, lstm_launches = timed('phase 20', check_lstm, device)
     relpos = timed('phase 21', check_relpos, device)
+    linear = timed('phase 22', check_linear, device)
 
     # one serving step's 18 f32 cells, from the per-width timings
     f32_rows = [r for r in rows if r['dtype'] == 'float32']
@@ -4915,6 +5080,7 @@ def main():
         replaces=None, kernels=list(LSTM_KERNELS),
         launches_phase20=lstm_launches, per_case=lstm_rows))
     kernels.append(relpos)
+    kernels.append(linear)
     kernels[0]['model_options_logits_vs_fused_share'] = {
         k: share for k, (share, _) in model_options.items()}
     print(f'train step: {train["step_ms"]:.3f} ms, '

@@ -69,14 +69,21 @@
 //           tile's loop it took the bf16 tiles to 128 registers and
 //           200-byte spills, with scalar multiplier stores a channel group
 //           apart.
-//   linear: 64x64 output tiles in shared memory, 4x4 outputs per thread,
-//           the same epilogue, then the branch adds.
+//   linear: in bf16, where C % 8 == 0 and the operands lie on 16 bytes
+//           (the plan, fused_cell.linear_plans, checked again here), the
+//           tensor-core GEMM of linear_mma.cuh (TMA ring, wgmma, 128 x 128
+//           tiles) with the same epilogue on each thread's column pairs
+//           straight from its f32 accumulators; in f32 (and bf16 otherwise)
+//           64x64 output tiles in shared memory, 4x4 outputs per thread on
+//           FMAs (f32 on the tensor cores would be TF32), the same
+//           epilogue, then the branch adds.
 //   zero:   an elementwise sum of the node's branches in vectors.
 //   norm:   one warp per (b, t) row, three passes over it through L1.
 // Every launch is checked with cudaGetLastError(); the entry point returns
 // the first error and launches nothing after it.
 
 #include "gconv_body.cuh"
+#include "linear_mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,10 +99,14 @@ using gconv::View;
 
 constexpr int kMaxOutputs = 8;  // the cell input and up to 7 nodes
 // A node's descriptor: kind, K, d, lpad, ci, co, branch mask, then a conv
-// node's launch plan (fwd_plan's FWD_PLAN_FIELDS; zeros for other nodes)
+// node's launch plan (fwd_plan's FWD_PLAN_FIELDS), a linear node's path
+// (then zeros), zeros for a zero node
 constexpr int kPlanAt = 7;
 constexpr int kDescInts = kPlanAt + gconv::kFwdPlanInts;
 constexpr int kConv = 0, kLinear = 1, kZero = 2;
+// a linear node's path, the first int of its plan: the SIMT kernel or the
+// tensor-core GEMM (fused_cell.LINEAR_FMA, LINEAR_MMA)
+constexpr int kLinearFma = 0, kLinearMma = 1;
 constexpr int kThreads = 256;
 constexpr int kTile = 64;   // linear: output tile edge
 constexpr int kTileK = 16;  // linear: reduction slice per stage
@@ -366,6 +377,71 @@ __global__ void __launch_bounds__(kThreads) nbasr_linear_node(
   }
 }
 
+// The linear node's epilogue on the tensor-core path, over the staged f32
+// tile in vectors of kV columns, kP rows of them a thread at a time:
+// NodeEpilogue's value of each element, the multipliers stored as one
+// vector, then each branch's kP vectors loaded together and added in f32
+// in order, and one rounding into dst: nbasr_linear_node's arithmetic.
+// Two rows, not four: four spilled in training and ran the forward 1.4x
+// slower on an H100.
+template <bool kTrain>
+struct LinearMmaEpilogue : NodeEpilogue<__nv_bfloat16, kTrain> {
+  static constexpr int kV = 8, kP = 2;
+  __nv_bfloat16* dst;
+  Outputs outs;
+  unsigned branches;
+
+  __device__ __forceinline__ void tile(const float* s, long long m0, int n0, long long M,
+                                       int N) const {
+    lmma::tile_pass<kV, kP>(s, m0, n0, M, N, [&](const auto& sv, const auto& r, int c,
+                                                 const auto& live) {
+      float bias[kV], v[kP][kV];
+      long long e[kP];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) bias[i] = __ldg(this->bias + c + i);
+#pragma unroll
+      for (int q = 0; q < kP; ++q) {
+        e[q] = r[q] * this->C + c;
+        if (!live[q]) continue;
+        const int row = static_cast<int>(r[q]);  // rows < 2^31 (lmma::launch)
+        const int b = row / this->t_len;
+        const unsigned key = this->row_key(b, row - b * this->t_len);
+        float a[kV], m[kV];
+        load_n<kV>(sv[q], a);
+#pragma unroll
+        for (int i = 0; i < kV; ++i) v[q][i] = this->value(a[i], bias[i], key, c + i, &m[i]);
+        if (kTrain && this->mult) store_n<kV>(this->mult + e[q], m);
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxOutputs; ++j) {
+        if (!(branches >> j & 1u)) continue;
+        const auto* src = static_cast<const __nv_bfloat16*>(outs.p[j]);
+        float a[kP][kV];
+#pragma unroll
+        for (int q = 0; q < kP; ++q)
+          if (live[q]) load_n<kV>(src + e[q], a[q]);
+#pragma unroll
+        for (int q = 0; q < kP; ++q)
+#pragma unroll
+          for (int i = 0; i < kV; ++i) v[q][i] += a[q][i];
+      }
+#pragma unroll
+      for (int q = 0; q < kP; ++q)
+        if (live[q]) store_n<kV>(dst + e[q], v[q]);
+    });
+  }
+};
+
+// z = src W on the tensor cores: src [rows, C] read K-major, W [C, C]
+// (k, c) read N-major, then the epilogue above.
+template <bool kTrain>
+__global__ void __launch_bounds__(lmma::kThreads, 2)
+    nbasr_linear_node_mma(const __grid_constant__ CUtensorMap src, const __grid_constant__ CUtensorMap w,
+                          long long rows, int C, int k_tiles,
+                          const __grid_constant__ LinearMmaEpilogue<kTrain> epi) {
+  lmma::gemm_tile<false, true>(src, w, rows, C, k_tiles, epi);
+}
+
 // The sum of the branches, N elements a thread at a time (numel % N == 0).
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads) nbasr_zero_node(T* __restrict__ dst, Outputs outs,
@@ -497,9 +573,20 @@ int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
     outs.p[n + 1] = (n + 1 == n_nodes && !use_norm) ? y : static_cast<T*>(scratch) + n * numel;
   // every node's descriptor first: nothing launches before all pass
   for (int n = 0; n < n_nodes; ++n) {
-    const int kind = desc[n * kDescInts];
-    if (kind != kConv && kind != kLinear && kind != kZero) return cudaErrorInvalidValue;
-    if (desc[n * kDescInts + 6] >> (n + 1)) return cudaErrorInvalidValue;
+    const int* nd = desc + n * kDescInts;
+    if (nd[0] != kConv && nd[0] != kLinear && nd[0] != kZero) return cudaErrorInvalidValue;
+    if (nd[6] >> (n + 1)) return cudaErrorInvalidValue;
+    if (nd[0] != kLinear) continue;
+    if (nd[kPlanAt] != kLinearFma && nd[kPlanAt] != kLinearMma) return cudaErrorInvalidValue;
+    if (nd[kPlanAt] == kLinearFma) continue;
+    // the tensor-core path: bf16, rows of 8 elements and every operand on
+    // 16 bytes (TMA's, and the epilogue's vectors)
+    bool ok = std::is_same_v<T, __nv_bfloat16> && C % 8 == 0 && aligned(outs.p[n], 16) &&
+              aligned(weights[n], 16) && aligned(outs.p[n + 1], 16) &&
+              (!mults || aligned(mults + n * numel, 16));
+    for (int j = 0; j < kMaxOutputs; ++j)
+      if (nd[6] >> j & 1) ok = ok && aligned(outs.p[j], 16);
+    if (!ok) return cudaErrorInvalidValue;
   }
   int err;
   unsigned counter = 0;
@@ -525,6 +612,18 @@ int run_cell(int batch, int t_len, int C, int n_nodes, const int* desc,
       conv.outs = outs;
       conv.branches = branches;
       err = conv_node<T, kTrain>(nd, batch, t_len, C, src, w, conv, stream);
+    } else if (nd[0] == kLinear && nd[kPlanAt] == kLinearMma) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        LinearMmaEpilogue<kTrain> mma;
+        static_cast<NodeEpilogue<T, kTrain>&>(mma) = epi;
+        mma.dst = dst;
+        mma.outs = outs;
+        mma.branches = branches;
+        err = lmma::launch<false, true>(nbasr_linear_node_mma<kTrain>, src, w, rows, C, C, 1, mma,
+                                        stream);
+      } else {
+        err = cudaErrorInvalidValue;
+      }
     } else if (nd[0] == kLinear) {
       const dim3 grid((C + kTile - 1) / kTile, static_cast<unsigned>((rows + kTile - 1) / kTile));
       nbasr_linear_node<T, kTrain><<<grid, kThreads, 0, stream>>>(src, w, dst, outs, branches, epi,
@@ -589,8 +688,9 @@ int conv_occupancy(int threads, int smem) {
 
 // Runs one cell on `stream`.  desc holds kDescInts ints per node: kind, K,
 // d, lpad, ci, co, branch mask, then a conv node's launch plan
-// (fused_cell.forward_plans, in FWD_PLAN_FIELDS order; zeros for other
-// nodes); weights[n] and biases[n] are node n's weight (activation dtype)
+// (fused_cell.forward_plans, in FWD_PLAN_FIELDS order), a linear node's
+// path (fused_cell.linear_plans: kLinearFma or kLinearMma, then zeros),
+// zeros for a zero node; weights[n] and biases[n] are node n's weight (activation dtype)
 // and f32 bias, null for a zero node.  scratch holds n_nodes [B, T, C]
 // buffers of the activation dtype.  seed (device int32 [2]) turns dropout
 // on, with keep iff bits < threshold and kept values scaled by inv_keep,

@@ -61,18 +61,28 @@
 //       g[0], rounds its sums straight into dx instead (no g[0], no
 //       convert).  Only the g buffers that something adds into first are
 //       zeroed.
-//   linear:  64x64 shared-memory tiles like the forward's: dW = src^T dzc
-//            with the whole row reduction in one block per tile, and
-//            g[n] += dzc w^T.
+//   linear:  in bf16 where C % 8 == 0 and src and w lie on 16 bytes (the
+//            plan, fused_cell.linear_plans, checked again here), the
+//            tensor-core GEMM of linear_mma.cuh: g[n] += dzc w^T with w
+//            read K-major, and dW = src^T dzc with both operands read
+//            MN-major, its rows split into the plan's chunks so that tiles
+//            x chunks fill the SMs, each chunk's f32 partial tile into the
+//            workspace and nbasr_linear_dw_reduce summing them in chunk
+//            order and rounding once (one chunk: rounded straight into
+//            dW); in f32 (and bf16 otherwise) 64x64 shared-memory tiles
+//            like the forward's FMA kernel: dW with the whole row
+//            reduction in one block per tile, and g[n] += dzc w^T.
 // Every launch is checked with cudaGetLastError(); the entry point returns
 // the first error and launches nothing after it.
 
 #include "gconv_body.cuh"
+#include "linear_mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -83,7 +93,9 @@ using gconv::View;
 
 constexpr int kMaxOutputs = 8;     // the cell input and up to 7 nodes
 // A node's descriptor: kind, K, d, lpad, ci, co, branch mask, the dx's
-// output (kDx*), then a conv node's dW plan and dx plan (zeros otherwise)
+// output (kDx*), then a conv node's dW plan and dx plan; a linear node has
+// its path (kLinear*) in the dx output's place and dW's row chunks first
+// in the dW plan's (zeros otherwise)
 constexpr int kDwPlanAt = 8;
 constexpr int kDxPlanAt = kDwPlanAt + gconv::kDwPlanInts;
 constexpr int kDescInts = kDxPlanAt + gconv::kFwdPlanInts;
@@ -91,6 +103,8 @@ constexpr int kConv = 0, kLinear = 1, kZero = 2;
 // where a conv node's dx goes: rounded into dx (node 0, g[0] unwritten),
 // stored into g[n] (g[n] unwritten), or added into g[n] (branch adds there)
 constexpr int kDxOut = 0, kDxStore = 1, kDxAdd = 2;
+// a linear node's path: the SIMT kernels or the tensor-core GEMMs
+constexpr int kLinearFma = 0, kLinearMma = 1;
 constexpr int kThreads = 256;
 constexpr int kTile = 64;          // linear: output tile edge
 constexpr int kTileK = 16;         // linear: reduction slice per stage
@@ -450,6 +464,100 @@ __global__ void __launch_bounds__(kThreads) nbasr_linear_dx(const T* __restrict_
   }
 }
 
+// The tensor-core dx's epilogue: the staged f32 sums added into the
+// gradient buffer g [rows, C] unrounded, 4-float vectors, eight rows of
+// them a thread with their loads in flight together (sixteen spilled).
+struct LinearDxEpilogue {
+  float* g;
+  int C;
+  __device__ __forceinline__ void tile(const float* s, long long m0, int n0, long long M,
+                                       int N) const {
+    constexpr int kP = 8;
+    lmma::tile_pass<4, kP>(s, m0, n0, M, N, [&](const auto& sv, const auto& r, int c,
+                                                const auto& live) {
+      float4 v[kP];
+#pragma unroll
+      for (int q = 0; q < kP; ++q)
+        if (live[q]) v[q] = *reinterpret_cast<const float4*>(g + r[q] * C + c);
+#pragma unroll
+      for (int q = 0; q < kP; ++q) {
+        if (!live[q]) continue;
+        const float4 a = *reinterpret_cast<const float4*>(sv[q]);
+        v[q].x += a.x;
+        v[q].y += a.y;
+        v[q].z += a.z;
+        v[q].w += a.w;
+        *reinterpret_cast<float4*>(g + r[q] * C + c) = v[q];
+      }
+    });
+  }
+};
+
+// The tensor-core dW's epilogue at dW[i, c], 4-float vectors: with one
+// row chunk the sums rounded once into dw, else row chunk blockIdx.y's
+// f32 partial tile into part [chunks, C, C] for nbasr_linear_dw_reduce.
+struct LinearDwEpilogue {
+  __nv_bfloat16* dw;
+  float* part;
+  int C;
+  __device__ __forceinline__ void tile(const float* s, long long m0, int n0, long long M,
+                                       int N) const {
+    lmma::tile_pass<4, 4>(s, m0, n0, M, N, [&](const auto& sv, const auto& r, int c,
+                                               const auto& live) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!live[q]) continue;
+        const long long e = r[q] * C + c;
+        const float4 a = *reinterpret_cast<const float4*>(sv[q]);
+        if (gridDim.y == 1) {
+          const float v[4] = {a.x, a.y, a.z, a.w};
+          store_vec<4>(dw + e, v);
+        } else {
+          *reinterpret_cast<float4*>(part + blockIdx.y * static_cast<long long>(C) * C + e) = a;
+        }
+      }
+    });
+  }
+};
+
+// dw [n] = the sum of part [chunks, n] over the chunks in order, rounded
+// once; 4 outputs a thread (n % 4 == 0).
+__global__ void __launch_bounds__(kThreads) nbasr_linear_dw_reduce(const float* __restrict__ part,
+                                                                   int chunks, long n,
+                                                                   __nv_bfloat16* __restrict__ dw) {
+  for (long i = 4 * (blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x); i < n;
+       i += 4L * gridDim.x * blockDim.x) {
+    float4 s = *reinterpret_cast<const float4*>(part + i);
+    for (int k = 1; k < chunks; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(part + k * n + i);
+      s.x += a.x;
+      s.y += a.y;
+      s.z += a.z;
+      s.w += a.w;
+    }
+    const float v[4] = {s.x, s.y, s.z, s.w};
+    store_vec<4>(dw + i, v);
+  }
+}
+
+// g[n] += dzc w^T on the tensor cores: dzc [rows, C] and w [C, C] (i, c)
+// both read K-major.
+__global__ void __launch_bounds__(lmma::kThreads, 2)
+    nbasr_linear_dx_mma(const __grid_constant__ CUtensorMap dzc, const __grid_constant__ CUtensorMap w,
+                        long long rows, int C, int k_tiles,
+                        const __grid_constant__ LinearDxEpilogue epi) {
+  lmma::gemm_tile<false, false>(dzc, w, rows, C, k_tiles, epi);
+}
+
+// dW = src^T dzc on the tensor cores, row chunk blockIdx.y: src [rows, C]
+// (r, i) and dzc [rows, C] (r, c) both read MN-major.
+__global__ void __launch_bounds__(lmma::kThreads, 2)
+    nbasr_linear_dw_mma(const __grid_constant__ CUtensorMap src, const __grid_constant__ CUtensorMap dzc,
+                        long long C_rows, int C, int k_tiles,
+                        const __grid_constant__ LinearDwEpilogue epi) {
+  lmma::gemm_tile<true, true>(src, dzc, C_rows, C, k_tiles, epi);
+}
+
 // The fused backward's conv dx: grouped_conv.cu's nbasr_gconv_dx (the
 // forward's body on dz, weights staged transposed and tap-reversed, halo
 // mirrored) with the output in Y: T rounds the f32 sums into dx, f32 stores
@@ -494,6 +602,9 @@ Work work_layout(int batch, int t_len, int C, int n_nodes, const int* desc) {
     std::memcpy(&p, nd + kDwPlanAt, sizeof(p));
     const long long need = static_cast<long long>(p.chunks) * nd[1] * nd[4] * C;
     if (nd[0] == kConv && p.chunks > 1 && need > dw) dw = need;
+    // a tensor-core dW's partial tiles: chunks x [C, C]
+    const long long lin = static_cast<long long>(nd[kDwPlanAt]) * C * C;
+    if (nd[0] == kLinear && nd[7] == kLinearMma && nd[kDwPlanAt] > 1 && lin > dw) dw = lin;
   }
   w.total = w.part_dw + round4(dw);
   return w;
@@ -572,6 +683,17 @@ int run_backward(int batch, int t_len, int C, int n_nodes, const int* desc,
   for (int n = 0; n < n_nodes; ++n) {
     const int* nd = desc + n * kDescInts;
     if (nd[0] != kConv && nd[0] != kLinear && nd[0] != kZero) return cudaErrorInvalidValue;
+    if (nd[0] == kLinear) {
+      if (nd[7] == kLinearFma) continue;
+      // the tensor-core path: bf16, TMA's 16-byte operands and rows of 8
+      // elements, at least one k tile of rows a chunk
+      const long long k_tiles = (rows + lmma::kBK - 1) / lmma::kBK;
+      if (nd[7] != kLinearMma || !std::is_same_v<T, __nv_bfloat16> || C % 8 != 0 ||
+          !on(in[n], 16) || !on(weights[n], 16) || !on(dweights[n], 16) || nd[kDwPlanAt] < 1 ||
+          nd[kDwPlanAt] > k_tiles)
+        return cudaErrorInvalidValue;
+      continue;
+    }
     if (nd[0] != kConv) continue;
     const int want = named >> n & 1u ? kDxAdd : n == 0 ? kDxOut : kDxStore;
     if (nd[7] != want || nd[4] < 1 || nd[4] != nd[5] || C % nd[4] != 0)
@@ -645,6 +767,24 @@ int run_backward(int batch, int t_len, int C, int n_nodes, const int* desc,
       void* out = nd[7] == kDxOut ? static_cast<void*>(dx) : static_cast<void*>(gbuf(n));
       e = conv_dx<T>(nd[7], batch, t_len, C, ci, K, d, lpad, dzc, w, out, dxp, stream);
       if (e != cudaSuccess) return e;
+    } else if (nd[7] == kLinearMma) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        const int chunks = nd[kDwPlanAt];
+        int e = lmma::launch<true, true>(nbasr_linear_dw_mma, in[n], dzc, C, C, rows, chunks,
+                                         LinearDwEpilogue{dw, part_dw, C}, stream);
+        if (e != cudaSuccess) return e;
+        if (chunks > 1) {
+          const long cc = static_cast<long>(C) * C;
+          nbasr_linear_dw_reduce<<<blocks_for(cc / 4), kThreads, 0, stream>>>(part_dw, chunks, cc,
+                                                                            dw);
+          NBASR_CHECK();
+        }
+        e = lmma::launch<false, false>(nbasr_linear_dx_mma, dzc, w, rows, C, C, 1,
+                                       LinearDxEpilogue{gbuf(n), C}, stream);
+        if (e != cudaSuccess) return e;
+      } else {
+        return cudaErrorInvalidValue;
+      }
     } else {
       const dim3 dw_grid((C + kTile - 1) / kTile, (C + kTile - 1) / kTile);
       nbasr_linear_dw<T><<<dw_grid, kThreads, 0, stream>>>(in[n], dzc, dw, rows, C);
@@ -687,7 +827,8 @@ extern "C" long long nbasr_fused_cell_backward_workspace(int batch, int t_len, i
 // Backward of one cell on `stream`.  desc: kDescInts ints per node (the
 // forward's seven, then where a conv node's dx goes, its dW plan, dw_plan's
 // DW_PLAN_FIELDS, and its dx plan, fwd_plan's FWD_PLAN_FIELDS for the conv
-// on dz); weights as the forward's; outs and mults are what the training
+// on dz; a linear node's path and dW row chunks, fused_cell.linear_plans,
+// then zeros); weights as the forward's; outs and mults are what the training
 // forward kept ([n_nodes, B, T, C], activation dtype); dy like x.  Writes
 // dx (activation dtype), dweights[n] (activation dtype, the weight's shape)
 // and dbiases[n] (f32 [C]) for each conv or linear node, and dscale/dshift

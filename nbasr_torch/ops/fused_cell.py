@@ -14,6 +14,13 @@ weights.  The forward's conv nodes run the grouped conv forward's body
 and the backward's conv nodes its dW and dx kernels
 (``nbasr_torch/csrc/gconv_body.cuh``), on launch plans made here
 (:func:`forward_plans`, :func:`backward_plans`) and checked again in C.
+A linear node's three products (``z = src W``, ``dx += dz W^T``, ``dW =
+src^T dz``) run in bf16 on the tensor cores (``csrc/linear_mma.cuh``)
+where :func:`linear_plans` finds C % 8 == 0 and every operand on 16 bytes,
+else (f32, which on the tensor cores would be TF32) on the SIMT kernels;
+the counters ``cell.linear_mma`` and ``cell.linear_fma`` of
+:mod:`nbasr_torch.utils.tracing` count the linear node calls of each path,
+forward and backward.
 
 Dropout draws its bits from the JAX kernel's interpret-mode generator
 (``_Prng.bits``): a stateless hash of (seed, batch row, node, t, c) in
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils import tracing
 from . import _build, grouped_conv
 
 __all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
@@ -51,7 +59,9 @@ __all__ = ['ConvNode', 'LinearNode', 'ZeroNode', 'FusedCellSpec', 'FusedCell',
            'fused_cell_backward', 'fused_cell_reference',
            'fused_cell_backward_reference', 'dropout_bits', 'keep_threshold',
            'inv_keep', 'relu20_gate', 'dx_outputs', 'forward_plans',
-           'backward_plans', 'LAUNCHES', 'BACKWARD_LAUNCHES',
+           'backward_plans', 'linear_path', 'linear_plans', 'dw_chunks',
+           'forward_desc_ints', 'backward_desc_ints',
+           'LINEAR_FMA', 'LINEAR_MMA', 'LAUNCHES', 'BACKWARD_LAUNCHES',
            'reset_launches']
 
 LN_EPS_DEFAULT = 1e-3
@@ -86,6 +96,17 @@ DX_OUT, DX_STORE, DX_ADD = 0, 1, 2
 #: output, a conv node's dW plan and its dx plan (zeros for other nodes).
 BWD_DESC_INTS = (_DESC + 1 + len(grouped_conv.DW_PLAN_FIELDS)
                  + len(grouped_conv.FWD_PLAN_FIELDS))
+#: A linear node's path, the first int of its plan in either descriptor:
+#: the SIMT kernels (FMAs) or the tensor-core GEMMs (bf16 only).
+LINEAR_FMA, LINEAR_MMA = 0, 1
+#: The tensor-core GEMM's output tile (rows, columns) and k a stage
+#: (``csrc/linear_mma.cuh``: kBM, kBN, kBK), and its blocks an SM.
+MMA_TILE = (128, 128)
+MMA_TILE_K = 64
+MMA_BLOCKS_PER_SM = 2
+#: dW's row chunks keep at least this many k tiles (of MMA_TILE_K rows)
+#: each, so that a chunk's operand ring runs well past its fill.
+DW_MIN_K_TILES = 8
 _U32 = 0xFFFFFFFF
 
 
@@ -229,6 +250,7 @@ def fused_cell_forward(spec, x, weights, ln, seed=None):
             for t in (x, *weights, ln_scale, ln_bias)):
         return FusedCell.apply(spec, x, seed, ln_scale, ln_bias, *weights)
     if kind == 'cpu':
+        _count_plain_linear(spec, x, weights)
         return fused_cell_reference(spec, x, weights, ln, seed)
     return _launch(spec, x, weights, ln, seed, save=False)[0]
 
@@ -239,6 +261,7 @@ def fused_cell_train_forward(spec, x, weights, ln, seed=None):
     B, T, C]`` each conv or linear node's multiplier, both in ``x.dtype``
     (a zero node's slot is not read).  Not differentiable."""
     if _device_kind(x) == 'cpu':
+        _count_plain_linear(spec, x, weights)
         return fused_cell_reference(spec, x, weights, ln, seed, save=True)
     return _launch(spec, x, weights, ln, seed, save=True)
 
@@ -249,6 +272,7 @@ def fused_cell_backward(spec, x, outs, mults, dy, weights, ln):
     ``dweights`` flat per-node ``(dW in x.dtype, db f32)``, ``dln``
     ``(dscale, dbias)`` f32 or None without LayerNorm."""
     if _device_kind(x) == 'cpu':
+        _count_plain_linear(spec, x, weights)
         return fused_cell_backward_reference(spec, x, outs, mults, dy,
                                              weights, ln)
     return _launch_backward(spec, x, outs, mults, dy, weights, ln)
@@ -471,6 +495,66 @@ def _store_align(ptrs, esize):
     return 4
 
 
+def linear_path(esize, C, aligned):
+    """A linear node's path: :data:`LINEAR_MMA` in bf16 (``esize`` 2) where
+    C % 8 == 0 (TMA's rows of 16 bytes) and ``aligned`` (every operand on
+    16 bytes), else :data:`LINEAR_FMA`."""
+    return LINEAR_MMA if esize == 2 and C % 8 == 0 and aligned else LINEAR_FMA
+
+
+def dw_chunks(rows, C, sms=132):
+    """Row chunks of a tensor-core dW: enough that tiles x chunks fill the
+    card's ``sms`` SMs about once at :data:`MMA_BLOCKS_PER_SM` blocks an SM,
+    each chunk keeping :data:`DW_MIN_K_TILES` k tiles; 1 where the tiles
+    alone fill them."""
+    tiles = -(-C // MMA_TILE[0]) * -(-C // MMA_TILE[1])
+    k_tiles = -(-rows // MMA_TILE_K)
+    return max(1, min(sms * MMA_BLOCKS_PER_SM // tiles,
+                      k_tiles // DW_MIN_K_TILES))
+
+
+def linear_plans(desc, rows, C, esize, aligned, sms=132):
+    """Per node of a descriptor (:func:`_describe`'s ints), a linear
+    node's plan, None for other nodes: ``{'path': ..., 'chunks': ...}``,
+    the path by :func:`linear_path` with ``aligned[i]`` (node i's operands
+    on 16 bytes), the chunks of its dW's rows by :func:`dw_chunks` on the
+    tensor cores (1 on FMAs).  ``rows`` is B * T."""
+    out = []
+    for i in range(len(desc) // _DESC):
+        if desc[i * _DESC] != _KIND['linear']:
+            out.append(None)
+            continue
+        path = linear_path(esize, C, aligned[i])
+        out.append(dict(path=path, chunks=dw_chunks(rows, C, sms)
+                        if path == LINEAR_MMA else 1))
+    return out
+
+
+def _count_linear(plans):
+    """Count each linear node's call (its plan; None for other nodes)
+    under its path's tracing counter."""
+    for plan in plans:
+        if plan is not None:
+            tracing.count('cell.linear_mma' if plan['path'] == LINEAR_MMA
+                          else 'cell.linear_fma')
+
+
+def _count_plain_linear(spec, x, weights):
+    """The counters of a call of the plain versions: the path the kernels
+    would take for x's dtype and width, the operands on 16 bytes where x's
+    and the linear weights' storage lies there."""
+    if not tracing.is_enabled():
+        return
+    wi, plans = 0, []
+    for node in spec.nodes:
+        if node.kind == 'linear':
+            aligned = x.data_ptr() % 16 == 0 and weights[wi].data_ptr() % 16 == 0
+            plans.append(dict(path=linear_path(x.element_size(), x.shape[-1],
+                                               aligned)))
+        wi += 0 if node.kind == 'zero' else 2
+    _count_linear(plans)
+
+
 def _estimated_dx_blocks(f32_out, *args):
     return grouped_conv.estimated_blocks_per_sm(*args)
 
@@ -591,22 +675,35 @@ def _ln_ptrs(spec, ln, x, which=(0, 1)):
 
 
 @functools.lru_cache(maxsize=4096)
-def _forward_launch(device, desc, B, T, C, esize, src_align, out_align):
-    """The forward descriptor's ints of one cell on ``device``, its plans by
-    :func:`forward_plans` on the card's SMs and occupancy calculator.  Kept
-    per spec, shape, dtype, device and pointer alignment, so that a step
-    plans each cell shape once."""
+def _forward_launch(device, desc, B, T, C, esize, src_align, out_align,
+                    linear_aligned):
+    """(the forward descriptor's ints, the linear plans) of one cell on
+    ``device``: conv plans by :func:`forward_plans` on the card's SMs and
+    occupancy calculator, linear paths by :func:`linear_plans`.  Kept per
+    spec, shape, dtype, device and pointer alignment, so that a step plans
+    each cell shape once."""
+    sms = grouped_conv._sm_count(device)
     plans = forward_plans(
-        desc, B, T, C, esize, src_align, out_align,
-        grouped_conv._sm_count(device), functools.partial(
+        desc, B, T, C, esize, src_align, out_align, sms, functools.partial(
             grouped_conv._blocks_per_sm, device, 'fused_cell',
             'nbasr_fused_conv_fwd_blocks_per_sm', int(esize == 2)))
+    linear = linear_plans(desc, B * T, C, esize, linear_aligned, sms)
+    ints = forward_desc_ints(desc, plans, linear)
+    return (ctypes.c_int * len(ints))(*ints), linear
+
+
+def forward_desc_ints(desc, plans, linear):
+    """The forward kernel's descriptor: per node its seven ints, then a
+    conv node's plan (``plans[i]``, FWD_PLAN_FIELDS) or a linear node's
+    path (``linear[i]``), zeros to :data:`FWD_DESC_INTS`."""
     ints = []
     for i, plan in enumerate(plans):
         ints += desc[i * _DESC:(i + 1) * _DESC]
-        ints += ([0] * (FWD_DESC_INTS - _DESC) if plan is None else
-                 [plan[k] for k in grouped_conv.FWD_PLAN_FIELDS])
-    return (ctypes.c_int * len(ints))(*ints)
+        tail = ([plan[k] for k in grouped_conv.FWD_PLAN_FIELDS]
+                if plan is not None else
+                [linear[i]['path']] if linear[i] is not None else [])
+        ints += tail + [0] * (FWD_DESC_INTS - _DESC - len(tail))
+    return ints
 
 
 def _launch(spec, x, weights, ln, seed, save):
@@ -649,8 +746,17 @@ def _launch(spec, x, weights, ln, seed, save):
     out_align = tuple(
         _store_align([ptrs[i + 1]] + [ptrs[j] for j in set(node.branches)],
                      esize) for i, node in enumerate(spec.nodes))
-    desc_arr = _forward_launch(x.device, tuple(desc), B, T, C, esize,
-                               tuple(p % 16 for p in ptrs[:n]), out_align)
+    # a linear node's operands on 16 bytes: its input, output, branches,
+    # weight and multipliers
+    linear_aligned = tuple(
+        node.kind == 'linear' and all(p % 16 == 0 for p in (
+            ptrs[i], ptrs[i + 1], wptrs[i], *(ptrs[j] for j in node.branches),
+            *((mults.data_ptr() + i * B * T * C * esize,) if save else ())))
+        for i, node in enumerate(spec.nodes))
+    desc_arr, linear = _forward_launch(
+        x.device, tuple(desc), B, T, C, esize, tuple(p % 16 for p in ptrs[:n]),
+        out_align, linear_aligned)
+    _count_linear(linear)
     fn = _build.function('fused_cell', 'nbasr_fused_cell_forward', _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -666,33 +772,47 @@ def _launch(spec, x, weights, ln, seed, save):
 
 
 @functools.lru_cache(maxsize=4096)
-def _backward_launch(device, desc, B, T, C, esize, src_align, out_align):
-    """(the backward descriptor's ints, workspace floats) of one cell on
-    ``device``, its plans by :func:`backward_plans` on the card's SMs and
-    occupancy calculator.  Kept per spec, shape, dtype, device and pointer
-    alignment, so that a train step plans each cell shape once."""
+def _backward_launch(device, desc, B, T, C, esize, src_align, out_align,
+                     linear_aligned):
+    """(the backward descriptor's ints, workspace floats, the linear
+    plans) of one cell on ``device``: conv plans by :func:`backward_plans`
+    on the card's SMs and occupancy calculator, linear paths and dW chunks
+    by :func:`linear_plans`.  Kept per spec, shape, dtype, device and
+    pointer alignment, so that a train step plans each cell shape once."""
     def occupancy(kernel):
         return functools.partial(
             grouped_conv._blocks_per_sm, device, 'fused_cell_bwd',
             f'nbasr_fused_conv_{kernel}_blocks_per_sm', int(esize == 2))
 
-    plans = backward_plans(desc, B, T, C, esize, src_align, out_align,
-                           grouped_conv._sm_count(device), occupancy('dw'),
-                           occupancy('dx'))
-    ints = []
-    for i, plan in enumerate(plans):
-        ints += desc[i * _DESC:(i + 1) * _DESC]
-        if plan is None:
-            ints += [0] * (BWD_DESC_INTS - _DESC)
-            continue
-        mode, dw, dx = plan
-        ints += ([mode] + [dw[k] for k in grouped_conv.DW_PLAN_FIELDS]
-                 + [dx[k] for k in grouped_conv.FWD_PLAN_FIELDS])
+    sms = grouped_conv._sm_count(device)
+    plans = backward_plans(desc, B, T, C, esize, src_align, out_align, sms,
+                           occupancy('dw'), occupancy('dx'))
+    linear = linear_plans(desc, B * T, C, esize, linear_aligned, sms)
+    ints = backward_desc_ints(desc, plans, linear)
     arr = (ctypes.c_int * len(ints))(*ints)
     size = _build.function('fused_cell_bwd',
                            'nbasr_fused_cell_backward_workspace',
                            _WORKSPACE_ARGS, ctypes.c_longlong)
-    return arr, size(B, T, C, len(plans), arr)
+    return arr, size(B, T, C, len(plans), arr), linear
+
+
+def backward_desc_ints(desc, plans, linear):
+    """The backward kernel's descriptor: per node its seven ints, then a
+    conv node's dx output, dW plan and dx plan (``plans[i]``), or a linear
+    node's path and dW row chunks (``linear[i]``), zeros to
+    :data:`BWD_DESC_INTS`."""
+    ints = []
+    for i, plan in enumerate(plans):
+        ints += desc[i * _DESC:(i + 1) * _DESC]
+        if plan is None:
+            tail = ([] if linear[i] is None else
+                    [linear[i]['path'], linear[i]['chunks']])
+            ints += tail + [0] * (BWD_DESC_INTS - _DESC - len(tail))
+            continue
+        mode, dw, dx = plan
+        ints += ([mode] + [dw[k] for k in grouped_conv.DW_PLAN_FIELDS]
+                 + [dx[k] for k in grouped_conv.FWD_PLAN_FIELDS])
+    return ints
 
 
 def _launch_backward(spec, x, outs, mults, dy, weights, ln):
@@ -708,9 +828,15 @@ def _launch_backward(spec, x, outs, mults, dy, weights, ln):
     esize = x.element_size()
     src = [x.data_ptr()] + [outs.data_ptr() + i * B * T * C * esize
                             for i in range(n - 1)]
-    desc_arr, size = _backward_launch(
+    # a linear node's operands on 16 bytes: its input and weight (dz, the
+    # gradient buffers and the partials lie in the workspace, dW is new)
+    linear_aligned = tuple(
+        node.kind == 'linear' and src[i] % 16 == 0 and wptrs[i] % 16 == 0
+        for i, node in enumerate(spec.nodes))
+    desc_arr, size, linear = _backward_launch(
         x.device, tuple(desc), B, T, C, esize, tuple(p % 16 for p in src),
-        dx.data_ptr() % 16)
+        dx.data_ptr() % 16, linear_aligned)
+    _count_linear(linear)
     fn = _build.function('fused_cell_bwd', 'nbasr_fused_cell_backward',
                          _BWD_ARGS)
     work = torch.empty((size,), dtype=torch.float32, device=x.device)

@@ -151,3 +151,53 @@ def test_f32_dx_emulation_matches_reference(B, T, G, ci, K, d, choice, add,
     # the plain version sums in f32, the emulation in f64
     np.testing.assert_allclose(emulate(True), want, rtol=0, atol=1e-5 * scale)
     assert np.abs(emulate(False) - want).max() > 1e-2 * scale
+
+
+def _bf16(a):
+    """float32 values rounded to bf16 (round to nearest even), as float32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _emulate_chunked_dw(src, dz, chunks):
+    """The tensor-core dW's sums as the kernels take them, in float32: each
+    row chunk's partial (the kernel's k tiles kt0 = k_tiles * chunk /
+    chunks of fused_cell.MMA_TILE_K rows, the products exact and the sum in
+    row order), then nbasr_linear_dw_reduce's sum of the partials in chunk
+    order; the f32 result before the rounding to bf16."""
+    rows = src.shape[0]
+    bk = fused_cell.MMA_TILE_K
+    k_tiles = -(-rows // bk)
+    kt = [k_tiles * c // chunks for c in range(chunks + 1)]
+    total = None
+    for c in range(chunks):
+        part = np.zeros((src.shape[1], dz.shape[1]), np.float32)
+        for r in range(kt[c] * bk, min(kt[c + 1] * bk, rows)):
+            part = part + np.outer(src[r], dz[r]).astype(np.float32)
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize('C,rows', [(24, 200), (24, 1000), (16, 4099),
+                                    (64, 777)])
+def test_dw_chunked_ordered_sum_matches_float64(C, rows):
+    """dW split over the plan's row chunks and summed in chunk order:
+    within float32 rounding of the float64 sum of the same bf16 products
+    (rows ulps of the summed magnitudes), one bf16 ulp of the float64
+    sum's rounding after the one rounding to bf16, and the same bits on two
+    emulations (one order per output: no atomics)."""
+    g = np.random.default_rng(C * rows)
+    src = _bf16(g.standard_normal((rows, C)).astype(np.float32))
+    dz = _bf16(g.standard_normal((rows, C)).astype(np.float32))
+    chunks = fused_cell.dw_chunks(rows, C)
+    assert chunks > 1 or rows < fused_cell.DW_MIN_K_TILES * 2 * 64
+    got = _emulate_chunked_dw(src, dz, chunks)
+    again = _emulate_chunked_dw(src, dz, chunks)
+    assert np.array_equal(got.view(np.uint32), again.view(np.uint32))
+    exact = src.astype(np.float64).T @ dz.astype(np.float64)
+    mag = np.abs(src.astype(np.float64)).T @ np.abs(dz.astype(np.float64))
+    eps = np.finfo(np.float32).eps
+    assert (np.abs(got - exact) <= rows * eps * mag).all()
+    rounded = _bf16(got)
+    want = _bf16(exact.astype(np.float32))
+    ulp = np.abs(want) * 2.0 ** -7 + np.finfo(np.float32).tiny
+    assert (np.abs(rounded - want) <= ulp).all()

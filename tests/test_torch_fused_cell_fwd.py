@@ -348,3 +348,167 @@ def test_layer_norm_row_walk_matches_reference(C):
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+# The linear node's tensor-core GEMMs (csrc/linear_mma.cuh): widths from
+# the tests' 24 to the recipe's 1200, rows of one proxy call (B=1 x 128),
+# the short bucket's blocks (4,800 to 19,200), the long bucket's 37,632 and
+# a tail off every tile
+LINEAR_WIDTHS = (24, 300, 600, 800, 1000, 1200)
+LINEAR_ROWS = (128, 4800, 9600, 19200, 37632, 37632 - 37)
+# (M, N, K) of each product over B*T rows at width C: z = src W, g += dz
+# W^T, dW = src^T dz
+PRODUCTS = {'fwd': lambda rows, C: (rows, C, C),
+            'dx': lambda rows, C: (rows, C, C),
+            'dw': lambda rows, C: (C, C, rows)}
+# (vector columns V, rows of vectors P a thread at a time) of each
+# product's epilogue pass over the staged tile
+EPILOGUE_PASS = {'fwd': (8, 2), 'dx': (4, 8), 'dw': (4, 4)}
+MMA_CONSUMERS = 256     # two warpgroups; the producer warp writes nothing
+BK = fused_cell.MMA_TILE_K
+
+
+def _fragment_cells():
+    """(row, column) of the tile that each consumer thread's accumulator
+    register acc[4 j + 2 h + e] stages: thread t of warpgroup wg holds rows
+    wg*64 + 16 (t / 32) + (t % 32) / 4 + 8 h, columns 8 j + 2 (t % 4) + e
+    (wgmma.m64n128's layout, as gemm_tile writes it)."""
+    t = np.arange(MMA_CONSUMERS)[:, None, None, None]
+    h = np.arange(2)[None, :, None, None]
+    j = np.arange(fused_cell.MMA_TILE[1] // 8)[None, None, :, None]
+    e = np.arange(2)[None, None, None, :]
+    wg, lane = t // 128, t % 32
+    row = wg * 64 + (t % 128) // 32 * 16 + lane // 4 + 8 * h
+    col = 8 * j + 2 * (lane % 4) + e
+    return np.broadcast_arrays(row, col)
+
+
+def _pass_vectors(V, P):
+    """(row, first column) of every vector that tile_pass hands the
+    epilogue, over all consumer threads and passes, in one tile."""
+    BM, BN = fused_cell.MMA_TILE
+    per_row = BN // V
+    rows_per = MMA_CONSUMERS // per_row
+    t = np.arange(MMA_CONSUMERS)[:, None, None]
+    p0 = np.arange(0, BM, P * rows_per)[None, :, None]
+    q = np.arange(P)[None, None, :]
+    row = p0 + q * rows_per + t // per_row
+    col = np.broadcast_to((t % per_row) * V, row.shape)
+    return row.ravel(), col.ravel()
+
+
+@pytest.mark.parametrize('product', sorted(EPILOGUE_PASS))
+def test_linear_mma_tile_staged_and_passed_once(product):
+    """Within one 128 x 128 tile: the accumulator fragments stage every
+    cell exactly once, and the product's epilogue pass reads every cell in
+    exactly one vector of one thread."""
+    BM, BN = fused_cell.MMA_TILE
+    row, col = _fragment_cells()
+    staged = np.zeros((BM, BN), np.int64)
+    np.add.at(staged, (row.ravel(), col.ravel()), 1)
+    assert (staged == 1).all()
+    V, P = EPILOGUE_PASS[product]
+    vrow, vcol = _pass_vectors(V, P)
+    passed = np.zeros((BM, BN), np.int64)
+    for i in range(V):
+        np.add.at(passed, (vrow, vcol + i), 1)
+    assert (passed == 1).all()
+
+
+def _covered_once(starts, width, limit):
+    """Whether the spans [s, s + width) cut at limit cover [0, limit)
+    exactly once."""
+    count = np.zeros(limit + width, np.int64)
+    for s in starts:
+        count[s:min(s + width, limit)] += 1
+    return (count[:limit] == 1).all() and not count[limit:].any()
+
+
+@pytest.mark.parametrize('product', sorted(PRODUCTS))
+@pytest.mark.parametrize('rows', LINEAR_ROWS)
+@pytest.mark.parametrize('C', LINEAR_WIDTHS)
+def test_linear_plans_cover_every_output_once(C, rows, product):
+    """Each product's grid as the kernel decodes it (blockIdx.x: N tiles
+    fastest, then M tiles; blockIdx.y: dW's row chunk) covers every output
+    exactly once with the row and column masks (r < M, c < N by vectors),
+    and its k tiles every term once (TMA's zero fill past K); dW's row
+    chunks (the kernel's kt0 = k_tiles * chunk / chunks) partition the k
+    tiles, at least DW_MIN_K_TILES each where there are several, with
+    tiles x chunks filling the SMs about once.  Widths off 8 elements
+    plan no tensor-core launch."""
+    plan, = fused_cell.linear_plans([1, 0, 0, 0, 0, 0, 1], rows, C, 2,
+                                    (True,))
+    if C % 8:
+        assert plan == dict(path=fused_cell.LINEAR_FMA, chunks=1)
+        return
+    assert plan['path'] == fused_cell.LINEAR_MMA
+    M, N, K = PRODUCTS[product](rows, C)
+    BM, BN = fused_cell.MMA_TILE
+    n_tiles, m_tiles = -(-N // BN), -(-M // BM)
+    bid = np.arange(n_tiles * m_tiles)
+    m0, n0 = bid // n_tiles * BM, bid % n_tiles * BN
+    assert len(set(zip(m0.tolist(), n0.tolist()))) == len(bid)
+    assert _covered_once(np.unique(m0), BM, M)
+    V, _ = EPILOGUE_PASS[product]
+    assert N % V == 0
+    starts = [s + k for s in np.unique(n0) for k in range(0, BN, V)
+              if s + k < N]
+    assert _covered_once(starts, V, N)
+    k_tiles = -(-K // BK)
+    assert _covered_once(np.arange(k_tiles) * BK, BK, K)
+    chunks = plan['chunks'] if product == 'dw' else 1
+    assert 1 <= chunks <= k_tiles
+    kt = [k_tiles * c // chunks for c in range(chunks + 1)]
+    assert kt[0] == 0 and kt[-1] == k_tiles
+    sizes = np.diff(kt)
+    assert (sizes >= 1).all()
+    if chunks > 1:
+        assert (sizes >= fused_cell.DW_MIN_K_TILES).all()
+        assert n_tiles * m_tiles * chunks <= 132 * fused_cell.MMA_BLOCKS_PER_SM
+    assert M <= 2 ** 31 - BM and K <= 2 ** 31 - BK
+
+
+@pytest.mark.parametrize('esize,C,aligned,path', [
+    (2, 600, True, fused_cell.LINEAR_MMA),
+    (2, 24, True, fused_cell.LINEAR_MMA),
+    (2, 1200, True, fused_cell.LINEAR_MMA),
+    (4, 600, True, fused_cell.LINEAR_FMA),
+    (4, 1200, True, fused_cell.LINEAR_FMA),
+    (2, 300, True, fused_cell.LINEAR_FMA),
+    (2, 20, True, fused_cell.LINEAR_FMA),
+    (2, 600, False, fused_cell.LINEAR_FMA),
+], ids=['bf16-600', 'bf16-24', 'bf16-1200', 'f32-600', 'f32-1200',
+        'bf16-300', 'bf16-20', 'bf16-unaligned'])
+def test_linear_dispatch_by_dtype_width_and_alignment(esize, C, aligned, path):
+    """bf16 at C % 8 == 0 with every operand on 16 bytes goes to the
+    tensor-core GEMMs; f32, widths off 8 elements and operands off 16
+    bytes keep the SIMT kernels.  The descriptors carry the path where the
+    kernels read it (forward: the plan's first int; backward: the dx
+    output's slot, then dW's row chunks) and zeros after; conv and zero
+    nodes get no linear plan."""
+    assert fused_cell.linear_path(esize, C, aligned) == path
+    spec = FusedCellSpec([ConvNode(5, 1, 4, 0, C // 4, 4, 4, (0,))
+                          if C % 4 == 0 else fused_cell.ZeroNode((0,)),
+                          fused_cell.LinearNode((0, 1)),
+                          fused_cell.ZeroNode((2,))], train=True)
+    dtype = torch.bfloat16 if esize == 2 else torch.float32
+    x = torch.zeros((1, 1, C), dtype=dtype)
+    weights = ([torch.zeros((5, 4, C), dtype=dtype), torch.zeros(C)]
+               if C % 4 == 0 else [])
+    weights += [torch.zeros((C, C), dtype=dtype), torch.zeros(C)]
+    desc = fused_cell._describe(spec, x, weights)[0]
+    linear = fused_cell.linear_plans(desc, 37632, C, esize,
+                                     (aligned,) * 3)
+    assert linear[0] is None and linear[2] is None
+    assert linear[1]['path'] == path
+    assert (linear[1]['chunks'] > 1) == (path == fused_cell.LINEAR_MMA)
+    fwd = fused_cell.forward_desc_ints(desc, [None] * 3, linear)
+    bwd = fused_cell.backward_desc_ints(desc, [None] * 3, linear)
+    n = fused_cell.FWD_DESC_INTS
+    assert len(fwd) == 3 * n
+    assert fwd[n:n + 7] == desc[7:14] and fwd[n + 7] == path
+    assert not any(fwd[n + 8:2 * n]) and not any(fwd[7:n])
+    m = fused_cell.BWD_DESC_INTS
+    assert len(bwd) == 3 * m
+    assert bwd[m + 7:m + 9] == [path, linear[1]['chunks']]
+    assert not any(bwd[m + 9:2 * m]) and not any(bwd[2 * m + 7:])

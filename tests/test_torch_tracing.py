@@ -306,3 +306,31 @@ def test_conformer_spans_and_pairs_counter(tmp_path):
     lengths = logits_length(fsize, 45, out.shape[1])
     pairs = 2 * int((lengths.long() ** 2).sum())
     assert tracing.snapshot()['counts'] == {'mhsa.pairs': 2 * pairs}
+
+
+@pytest.mark.parametrize('dtype,C,counter', [
+    (torch.bfloat16, 24, 'cell.linear_mma'),
+    (torch.float32, 24, 'cell.linear_fma'),
+    (torch.bfloat16, 20, 'cell.linear_fma'),
+], ids=['bf16', 'f32', 'bf16-off-8'])
+def test_linear_node_counts_its_path(dtype, C, counter):
+    """With tracing on, each call of a cell's linear node counts under the
+    path the kernels take for it (fused_cell.linear_plans, here through the
+    plain versions' planning on the CPU), once forward and once backward:
+    the tensor cores for bf16 at C % 8 == 0, the SIMT kernels for f32 and
+    for widths off 8 elements; nothing is counted with tracing off."""
+    from nbasr_torch.models.cell import SearchCell
+    cell = SearchCell(C, [['linear', 1], ['conv5', 1, 0]], groups=4,
+                      dropout_rate=0.2)
+    cell.train()
+    x = torch.randn((2, 9, C), generator=torch.Generator().manual_seed(0)
+                    ).to(dtype).requires_grad_(True)
+
+    def step():
+        y = cell(x, generator=torch.Generator().manual_seed(1))
+        y.float().sum().backward()
+    step()
+    assert tracing.snapshot()['counts'] == {}
+    with tracing.enabled():
+        step()
+    assert tracing.snapshot()['counts'] == {counter: 2}
